@@ -1,0 +1,83 @@
+"""Build the CUDA sources under ``csrc/`` with ``nvcc`` and load them with
+``ctypes``.
+
+Each ``csrc/<name>.cu`` exports a plain C interface and compiles on its own
+into ``_build/lib<name>-<hash>.so`` (the hash covers the source and the
+flags, so an edited source rebuilds).  Nothing is compiled at import: a
+library is built at its first use, or up front by ``build()``, which starts
+one ``nvcc`` per source, all at once.  ``_build/`` is listed in
+``.gitignore``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "_build"
+SOURCES = ("flash_attention",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``, PATH."""
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch "
+                           "are built on a machine with the CUDA toolkit")
+    return found
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def build(names=SOURCES) -> dict[str, dict]:
+    """Compile every source in ``names`` that is not built yet, in parallel.
+
+    Returns ``{name: {"seconds": wall time or 0.0 if cached, "log": the
+    compiler's output (ptxas register and shared-memory report)}}``.
+    Raises ``RuntimeError`` with the compiler's output when a build fails.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs, out = {}, {}
+    t0 = time.perf_counter()
+    for name in names:
+        target = lib_path(name)
+        if target.exists():
+            out[name] = {"seconds": 0.0, "log": "cached"}
+            continue
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    for name, (proc, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu "
+                               f"(exit {proc.returncode}):\n{log}")
+        os.replace(tmp, target)     # atomic: concurrent builds never clash
+        out[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    return out
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded shared library for ``csrc/<name>.cu``, built if needed."""
+    if name not in _LIBS:
+        build((name,))
+        _LIBS[name] = ctypes.CDLL(str(lib_path(name)))
+    return _LIBS[name]

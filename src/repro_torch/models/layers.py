@@ -1,0 +1,378 @@
+"""Shared model primitives: dense (optionally 2D-BFP), norms, embeddings,
+RoPE, MLPs, and the full-sequence attention cores.
+
+Counterpart of ``repro/models/layers.py`` (decode and cache functions are
+not ported yet).  Conventions are the JAX package's:
+
+* activations are ``[B, S, D]``; attention heads ``[B, S, H, hd]``;
+* dense weights are ``(d_in, d_out)``; params are plain dicts of f32 master
+  tensors and every apply casts to the policy's compute dtype at use;
+* 2D-BFP training quantization enters exclusively through ``dense``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import bfp as bfp_mod
+from repro_torch.utils import ceil_to
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+
+
+@dataclasses.dataclass(frozen=True)
+class BFPPolicy:
+    """Fake-quant (STE) 2D BFP applied to matmul operands during training."""
+    enabled: bool = False
+    group: Tuple[int, int] = bfp_mod.PAPER_GROUP
+    ebits: int = bfp_mod.PAPER_EBITS
+    mbits: int = bfp_mod.PAPER_MBITS
+
+    def q(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.enabled:
+            return x
+        # leading dims flatten to rows, so groups straddle sequences
+        shape = x.shape
+        x2 = x.reshape(-1, shape[-1]) if x.dim() != 2 else x
+        out = bfp_mod.bfp_qdq(x2, self.group, self.ebits, self.mbits)
+        return out.reshape(shape)
+
+
+NO_BFP = BFPPolicy(enabled=False)
+
+
+# --------------------------------------------------------------------------
+# dense / norms / embeddings
+# --------------------------------------------------------------------------
+
+def _normal(gen: torch.Generator, shape, scale: float, dtype, device):
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * scale).to(dtype)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, bias: bool = False,
+               scale: float | None = None, *, lead: tuple = (),
+               dtype=torch.float32, device=None) -> dict:
+    """``lead`` prepends stacking axes (the JAX package's vmapped init)."""
+    scale = (1.0 / math.sqrt(d_in)) if scale is None else scale
+    p = {"w": _normal(gen, (*lead, d_in, d_out), scale, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros((*lead, d_out), dtype=dtype, device=device)
+    return p
+
+
+def dense(p: dict, x: torch.Tensor, *, policy: Policy = Policy(),
+          bfp: BFPPolicy = NO_BFP) -> torch.Tensor:
+    cd = policy.compute_dtype
+    w = bfp.q(p["w"]).to(cd)
+    y = torch.matmul(bfp.q(x).to(cd), w)
+    if "b" in p:
+        y = y + p["b"].to(cd)
+    return y
+
+
+def rmsnorm_init(d: int, *, lead: tuple = (), dtype=torch.float32,
+                 device=None) -> dict:
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * p["scale"].float()).to(dt)
+
+
+def layernorm_init(d: int, *, lead: tuple = (), dtype=torch.float32,
+                   device=None) -> dict:
+    return {"scale": torch.ones((*lead, d), dtype=dtype, device=device),
+            "bias": torch.zeros((*lead, d), dtype=dtype, device=device)}
+
+
+def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * p["scale"].float()
+            + p["bias"].float()).to(dt)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, pad_to: int = 1, *,
+               dtype=torch.float32, device=None) -> dict:
+    vp = ceil_to(vocab, pad_to)
+    return {"table": _normal(gen, (vp, d), 0.02, dtype, device)}
+
+
+def embed_lookup(p: dict, tokens: torch.Tensor,
+                 policy: Policy = Policy()) -> torch.Tensor:
+    # gather, then cast: the same values as casting the table first
+    return F.embedding(tokens, p["table"]).to(policy.compute_dtype)
+
+
+def unembed_logits(p: dict, x: torch.Tensor, vocab: int,
+                   policy: Policy = Policy(),
+                   softcap: float | None = None) -> torch.Tensor:
+    """Tied unembedding with padded-vocab masking (padded rows → -1e30)."""
+    cd = policy.compute_dtype
+    logits = torch.matmul(x.to(cd), p["table"].to(cd).t()).float()
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    vp = p["table"].shape[0]
+    if vp != vocab:
+        mask = torch.arange(vp, device=logits.device) < vocab
+        logits = logits.masked_fill(~mask, NEG_INF)
+    return logits
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding, split-half convention. x: [B,S,H,hd], positions [B,S]."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freq = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].float() * freq                  # [B,S,half]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention cores
+# --------------------------------------------------------------------------
+
+def _softcap(scores: torch.Tensor, cap: float | None) -> torch.Tensor:
+    return cap * torch.tanh(scores / cap) if cap is not None else scores
+
+
+def expand_kv(k: torch.Tensor, g: int) -> torch.Tensor:
+    """GQA expansion [B,S,KV,hd] → [B,S,KV·g,hd], each kv head repeated g
+    times in place (``jnp.repeat``), so query head h reads kv head h // g."""
+    return torch.repeat_interleave(k, g, dim=2) if g > 1 else k
+
+
+def _gqa_scores(q, k):
+    """q: [B,Sq,H,hd] k: [B,Skv,H,hd] (expanded) → [B,H,Sq,Skv] (f32)."""
+    return torch.einsum("bqhe,bkhe->bhqk", q.float(), k.float())
+
+
+def _gqa_out(w, v):
+    """w: [B,H,Sq,Skv] v: [B,Skv,H,hd] (expanded) → [B,Sq,H,hd]."""
+    return torch.einsum("bhqk,bkhe->bqhe", w, v.float())
+
+
+def full_attention(q, k, v, *, causal: bool, softcap=None,
+                   window: int | None = None):
+    """Materialized-scores attention (short sequences).
+
+    q: [B,Sq,H,hd]; k, v: [B,Skv,KV,hd] (expanded internally for GQA).
+    Returns [B,Sq,H,hd] in q.dtype.
+    """
+    b, sq, h, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    k = expand_kv(k, h // nkv)
+    v = expand_kv(v, h // nkv)
+    scores = _softcap(_gqa_scores(q, k) / math.sqrt(hd), softcap)
+    qpos = torch.arange(sq, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    return _gqa_out(w, v).to(q.dtype)
+
+
+def blockwise_attention(q, k, v, *, causal: bool, softcap=None,
+                        window: int | None = None,
+                        q_chunk: int = 512, kv_chunk: int = 1024,
+                        causal_skip: bool = False):
+    """Online-softmax attention over chunks (memory O(Sq·kv_chunk)).
+
+    ``causal_skip`` runs only the kv chunks that intersect a query chunk's
+    mask.  q: [B,Sq,H,hd]; k, v: [B,Skv,KV,hd]; GQA expansion happens per
+    kv chunk.
+    """
+    b, sq, h, hd = q.shape
+    skv, nkv = k.shape[1], k.shape[2]
+    g_rep = h // nkv
+    sq_p, skv_p = ceil_to(sq, q_chunk), ceil_to(skv, kv_chunk)
+    qp = F.pad(q, (0, 0, 0, 0, 0, sq_p - sq))
+    kp = F.pad(k, (0, 0, 0, 0, 0, skv_p - skv))
+    vp = F.pad(v, (0, 0, 0, 0, 0, skv_p - skv))
+    nq, nkv_chunks = sq_p // q_chunk, skv_p // kv_chunk
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+
+    outs = []
+    for iq in range(nq):
+        qi = qp[:, iq * q_chunk:(iq + 1) * q_chunk]
+        q_pos = iq * q_chunk + torch.arange(q_chunk, device=dev)
+        acc = torch.zeros((b, h, q_chunk, hd), dtype=torch.float32, device=dev)
+        m = torch.full((b, h, q_chunk), -math.inf, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, h, q_chunk), dtype=torch.float32, device=dev)
+        lo, hi = 0, nkv_chunks
+        if causal_skip and (causal or window is not None):
+            if causal:
+                hi = min((iq * q_chunk + q_chunk + kv_chunk - 1) // kv_chunk,
+                         nkv_chunks)
+            if window is not None:
+                lo = max((iq * q_chunk - window) // kv_chunk, 0)
+        for j in range(lo, hi):
+            start = j * kv_chunk
+            kb = expand_kv(kp[:, start:start + kv_chunk], g_rep)
+            vb = expand_kv(vp[:, start:start + kv_chunk], g_rep)
+            s = _softcap(_gqa_scores(qi, kb) * scale, softcap)
+            k_pos = start + torch.arange(kv_chunk, device=dev)
+            mask = (k_pos[None, :] < skv).expand(q_chunk, kv_chunk)
+            if causal:
+                mask = mask & (k_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + torch.sum(p, dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhe->bhqe", p, vb.float())
+            m = m_new
+        l = torch.clamp(l, min=1e-30)
+        outs.append((acc / l[..., None]).transpose(1, 2))   # [B,qc,H,hd]
+    out = torch.cat(outs, dim=1)[:, :sq]
+    return out.to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention layer (proj + rope + core + out-proj), GQA
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    qkv_bias: bool = False
+    rope_theta: float | None = 10000.0   # None → no rope
+    softcap: float | None = None
+    window: int | None = None            # sliding window (local attention)
+    causal: bool = True
+    blockwise_threshold: int = 1024      # switch to online-softmax above this
+    q_chunk: int = 512
+    kv_chunk: int = 1024
+    causal_skip: bool = False
+    use_flash: bool = False              # the hand-written flash kernel
+
+
+def attn_init(gen: torch.Generator, cfg: AttnConfig, *, lead: tuple = (),
+              dtype=torch.float32, device=None) -> dict:
+    kw = dict(lead=lead, dtype=dtype, device=device)
+    return {
+        "wq": dense_init(gen, cfg.d_model, cfg.n_heads * cfg.head_dim,
+                         cfg.qkv_bias, **kw),
+        "wk": dense_init(gen, cfg.d_model, cfg.n_kv * cfg.head_dim,
+                         cfg.qkv_bias, **kw),
+        "wv": dense_init(gen, cfg.d_model, cfg.n_kv * cfg.head_dim,
+                         cfg.qkv_bias, **kw),
+        "wo": dense_init(gen, cfg.n_heads * cfg.head_dim, cfg.d_model, **kw),
+    }
+
+
+def _project_qkv(p, x, kv_x, cfg: AttnConfig, policy, bfp, positions,
+                 kv_positions=None):
+    """q: [B,S,H,hd]; k/v: [B,Skv,KV,hd]."""
+    b, s, _ = x.shape
+    q = dense(p["wq"], x, policy=policy, bfp=bfp).reshape(
+        b, s, cfg.n_heads, cfg.head_dim)
+    skv = kv_x.shape[1]
+    k = dense(p["wk"], kv_x, policy=policy, bfp=bfp).reshape(
+        b, skv, cfg.n_kv, cfg.head_dim)
+    v = dense(p["wv"], kv_x, policy=policy, bfp=bfp).reshape(
+        b, skv, cfg.n_kv, cfg.head_dim)
+    if cfg.rope_theta is not None and positions is not None:
+        q = rope(q, positions, cfg.rope_theta)
+        kv_pos = positions if kv_positions is None else kv_positions
+        k = rope(k, kv_pos, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_layer(p, x, cfg: AttnConfig, *, policy=Policy(), bfp=NO_BFP,
+                    kv_x=None, positions=None, kv_positions=None):
+    """Full-sequence attention (train / prefill).  kv_x ≠ None → cross-attn."""
+    b, s, _ = x.shape
+    self_attn = kv_x is None
+    kv_x = x if self_attn else kv_x
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _project_qkv(p, x, kv_x, cfg, policy, bfp, positions,
+                           kv_positions)
+    causal = cfg.causal and self_attn
+    if cfg.use_flash and cfg.window is None:
+        from repro_torch.kernels.flash_attention import flash_attention
+        qc = min(cfg.q_chunk, s)
+        kc = min(cfg.kv_chunk, kv_x.shape[1])
+        o = flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, softcap=cfg.softcap, q_chunk=qc,
+            kv_chunk=kc).transpose(1, 2)
+    elif max(s, kv_x.shape[1]) > cfg.blockwise_threshold:
+        o = blockwise_attention(q, k, v, causal=causal, softcap=cfg.softcap,
+                                window=cfg.window, q_chunk=cfg.q_chunk,
+                                kv_chunk=cfg.kv_chunk,
+                                causal_skip=cfg.causal_skip)
+    else:
+        o = full_attention(q, k, v, causal=causal, softcap=cfg.softcap,
+                           window=cfg.window)
+    o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return dense(p["wo"], o, policy=policy, bfp=bfp)
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default (tanh approximation)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
+             gated: bool = True, *, lead: tuple = (), dtype=torch.float32,
+             device=None) -> dict:
+    kw = dict(lead=lead, dtype=dtype, device=device)
+    p = {"wi": dense_init(gen, d_model, d_ff, **kw),
+         "wo": dense_init(gen, d_ff, d_model, **kw)}
+    if gated:
+        p["wg"] = dense_init(gen, d_model, d_ff, **kw)
+    return p
+
+
+def mlp(p: dict, x: torch.Tensor, *, policy=Policy(), bfp=NO_BFP,
+        act: Callable = F.silu) -> torch.Tensor:
+    h = dense(p["wi"], x, policy=policy, bfp=bfp)
+    if "wg" in p:
+        h = act(dense(p["wg"], x, policy=policy, bfp=bfp)) * h
+    else:
+        h = act(h)
+    return dense(p["wo"], h, policy=policy, bfp=bfp)

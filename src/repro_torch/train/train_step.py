@@ -1,0 +1,152 @@
+"""The paper's Duplex training step (frozen backbone + reversible branch).
+
+Counterpart of ``repro/train/train_step.py`` for ``mode="duplex"``.
+Dataflow (paper Fig 9):
+  1. backbone forward in ``backbone_dtype`` under ``torch.no_grad()``,
+     collecting pooled per-superblock taps — no backbone activations kept;
+  2. reversible branch over pooled streams (O(1) saved activations);
+  3. correction added to the detached backbone hidden; the frozen
+     unembedding produces logits, so the gradient reaches the branch
+     through it;
+  4. gradients and the optimizer touch ONLY the branch params.
+
+``mode="full"`` is not ported: with ``use_flash`` it would differentiate
+through the flash kernel, which has no backward.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.configs.common import ModelConfig
+from repro_torch.core import duplex as dx
+from repro_torch.models import layers as L
+from repro_torch.optim import OptConfig, SGDConfig, opt_init, opt_update
+from repro_torch.train.losses import lm_cross_entropy
+from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    mode: str = "duplex"                   # duplex (full: not ported)
+    duplex: dx.DuplexConfig = dx.DuplexConfig()
+    opt: OptConfig = SGDConfig()
+    lr: float = 1e-3
+    lr_schedule: Callable | None = None    # step → lr (overrides .lr)
+    z_loss: float = 1e-4
+    aux_weight: float = 1e-2               # MoE load-balance weight (full mode)
+    microbatch: int = 1                    # gradient-accumulation splits
+    backbone_dtype: torch.dtype = torch.bfloat16   # frozen storage precision
+
+
+def _check_mode(tcfg: TrainConfig):
+    if tcfg.mode != "duplex":
+        raise NotImplementedError(
+            f"mode={tcfg.mode!r} is not ported to repro_torch: the full "
+            f"finetune would differentiate through the flash kernel, which "
+            f"has no backward")
+
+
+def tap_indices(n_rep: int, n_blocks: int) -> np.ndarray:
+    """Evenly spaced backbone superblocks feeding the branch blocks."""
+    if n_rep <= 0:
+        raise ValueError("backbone has no scanned blocks to tap")
+    return np.round(np.linspace(0, n_rep - 1, n_blocks)).astype(np.int32)
+
+
+def init_state(gen: torch.Generator, entry, cfg: ModelConfig,
+               tcfg: TrainConfig, policy: L.Policy = L.Policy(), *,
+               device=None) -> dict:
+    """``{"step", "backbone", "branch", "opt"}``; the backbone is drawn
+    straight into ``backbone_dtype`` with ``requires_grad=False``."""
+    _check_mode(tcfg)
+    backbone = entry.module.init_params(gen, cfg, dtype=tcfg.backbone_dtype,
+                                        device=device)
+    branch = dx.duplex_init(gen, tcfg.duplex, cfg.d_model, device=device)
+    return {"step": torch.zeros((), dtype=torch.int32, device=device),
+            "backbone": backbone, "branch": branch,
+            "opt": opt_init(tcfg.opt, branch)}
+
+
+def _lr(tcfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
+    if tcfg.lr_schedule is not None:
+        return tcfg.lr_schedule(step)
+    return torch.full((), tcfg.lr, dtype=torch.float32, device=step.device)
+
+
+def make_loss_fn(entry, cfg: ModelConfig, tcfg: TrainConfig,
+                 policy: L.Policy = L.Policy()):
+    """Returns ``loss_fn(branch, backbone, batch) -> (loss, metrics)``,
+    the duplex loss that ``make_train_step`` differentiates."""
+    _check_mode(tcfg)
+    module = entry.module
+    idx = tap_indices(cfg.n_rep, tcfg.duplex.n_blocks)
+
+    def loss_fn(branch, backbone, batch):
+        if "frontend" in batch:
+            raise NotImplementedError("frontend stubs are not ported yet")
+        with torch.no_grad():
+            out = module.forward(backbone, cfg, batch["tokens"],
+                                 collect_taps=True, tap_indices=idx,
+                                 tap_pool=tcfg.duplex.pool_factor,
+                                 policy=policy)
+        corr = dx.duplex_apply(branch, tcfg.duplex, out["emb"], out["taps"],
+                               policy=policy, taps_pooled=True)
+        hidden = out["hidden"].detach() + corr
+        logits = module.lm_logits(backbone, cfg, hidden, policy)
+        return lm_cross_entropy(logits, batch["labels"], batch.get("mask"),
+                                z_loss=tcfg.z_loss)
+
+    return loss_fn
+
+
+def make_train_step(entry, cfg: ModelConfig, tcfg: TrainConfig,
+                    policy: L.Policy = L.Policy()):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    batch: {"tokens" [B,S] int, "labels" [B,S] int, optional "mask"}, as
+    tensors on the state's device.  The step returns a new state dict; the
+    given state's tensors are not modified.
+    """
+    loss_fn = make_loss_fn(entry, cfg, tcfg, policy)
+
+    def grad_fn(branch, backbone, batch):
+        paths, leaves = zip(*tree_flatten(branch))
+        leaves = [p.detach().requires_grad_() for p in leaves]
+        loss, metrics = loss_fn(tree_unflatten(list(zip(paths, leaves))),
+                                backbone, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return metrics, tree_unflatten(list(zip(paths, grads)))
+
+    def train_step(state, batch):
+        frozen = state["backbone"]
+        if tcfg.microbatch > 1:
+            k = tcfg.microbatch
+            mbs = [{n: x.reshape((k, x.shape[0] // k) + x.shape[1:])[j]
+                    for n, x in batch.items()} for j in range(k)]
+            gsum, ms = None, []
+            for mb in mbs:
+                metrics, g = grad_fn(state["branch"], frozen, mb)
+                g = tree_map(lambda t: t.float(), g)
+                gsum = g if gsum is None else tree_map(torch.add, gsum, g)
+                ms.append(metrics)
+            grads = tree_map(lambda g: g / k, gsum)
+            metrics = {n: torch.mean(torch.stack([m[n] for m in ms]))
+                       for n in ms[0]}
+        else:
+            metrics, grads = grad_fn(state["branch"], frozen, batch)
+
+        lr = _lr(tcfg, state["step"])
+        new_p, new_opt, om = opt_update(tcfg.opt, grads, state["opt"],
+                                        state["branch"], lr)
+        new_state = dict(state)
+        new_state["branch"] = new_p
+        new_state["opt"] = new_opt
+        new_state["step"] = state["step"] + 1
+        return new_state, {**metrics, **om, "lr": lr}
+
+    return train_step

@@ -1,0 +1,75 @@
+"""repro_torch stands alone: it imports without JAX and without the JAX
+package, and its sources (and chip_smoke.py) name neither, nor a library
+attention or torch.compile."""
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    import repro_torch
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_every_module_imports_with_jax_and_repro_masked():
+    mods = _modules()
+    assert "repro_torch.kernels.flash_attention" in mods
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import importlib\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert all(sys.modules[m] is None for m in bad), bad\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"}, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + \
+        [ROOT / "chip_smoke.py"]
+
+
+FORBIDDEN = [
+    (r"^\s*import\s+jax\b|^\s*from\s+jax\b", "imports jax"),
+    (r"^\s*import\s+repro\.|^\s*from\s+repro\.|^\s*import\s+repro\s*$"
+     r"|^\s*from\s+repro\s+import", "imports the JAX package"),
+    (r"scaled_dot_product_attention", "library attention"),
+    (r"torch\.compile", "torch.compile"),
+]
+
+
+@pytest.mark.parametrize("pattern,what", FORBIDDEN,
+                         ids=[w for _, w in FORBIDDEN])
+def test_sources_name_no_forbidden_import_or_call(pattern, what):
+    rx = re.compile(pattern, re.M)
+    hits = []
+    for path in _sources():
+        if path.name == "chip_smoke.py" and what == "library attention":
+            continue    # chip_smoke times the library call as a yardstick
+        if rx.search(path.read_text()):
+            hits.append(str(path.relative_to(ROOT)))
+    assert not hits, f"{what}: {hits}"
+
+
+def test_chip_smoke_calls_library_attention_only_to_time_it():
+    text = (ROOT / "chip_smoke.py").read_text()
+    calls = [l for l in text.splitlines()
+             if "scaled_dot_product_attention" in l]
+    assert all("library" in l or l.lstrip().startswith("#") for l in calls), \
+        calls

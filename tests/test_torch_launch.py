@@ -1,0 +1,92 @@
+"""The port's launcher: a few smoke steps on the CPU, and no silent CPU
+fallback when a card is asked for and absent."""
+import math
+
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as tf
+from repro_torch.launch import train
+from repro_torch.train import loop
+
+
+def test_smoke_steps_on_cpu(capsys):
+    out = train.main(["--arch", "granite-3-8b", "--preset", "smoke",
+                      "--steps", "3", "--seq", "32", "--batch", "4",
+                      "--device", "cpu", "--log-every", "1"])
+    report = out["report"]
+    assert report.steps_run == 3
+    assert [m["step"] for m in report.metrics_history] == [0, 1, 2]
+    assert all(math.isfinite(m["loss"]) for m in report.metrics_history)
+    assert out["backbone_checksum"][0] == out["backbone_checksum"][1]
+    assert out["branch_max_abs_change"] > 0
+    assert int(report.state["step"]) == 3
+    assert "finished 3 steps" in capsys.readouterr().out
+
+
+def test_full_preset_turns_on_flash():
+    _, cfg, tcfg, policy = train.build("granite-3-8b", "full")
+    assert cfg.use_flash and policy.compute_dtype == torch.bfloat16
+    assert tcfg.backbone_dtype == torch.bfloat16
+    assert (tcfg.duplex.d_branch, tcfg.duplex.n_blocks,
+            tcfg.duplex.pool_factor, tcfg.duplex.branch_heads) == (512, 8, 16, 4)
+    assert tcfg.duplex.bfp.group == (32, 32)
+
+
+def test_cpu_path_launches_no_kernel():
+    before = tf.flash_attention.launches
+    train.main(["--arch", "qwen2-72b", "--preset", "smoke", "--steps", "1",
+                "--seq", "16", "--batch", "2", "--device", "cpu"])
+    assert tf.flash_attention.launches == before
+
+
+def test_cuda_request_without_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "granite-3-8b", "--preset", "smoke",
+                    "--steps", "1"])
+
+
+def test_checkpoint_config_is_not_ported():
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        loop.run(loop.LoopConfig(total_steps=1, ckpt=object()), None,
+                 None, None)
+
+
+@pytest.mark.cuda
+def test_cuda_duplex_step_matches_cpu():
+    """One duplex step on the card (flash kernel, f32) against the same step
+    on the CPU (plain version).  BFP off: a BFP group could round the other
+    way under the card's summation order and move an operand by a whole
+    group step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import dataclasses as dc
+
+    from repro_torch.models import layers as L
+    from repro_torch.train import train_step as ts
+    from repro_torch.utils import tree_flatten, tree_map
+
+    entry, cfg, tcfg, policy = train.build("granite-3-8b", "smoke")
+    cfg = dc.replace(cfg, d_model=128, n_heads=2, n_kv=1, head_dim=64,
+                     use_flash=True)
+    tcfg = dc.replace(tcfg, duplex=dc.replace(tcfg.duplex,
+                                              bfp=L.BFPPolicy(False)))
+    state = ts.init_state(torch.Generator().manual_seed(0), entry, cfg, tcfg,
+                          policy)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    step = ts.make_train_step(entry, cfg, tcfg, policy)
+    cpu_state, cpu_m = step(state, batch)
+    before = tf.flash_attention.launches
+    gpu_state, gpu_m = step(tree_map(lambda t: t.cuda(), state),
+                            {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert tf.flash_attention.launches == before + cfg.n_rep
+    torch.testing.assert_close(gpu_m["loss"].cpu(), cpu_m["loss"],
+                               rtol=1e-4, atol=1e-5)
+    for (p, g), (_, c) in zip(tree_flatten(gpu_state["branch"]),
+                              tree_flatten(cpu_state["branch"])):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5,
+                                   msg=p)

@@ -1,0 +1,174 @@
+"""The port's duplex training step against repro.train.train_step.
+
+One bridged ``init_state`` and one numpy batch go through both steps; the
+port's runs with ``use_flash=True`` (the plain flash version on the CPU),
+JAX's with ``use_flash=False``, since JAX's transformer cannot run its flash
+path on a CPU (see test_torch_transformer.py)."""
+import dataclasses as dc
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import duplex as jdx
+from repro.models import layers as JL, registry as jreg
+from repro.optim import AdamWConfig as JAdamW, SGDConfig as JSGD
+from repro.train import train_step as jts
+from repro_torch import bridge
+from repro_torch.core import duplex as tdx
+from repro_torch.models import layers as TL, registry as treg
+from repro_torch.optim import AdamWConfig as TAdamW, SGDConfig as TSGD
+from repro_torch.train import train_step as tts
+from repro_torch.utils import tree_flatten
+
+JP32 = JL.Policy(compute_dtype=jnp.float32)
+TP32 = TL.Policy(compute_dtype=torch.float32)
+
+
+def _configs(opt="sgd", bfp=None, microbatch=1, arch="granite-3-8b",
+             lr=1e-2, **opt_kw):
+    dkw = dict(n_blocks=2, d_branch=32 if bfp else 16, pool_factor=4,
+               branch_heads=2)
+    jd = jdx.DuplexConfig(**dkw, bfp=JL.BFPPolicy(enabled=bfp is not None,
+                                                   group=bfp or (3, 3)))
+    td = tdx.DuplexConfig(**dkw, bfp=TL.BFPPolicy(enabled=bfp is not None,
+                                                   group=bfp or (3, 3)))
+    jo, to = (JSGD(**opt_kw), TSGD(**opt_kw)) if opt == "sgd" else \
+        (JAdamW(**opt_kw), TAdamW(**opt_kw))
+    jt = jts.TrainConfig(mode="duplex", duplex=jd, opt=jo, lr=lr,
+                         microbatch=microbatch, backbone_dtype=jnp.float32)
+    tt = tts.TrainConfig(mode="duplex", duplex=td, opt=to, lr=lr,
+                         microbatch=microbatch, backbone_dtype=torch.float32)
+    jentry, tentry = jreg.get(arch), treg.get(arch)
+    tcfg = dc.replace(tentry.smoke, use_flash=True)
+    return (jentry, jentry.smoke, jt), (tentry, tcfg, tt)
+
+
+def _batch(vocab, b=4, s=16, seed=0):
+    tokens = np.random.default_rng(seed).integers(0, vocab, (b, s)).astype(
+        np.int32)
+    return {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+
+
+def _jax_state(jside, seed=0):
+    jentry, jcfg, jt = jside
+    st = jax.jit(lambda key: jts.init_state(key, jentry, jcfg, jt, JP32))(
+        jax.random.PRNGKey(seed))
+    return jax.tree_util.tree_map(np.asarray, st)
+
+
+def _jax_step(jside, state_np, batch, n=1):
+    jentry, jcfg, jt = jside
+    step = jax.jit(jts.make_train_step(jentry, jcfg, jt, JP32))
+    st = jax.tree_util.tree_map(jnp.asarray, state_np)
+    for _ in range(n):
+        st, m = step(st, {k: jnp.asarray(v) for k, v in batch.items()})
+    return jax.tree_util.tree_map(np.asarray, st), \
+        {k: float(v) for k, v in m.items()}
+
+
+def _torch_step(tside, state, batch, n=1):
+    tentry, tcfg, tt = tside
+    step = tts.make_train_step(tentry, tcfg, tt, TP32)
+    tb = {k: torch.from_numpy(v).long() for k, v in batch.items()}
+    ms = []
+    for _ in range(n):
+        state, m = step(state, tb)
+        ms.append({k: float(v) for k, v in m.items()})
+    return state, ms
+
+
+def _assert_state_close(got, want_np, rtol, atol):
+    got_np = bridge.to_numpy({k: got[k] for k in ("branch", "opt", "step")})
+    want = {k: want_np[k] for k in ("branch", "opt", "step")}
+    gflat, wflat = tree_flatten(got_np), tree_flatten(want)
+    assert [p for p, _ in gflat] == [p for p, _ in wflat]
+    for (path, g), (_, w) in zip(gflat, wflat):
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=path)
+
+
+@pytest.mark.parametrize("opt", ["sgd", "adamw"])
+def test_bridged_state_has_the_ports_structure(opt):
+    jside, tside = _configs(opt)
+    bridged = bridge.state_from_jax(_jax_state(jside), "cpu")
+    tentry, tcfg, tt = tside
+    own = tts.init_state(torch.Generator().manual_seed(0), tentry, tcfg, tt,
+                         TP32)
+    sig = lambda s: [(p, tuple(x.shape), x.dtype) for p, x in tree_flatten(s)]
+    assert sig(bridged) == sig(own)
+    assert "step" not in own["opt"]          # AdamW's step comes with update 1
+
+
+@pytest.mark.parametrize("opt,opt_kw", [
+    ("sgd", {}),                                     # momentum 0.9, wd, clip
+    ("sgd", dict(nesterov=True, clip_norm=None)),
+    ("adamw", {}),
+])
+def test_one_step_matches_jax(opt, opt_kw):
+    jside, tside = _configs(opt, **opt_kw)
+    st_np = _jax_state(jside)
+    batch = _batch(jside[1].vocab)
+    want_state, want_m = _jax_step(jside, st_np, batch)
+    got_state, (got_m,) = _torch_step(
+        tside, bridge.state_from_jax(st_np, "cpu"), batch)
+    for key in ("loss", "accuracy", "grad_norm", "lr"):
+        np.testing.assert_allclose(got_m[key], want_m[key], rtol=1e-5,
+                                   atol=1e-6, err_msg=key)
+    _assert_state_close(got_state, want_state, rtol=1e-5, atol=1e-6)
+
+
+# BFP (32,32) on the branch: the same 1e-5/1e-6 holds because no mantissa
+# or group exponent rounds differently at these inputs (a flip would move an
+# operand by a whole group step, 2^(e-4), and fail the comparison).
+def test_one_step_with_bfp_matches_jax():
+    jside, tside = _configs("sgd", bfp=(32, 32))
+    st_np = _jax_state(jside, seed=3)
+    batch = _batch(jside[1].vocab, seed=3)
+    want_state, want_m = _jax_step(jside, st_np, batch)
+    got_state, (got_m,) = _torch_step(
+        tside, bridge.state_from_jax(st_np, "cpu"), batch)
+    for key in ("loss", "accuracy", "grad_norm"):
+        np.testing.assert_allclose(got_m[key], want_m[key], rtol=1e-5,
+                                   atol=1e-6, err_msg=key)
+    _assert_state_close(got_state, want_state, rtol=1e-5, atol=1e-6)
+
+
+def test_trains_and_freezes_backbone():
+    jside, tside = _configs("adamw", arch="qwen2-72b", lr=3e-3,
+                            weight_decay=0.0)
+    state = bridge.state_from_jax(_jax_state(jside), "cpu")
+    before = [t.clone() for _, t in tree_flatten(state["backbone"])]
+    state, ms = _torch_step(tside, state, _batch(jside[1].vocab), n=8)
+    after = [t for _, t in tree_flatten(state["backbone"])]
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    losses = [m["loss"] for m in ms]
+    assert losses[-1] < losses[0], losses    # memorizes a fixed batch
+    assert int(state["step"]) == 8
+
+
+def test_microbatch_equals_fullbatch():
+    base = dict(lr=1e-2, momentum=0.0, weight_decay=0.0, clip_norm=None)
+    _, t1 = _configs("sgd", microbatch=1, **base)
+    jside, t4 = _configs("sgd", microbatch=4, **base)
+    st_np = _jax_state(jside, seed=2)
+    batch = _batch(jside[1].vocab, b=8)
+    s1, _ = _torch_step(t1, bridge.state_from_jax(st_np, "cpu"), batch)
+    s4, _ = _torch_step(t4, bridge.state_from_jax(st_np, "cpu"), batch)
+    for (p, a), (_, b) in zip(tree_flatten(s1["branch"]),
+                              tree_flatten(s4["branch"])):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-6, err_msg=p)
+
+
+def test_full_mode_is_not_ported():
+    _, (tentry, tcfg, tt) = _configs()
+    with pytest.raises(NotImplementedError, match="flash"):
+        tts.make_train_step(tentry, tcfg, dc.replace(tt, mode="full"), TP32)
+
+
+def test_tap_indices_of_granite():
+    np.testing.assert_array_equal(tts.tap_indices(40, 8),
+                                  jts.tap_indices(40, 8))
+    assert tts.tap_indices(40, 8).tolist() == [0, 6, 11, 17, 22, 28, 33, 39]

@@ -1,0 +1,110 @@
+"""repro_torch.models.transformer against repro.models.transformer at 2e-5
+on the granite and qwen2 smoke configs.
+
+The port runs with ``use_flash`` on and off; both are held against JAX with
+``use_flash=False``: JAX's transformer cannot run its flash path on a CPU
+(``attn_cfg_for`` does not pass ``flash_interpret``).  The flash layer itself
+is held against JAX's flash path in interpret mode in test_torch_layers.py."""
+import dataclasses as dc
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import layers as JL, registry as jreg, transformer as jtr
+from repro_torch import bridge
+from repro_torch.models import layers as TL, registry as treg, \
+    transformer as ttr
+from repro_torch.utils import tree_flatten
+
+JP32 = JL.Policy(compute_dtype=jnp.float32)
+TP32 = TL.Policy(compute_dtype=torch.float32)
+TOL = dict(rtol=2e-5, atol=2e-5)
+ARCHS = ["granite-3-8b", "qwen2-72b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def model(request):
+    name = request.param
+    jcfg = jreg.get(name).smoke
+    params = jax.tree_util.tree_map(
+        np.asarray, jtr.init_params(jax.random.PRNGKey(0), jcfg))
+    tokens = np.random.default_rng(1).integers(
+        0, jcfg.vocab, (2, 16)).astype(np.int32)
+    idx = [0, jcfg.n_rep - 1]
+
+    @jax.jit
+    def run(p, tok):
+        out = jtr.forward(p, jcfg, tok, policy=JP32, collect_taps=True,
+                          tap_indices=idx, tap_pool=4)
+        return out, jtr.lm_logits(p, jcfg, out["hidden"], JP32)
+
+    out, logits = run(jax.tree_util.tree_map(jnp.asarray, params),
+                      jnp.asarray(tokens))
+    want = {k: np.asarray(v) for k, v in out.items() if v is not None}
+    want["logits"] = np.asarray(logits)
+    return name, params, tokens, idx, want
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_forward_and_logits_match_jax(model, use_flash):
+    name, params, tokens, idx, want = model
+    cfg = dc.replace(treg.get(name).smoke, use_flash=use_flash)
+    tp = bridge.to_torch(params, "cpu")
+    out = ttr.forward(tp, cfg, torch.from_numpy(tokens).long(), policy=TP32,
+                      collect_taps=True, tap_indices=idx, tap_pool=4)
+    for key in ("hidden", "emb", "taps"):
+        assert tuple(out[key].shape) == want[key].shape, key
+        np.testing.assert_allclose(out[key].numpy(), want[key], **TOL,
+                                   err_msg=key)
+    logits = ttr.lm_logits(tp, cfg, out["hidden"], TP32)
+    np.testing.assert_allclose(logits.numpy(), want["logits"], **TOL)
+
+
+def test_collect_all_taps_without_indices(model):
+    name, params, tokens, _, _ = model
+    cfg = treg.get(name).smoke
+    jout = jtr.forward(jax.tree_util.tree_map(jnp.asarray, params),
+                       jreg.get(name).smoke, jnp.asarray(tokens),
+                       policy=JP32, collect_taps=True)
+    out = ttr.forward(bridge.to_torch(params, "cpu"), cfg,
+                      torch.from_numpy(tokens).long(), policy=TP32,
+                      collect_taps=True)
+    np.testing.assert_allclose(out["taps"].numpy(), np.asarray(jout["taps"]),
+                               **TOL)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_init_structure_matches_jax(name):
+    want = jax.tree_util.tree_map(
+        np.asarray, jtr.init_params(jax.random.PRNGKey(0),
+                                    jreg.get(name).smoke))
+    got = ttr.init_params(torch.Generator().manual_seed(0),
+                          treg.get(name).smoke, dtype=torch.bfloat16)
+    assert [(p, tuple(x.shape)) for p, x in tree_flatten(got)] == \
+        [(p, x.shape) for p, x in tree_flatten(want)]
+    assert all(x.dtype == torch.bfloat16 for _, x in tree_flatten(got))
+
+
+def test_full_configs_are_copies():
+    for name in ARCHS:
+        for preset in ("full", "smoke"):
+            j = dc.asdict(jreg.get(name).config(preset))
+            t = dc.asdict(treg.get(name).config(preset))
+            assert j == t, name
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "granite-moe-1b-a400m",
+                                  "gemma2-9b", "whisper-base"])
+def test_unported_archs_raise_naming_the_roadmap(name):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        treg.get(name)
+
+
+def test_unported_layer_kind_raises():
+    cfg = dc.replace(treg.get("granite-3-8b").smoke,
+                     pattern=(ttr.LayerSpec("local", "dense"),), window=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttr.init_params(torch.Generator().manual_seed(0), cfg)
