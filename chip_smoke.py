@@ -7,14 +7,24 @@ Phases, each printing its numbers on lines of their own:
   2. build every CUDA kernel of the port from the sources in this checkout;
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes and a few small ones, with times (kernel, plain version,
-     one library call as a yardstick) and the bound the card sets;
-  4. the main path: ``repro_torch.launch.train`` trains granite-3-8b at full
+     one library call as a yardstick) and the bound the card sets
+     (``flash_check`` lines; ``bfp_check`` lines at the JAX tests' shapes);
+  4. the BFP path, ``kernels/ops.py``: ``bfp_dense`` forward and backward
+     on granite-3-8b's MLP up-projection at full width (x [2,4096,4096],
+     w [4096,12800], group 32), quantize + packed product on the same
+     operands, and the duplex branch's up-projection; counts zeroed just
+     before and read just after, every result held against the plain
+     versions, then each BFP kernel timed (``bfp_path``/``bfp_time`` lines);
+     all of it freed before the next phase;
+  5. the duplex path: ``repro_torch.launch.train`` trains granite-3-8b at full
      width (random weights from a seed, bf16 backbone, flash kernel on) for
      3 duplex steps at batch 2 x 4096 tokens; the launch counts are zeroed
      just before and read just after; the loss must be finite, the branch
      must move and the backbone's checksum must not; the flash path's loss
      is then held against the plain attention path's on the same state;
-  5. one JSON line with every kernel's numbers, the card line again, and
+     the step launches no BFP kernel (its branch quantizes by fake-quant,
+     as the reference's does);
+  6. one JSON line with every kernel's numbers, the card line again, and
      the last line {"ok": true, "device": {...}}.
 Any failure raises and the exit code is not 0.  Without a CUDA device it
 exits with code 2 before printing any result.
@@ -159,6 +169,266 @@ def check_flash(gen) -> dict:
     return main
 
 
+# ---------------------------------------------------------------------------
+# BFP kernels (csrc/bfp.cu): checks against the plain versions, then the
+# slice's path, kernels/ops.py, at the widths of the granite-3-8b cell.
+# ---------------------------------------------------------------------------
+
+# The elementwise criterion of tests/test_kernels_bfp.py:36-37
+# (|kernel - plain| <= atol + rtol |plain|), and a relative Frobenius gate:
+# the operands are the same bf16-exact values on both sides, so only the
+# order of the f32 sums differs.  Read on the H100: exactly 0 wherever the
+# sums are exact in f32, 8.4e-8 where they round (PERF.md, Findings);
+# the gate sits 12x above that.
+BFP_RTOL, BFP_ATOL = 1e-5, 1e-4
+BFP_REL_TOL = 1e-6
+# H100 SXM dense peaks for the bounds: int8 tensor cores (BFP mantissas fit
+# int8; the least time for a BFP product), f32 SIMT pipes (quantization).
+PEAK_INT8_OPS = 1979e12
+PEAK_F32_OPS = 67e12
+
+# the Pallas kernel bodies each CUDA kernel replaces
+BFP_REPLACES = {
+    "bfp_matmul": "src/repro/kernels/bfp_matmul.py:27",
+    "bfp_quantize": "src/repro/kernels/bfp_quant.py:23",
+    "bfp_matmul_packed": "src/repro/kernels/bfp_quant.py:70",
+}
+# (label, m, k, n, group, block, dtype, rows of A zeroed, skip_zero_groups)
+BFP_MATMUL_CASES = [
+    *[(f"{m}x{k}x{n}_{dt}", m, k, n, 32, 64, dt, 0, False)
+      for m, k, n in [(32, 32, 32), (64, 96, 32), (100, 70, 36),
+                      (256, 128, 512)]
+      for dt in (torch.float32, torch.bfloat16)],
+    *[(f"group{g}", 64, 64, 64, g, 64, torch.float32, 0, False)
+      for g in (8, 16, 32)],
+    ("group3_f32", 100, 70, 36, 3, 48, torch.float32, 0, False),
+    ("group3_bf16", 100, 70, 36, 3, 48, torch.bfloat16, 0, False),
+    ("zero_gated", 64, 64, 64, 32, 32, torch.float32, 32, True),
+    ("zero_gated_tile", 192, 192, 192, 32, 64, torch.float32, 96, True),
+    ("wide_range", 256, 512, 256, 32, 64, torch.float32, 0, False),
+]
+# (label, m, n, group, block, dtype)
+BFP_QUANT_CASES = [
+    *[(f"{m}x{n}_{dt}", m, n, 32, 64, dt)
+      for m, n in [(32, 32), (96, 64), (70, 40), (100, 70)]
+      for dt in (torch.float32, torch.bfloat16)],
+    ("group3", 100, 70, 3, 48, torch.float32),
+]
+
+
+def bfp_gate(label: str, got: torch.Tensor, want: torch.Tensor,
+             bound: torch.Tensor | None = None):
+    """Both gates; returns (max |diff|, relative Frobenius error).  With
+    ``bound``, the elementwise gate is |kernel - plain| <= bound instead."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if bound is None:
+        bound = BFP_ATOL + BFP_RTOL * want.float().abs()
+    excess = float((diff - bound).max())
+    rel = rel_fro(got, want)
+    if not excess <= 0:
+        raise AssertionError(f"bfp {label}: |kernel - plain| exceeds its "
+                             f"bound by {excess}; max |diff| {err}")
+    if not rel <= BFP_REL_TOL:
+        raise AssertionError(f"bfp {label}: relative Frobenius error {rel} "
+                             f"exceeds {BFP_REL_TOL}")
+    return err, rel
+
+
+def check_bfp(gen) -> None:
+    """Each BFP kernel against its plain version at the JAX tests' shapes."""
+    from repro_torch.kernels import bfp_matmul as bm, bfp_quant as bq
+    from repro_torch.kernels.bfp_common import qdq_block
+    for (label, m, k, n, g, blk, dtype, zrows,
+         skip) in BFP_MATMUL_CASES:
+        a = (torch.randn((m, k), generator=gen, device="cuda") * 2).to(dtype)
+        b = (torch.randn((k, n), generator=gen, device="cuda") * 2).to(dtype)
+        a[:zrows] = 0
+        bound = None
+        if label == "wide_range":
+            # group exponents over the whole 4-bit range along K, so that
+            # the f32 sums round and cancel; the elementwise gate is then
+            # the f32 dot-product error bound 2 K u (|Q(a)| |Q(b)|), u = 2^-24
+            span = torch.exp2(torch.linspace(-12, 12, k, device="cuda"))
+            a, b = a * span, b * span[:, None]
+            qa, qb = (qdq_block(t, g, 5, 4).abs() for t in (a, b))
+            bound = 2 * k * 2.0 ** -24 * torch.matmul(qa, qb)
+        got = bm.bfp_matmul(a, b, group=g, block_m=blk, block_n=blk,
+                            block_k=blk, skip_zero_groups=skip)
+        torch.cuda.synchronize()
+        err, rel = bfp_gate(label, got, bm.bfp_matmul_plain(a, b, group=g),
+                            bound)
+        print("bfp_check " + json.dumps({
+            "kernel": "bfp_matmul", "case": label, "mkn": [m, k, n],
+            "group": g, "dtype": str(dtype), "skip_zero_groups": skip,
+            "elementwise_gate": "2Ku|Q(a)||Q(b)|" if bound is not None
+            else f"rtol {BFP_RTOL} atol {BFP_ATOL}",
+            "max_abs_err": err, "rel_fro_err": rel}), flush=True)
+    for label, m, n, g, blk, dtype in BFP_QUANT_CASES:
+        x = (torch.randn((m, n), generator=gen, device="cuda") * 3).to(dtype)
+        mant, exp = bq.bfp_quantize(x, group=g, block_m=blk, block_n=blk)
+        pm, pe = bq.bfp_quantize_plain(x, group=g, block_m=blk, block_n=blk)
+        if not (torch.equal(mant, pm) and torch.equal(exp, pe)):
+            raise AssertionError(f"bfp_quantize {label}: not bit-exact")
+        print("bfp_check " + json.dumps({
+            "kernel": "bfp_quantize", "case": label, "mn": [m, n],
+            "padded": list(mant.shape), "group": g, "dtype": str(dtype),
+            "bit_exact": True}), flush=True)
+    for g, blk in ((32, 32), (3, 48)):
+        a = torch.randn((64, 96), generator=gen, device="cuda") * 3
+        b = torch.randn((96, 64), generator=gen, device="cuda") * 3
+        ops_ = (*bq.bfp_quantize_plain(a, group=g, block_m=blk, block_n=blk),
+                *bq.bfp_quantize_plain(b, group=g, block_m=blk, block_n=blk))
+        got = bq.bfp_matmul_packed(*ops_, group=g, block_m=blk, block_n=blk,
+                                   block_k=blk)
+        torch.cuda.synchronize()
+        err, rel = bfp_gate(f"packed group {g}", got,
+                            bq.bfp_matmul_packed_plain(*ops_, group=g))
+        print("bfp_check " + json.dumps({
+            "kernel": "bfp_matmul_packed", "case": f"group{g}",
+            "mkn": [64, 96, 64], "group": g, "max_abs_err": err,
+            "rel_fro_err": rel}), flush=True)
+
+
+def matmul_bound_ms(m, k, n, in_bytes):
+    """2MKN operations at the int8 tensor-core rate against the operands
+    read once and the f32 output written once."""
+    t_ops = 2.0 * m * k * n / PEAK_INT8_OPS
+    t_bytes = ((m * k + k * n) * in_bytes + m * n * 4) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def quantize_bound_ms(m, n, mp, np_, g, in_bytes):
+    """Four f32 operations a value (max, scale, round, clip) against the
+    input read once and the mantissas and exponents written once."""
+    t_ops = 4.0 * m * n / PEAK_F32_OPS
+    t_bytes = (m * n * in_bytes + mp * np_ + (mp // g) * (np_ // g)) \
+        / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes \
+        else "bytes"
+
+
+def run_bfp_path() -> dict:
+    """The slice's path at full width: ops.bfp_dense forward and backward on
+    the granite-3-8b cell's MLP up-projection (B*S = 8192 tokens, d 4096,
+    d_ff 12800, group 32), the storage path (quantize both operands, then
+    the packed product) on the same operands, and the duplex branch's MLP
+    up-projection (launch/cells.py::duplex_tcfg: d_branch 512, 256 pooled
+    positions).  Counts are zeroed just before and read just after."""
+    from repro_torch.kernels import bfp_matmul as bm, bfp_quant as bq, ops
+    from repro_torch.kernels.bfp_common import qdq_block
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cfg = ops.BFPKernelConfig(group=32)
+    b_, s_, d, ff = 2, 4096, 4096, 12800
+    # post-norm activations at unit scale; weights and the upstream gradient
+    # at granite's initializer range (0.02), inside the 4-bit exponent range
+    x = torch.randn((b_, s_, d), generator=gen, device="cuda")
+    w = torch.randn((d, ff), generator=gen, device="cuda") * 0.02
+    g = torch.randn((b_, s_, ff), generator=gen, device="cuda") * 0.02
+    xb = torch.randn((2, 256, 512), generator=gen, device="cuda")
+    wb = torch.randn((512, 2048), generator=gen, device="cuda") * 0.02
+    gb = torch.randn((2, 256, 2048), generator=gen, device="cuda") * 0.02
+    x2, g2 = x.reshape(-1, d), g.reshape(-1, ff)
+
+    counters = (bm.bfp_matmul, bq.bfp_quantize, bq.bfp_matmul_packed)
+    for f in counters:
+        f.launches = 0
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = ops.bfp_dense(xr, wr, cfg)
+    y.backward(g)
+    torch.cuda.synchronize()
+    dense_launches = bm.bfp_matmul.launches
+    xm, xe = ops.quantize(x2, cfg)
+    wm, we = ops.quantize(w, cfg)
+    yp = ops.matmul_packed(xm, xe, wm, we, cfg)
+    xbr, wbr = xb.clone().requires_grad_(), wb.clone().requires_grad_()
+    yb = ops.bfp_dense(xbr, wbr, cfg)
+    yb.backward(gb)
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in counters}
+    print(f"bfp_path: launches {json.dumps(launches)} bfp_dense_full_width "
+          f"{dense_launches}", flush=True)
+    if dense_launches != 3 or launches != {
+            "bfp_matmul": 6, "bfp_quantize": 2, "bfp_matmul_packed": 1}:
+        raise AssertionError(f"bfp path launched {launches}, bfp_dense "
+                             f"{dense_launches}; expected 3 per bfp_dense, "
+                             f"2 quantize, 1 packed")
+
+    # the results against the plain versions (launches no longer counted)
+    y2 = y.detach().reshape(-1, ff)
+    checks = {
+        "y": (y2, bm.bfp_matmul_plain(x2, w)),
+        "dx": (xr.grad.reshape(-1, d), bm.bfp_matmul_plain(g2, w.T)),
+        "dw": (wr.grad, bm.bfp_matmul_plain(x2.T, g2)),
+        "packed_vs_plain": (yp, bq.bfp_matmul_packed_plain(xm, xe, wm, we)),
+        "packed_vs_matmul": (yp, y2),
+        "branch_y": (yb.detach().reshape(-1, 2048),
+                     bm.bfp_matmul_plain(xb.reshape(-1, 512), wb)),
+        "branch_dx": (xbr.grad.reshape(-1, 512),
+                      bm.bfp_matmul_plain(gb.reshape(-1, 2048), wb.T)),
+        "branch_dw": (wbr.grad, bm.bfp_matmul_plain(xb.reshape(-1, 512).T,
+                                                    gb.reshape(-1, 2048))),
+    }
+    errs = {}
+    for name, (got, want) in checks.items():
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"bfp_path {name}: non-finite values")
+        errs[name] = bfp_gate(name, got, want)
+        print(f"bfp_path {name}: shape {list(got.shape)} max_abs_err "
+              f"{errs[name][0]!r} rel_fro_err {errs[name][1]!r}", flush=True)
+        del got, want
+    del checks
+    pm, pe = bq.bfp_quantize_plain(x2)
+    # the largest difference over mantissas and exponents, in integer steps
+    quant_err = max((xm.int() - pm.int()).abs().max().item(),
+                    (xe.int() - pe.int()).abs().max().item())
+    if not (torch.equal(xm, pm) and torch.equal(xe, pe)):
+        raise AssertionError(f"bfp_path: quantize(x2) not bit-exact, max "
+                             f"difference {quant_err}")
+    del pm, pe
+    print(f"bfp_path quantize(x2): bit_exact True max_abs_err {quant_err}",
+          flush=True)
+
+    # times at the full-width shape
+    m_, k_, n_ = x2.shape[0], d, ff
+    qx, qw = qdq_block(x2, 32, 5, 4).bfloat16(), qdq_block(w, 32, 5, 4) \
+        .bfloat16()
+    library_ms = time_ms(lambda: torch.matmul(qx, qw), 10)  # yardstick only
+    del qx, qw
+    rows = {
+        "bfp_matmul": {
+            "ms": time_ms(lambda: bm.bfp_matmul(x2, w), 5),
+            "plain_ms": time_ms(lambda: bm.bfp_matmul_plain(x2, w), 3, 1),
+            "library_ms": library_ms, "max_abs_err": errs["y"][0],
+            "rel_fro_err": errs["y"][1],
+            **dict(zip(("bound_ms", "bound_by"),
+                       matmul_bound_ms(m_, k_, n_, 4)))},
+        "bfp_quantize": {
+            "ms": time_ms(lambda: bq.bfp_quantize(x2), 20),
+            "plain_ms": time_ms(lambda: bq.bfp_quantize_plain(x2), 5, 1),
+            "library_ms": None, "max_abs_err": float(quant_err),
+            **dict(zip(("bound_ms", "bound_by"), quantize_bound_ms(
+                m_, k_, xm.shape[0], xm.shape[1], 32, 4)))},
+        "bfp_matmul_packed": {
+            "ms": time_ms(lambda: bq.bfp_matmul_packed(xm, xe, wm, we), 5),
+            "plain_ms": time_ms(
+                lambda: bq.bfp_matmul_packed_plain(xm, xe, wm, we), 3, 1),
+            "library_ms": library_ms,
+            "max_abs_err": errs["packed_vs_plain"][0],
+            "rel_fro_err": errs["packed_vs_plain"][1],
+            **dict(zip(("bound_ms", "bound_by"),
+                       matmul_bound_ms(m_, k_, n_, 1)))},
+    }
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+        print(f"bfp_time {name}: " + json.dumps(row), flush=True)
+    del x, w, g, x2, g2, xr, wr, y, y2, yp, xm, xe, wm, we
+    del xb, wb, gb, xbr, wbr, yb
+    torch.cuda.empty_cache()
+    return rows
+
+
 def run_main_path() -> dict:
     import dataclasses as dc
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -169,12 +439,17 @@ def run_main_path() -> dict:
     argv = ["--arch", "granite-3-8b", "--preset", "full", "--mode", "duplex",
             "--steps", str(MAIN_STEPS), "--seq", "4096", "--batch", "2",
             "--log-every", "1", "--device", "cuda"]
+    from repro_torch.kernels import bfp_matmul as bm, bfp_quant as bq
+    bfp_counters = (bm.bfp_matmul, bq.bfp_quantize, bq.bfp_matmul_packed)
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.launches = 0
+    for f in bfp_counters:
+        f.launches = 0
     t0 = time.perf_counter()
     out = train.main(argv)
     wall = time.perf_counter() - t0
     launches = fa.flash_attention.launches
+    bfp_launches = sum(f.launches for f in bfp_counters)
     peak = torch.cuda.max_memory_allocated()
 
     report = out["report"]
@@ -187,10 +462,14 @@ def run_main_path() -> dict:
           f"max_memory_allocated_bytes {peak} flash_launches {launches} "
           f"expected {n_attn * MAIN_STEPS} backbone_checksum "
           f"{out['backbone_checksum']} branch_max_abs_change "
-          f"{out['branch_max_abs_change']!r}", flush=True)
+          f"{out['branch_max_abs_change']!r} bfp_launches {bfp_launches}",
+          flush=True)
     losses = [m["loss"] for m in report.metrics_history]
     if len(losses) != MAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"main path losses not finite: {losses}")
+    if bfp_launches:   # the branch quantizes by fake-quant, as the reference
+        raise AssertionError(f"the duplex step launched {bfp_launches} BFP "
+                             f"kernels; the reference's step reaches none")
     if launches != n_attn * MAIN_STEPS:
         raise AssertionError(f"flash launched {launches} times, expected "
                              f"{n_attn * MAIN_STEPS}")
@@ -278,6 +557,8 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash = check_flash(gen)
+    check_bfp(gen)
+    bfp = run_bfp_path()     # before the step, and freed: its peak stands
     main_path = run_main_path()
 
     kernels = [{
@@ -289,6 +570,14 @@ def main() -> int:
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
     }]
+    for name, replaces in BFP_REPLACES.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bfp.cu",
+            "replaces": replaces,
+            **{k: bfp[name][k] for k in ("launches", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")}})
     print(f"total_s {time.perf_counter() - t_start!r}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")

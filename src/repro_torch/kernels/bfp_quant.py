@@ -1,0 +1,152 @@
+"""Standalone 2D-BFP quantization and the matmul of packed operands: CUDA
+kernels + their plain versions.
+
+Replaces the two Pallas kernels of ``repro/kernels/bfp_quant.py``:
+
+* ``bfp_quantize`` is the counterpart of ``bfp_quantize_pallas`` (body
+  ``_quant_kernel``): f32 or bf16 ``(M, N)`` → int8 mantissas ``(Mp, Np)``
+  and int8 per-group exponents ``(Mp/g, Np/g)``, padded to the reference's
+  *block* multiples (``bm = min(block_m, ceil(M, g))``, ``Mp = ceil(M, bm)``),
+  the padding quantized from zeros.  Bit-exact with the reference.
+* ``bfp_matmul_packed`` (body ``_packed_matmul_kernel``): the product of
+  packed operands, ``mant·2^(exp−mbits+1)`` dequantized in-tile, f32
+  accumulate, f32 out; dims must be group-padded and tile by the blocks.
+
+Dispatch as everywhere in the port: CPU tensors take the plain version, a
+CUDA tensor launches the kernel of ``csrc/bfp.cu`` (operands read through
+their strides) or raises.  Each wrapper counts its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.bfp_common import (DTYPE_CODE, bfp_library,
+                                            check_kernel_args, cuda_stream,
+                                            dequant_block, quant_block)
+from repro_torch.utils import ceil_to
+
+
+def _padded_shape(m, n, group, block_m, block_n):
+    bm, bn = min(block_m, ceil_to(m, group)), min(block_n, ceil_to(n, group))
+    if bm % group or bn % group:
+        raise ValueError(f"blocks {(bm, bn)} not multiples of group {group}")
+    return ceil_to(m, bm), ceil_to(n, bn)
+
+
+def bfp_quantize_plain(x: torch.Tensor, *, group: int = 32, mbits: int = 5,
+                       ebits: int = 4, block_m: int = 256,
+                       block_n: int = 256):
+    """Plain version of the quantize kernel: zero-pad, then quant_block."""
+    m, n = x.shape
+    mp, np_ = _padded_shape(m, n, group, block_m, block_n)
+    xp = F.pad(x.to(torch.float32), (0, np_ - n, 0, mp - m))
+    return quant_block(xp, group, mbits, ebits)
+
+
+def bfp_quantize(x: torch.Tensor, *, group: int = 32, mbits: int = 5,
+                 ebits: int = 4, block_m: int = 256, block_n: int = 256):
+    """Quantize a 2D array → (mant int8, exp int8) in packed layout.
+
+    Counterpart of the JAX ``bfp_quantize_pallas``.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel (counted in
+    ``bfp_quantize.launches``) or raise.
+    """
+    if x.dim() != 2:
+        raise ValueError(f"expected 2D input, got {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return bfp_quantize_plain(x, group=group, mbits=mbits, ebits=ebits,
+                                  block_m=block_m, block_n=block_n)
+    if x.device.type != "cuda":
+        raise ValueError(f"bfp_quantize: unsupported device {x.device}")
+    check_kernel_args("bfp_quantize", group, mbits, ebits)
+    if x.dtype not in DTYPE_CODE:
+        raise ValueError(f"bfp_quantize kernel takes float32 or bfloat16, "
+                         f"got {x.dtype}")
+    m, n = x.shape
+    mp, np_ = _padded_shape(m, n, group, block_m, block_n)
+    mant = torch.empty((mp, np_), dtype=torch.int8, device=x.device)
+    exp = torch.empty((mp // group, np_ // group), dtype=torch.int8,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        err = bfp_library().bfp_quantize_fwd(
+            x.data_ptr(), DTYPE_CODE[x.dtype], m, n, *x.stride(),
+            mant.data_ptr(), exp.data_ptr(), mp, np_, group, mbits, ebits,
+            cuda_stream(x))
+    if err != 0:
+        raise RuntimeError(f"bfp_quantize kernel launch failed: "
+                           f"cudaError {err}")
+    bfp_quantize.launches += 1
+    return mant, exp
+
+
+bfp_quantize.launches = 0
+
+
+def bfp_matmul_packed_plain(a_mant, a_exp, b_mant, b_exp, *, group: int = 32,
+                            mbits: int = 5) -> torch.Tensor:
+    """Plain version of the packed kernel: dequantize both, f32 product."""
+    return torch.matmul(dequant_block(a_mant, a_exp, group, mbits),
+                        dequant_block(b_mant, b_exp, group, mbits))
+
+
+def _launch_packed(a_mant, a_exp, b_mant, b_exp, group, mbits):
+    check_kernel_args("bfp_matmul_packed", group, mbits)
+    ops = (a_mant, a_exp, b_mant, b_exp)
+    if not all(t.is_cuda and t.device == a_mant.device for t in ops):
+        raise ValueError("bfp_matmul_packed: operands must be on one CUDA "
+                         "device")
+    if any(t.dtype != torch.int8 for t in ops):
+        raise ValueError(f"bfp_matmul_packed kernel takes int8 mantissas "
+                         f"and exponents, got {[t.dtype for t in ops]}")
+    (m, k), n = a_mant.shape, b_mant.shape[1]
+    want = ((m // group, k // group), (k // group, n // group))
+    if (tuple(a_exp.shape), tuple(b_exp.shape)) != want:
+        raise ValueError(f"exponent shapes {tuple(a_exp.shape)}, "
+                         f"{tuple(b_exp.shape)}; expected {want}")
+    c = torch.empty((m, n), dtype=torch.float32, device=a_mant.device)
+    strides = (ctypes.c_longlong * 8)(*(s for t in ops for s in t.stride()))
+    with torch.cuda.device(a_mant.device):
+        err = bfp_library().bfp_matmul_packed_fwd(
+            *(t.data_ptr() for t in ops), c.data_ptr(), m, k, n, strides,
+            group, mbits, cuda_stream(a_mant))
+    if err != 0:
+        raise RuntimeError(f"bfp_matmul_packed kernel launch failed: "
+                           f"cudaError {err}")
+    bfp_matmul_packed.launches += 1
+    return c
+
+
+def bfp_matmul_packed(a_mant, a_exp, b_mant, b_exp, *, group: int = 32,
+                      mbits: int = 5, block_m: int = 256, block_n: int = 256,
+                      block_k: int = 256,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Matmul on pre-quantized packed operands (mant/exp from the quantizer).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in ``bfp_matmul_packed.launches``) or raise.
+    """
+    (m, k), (k2, n) = a_mant.shape, b_mant.shape
+    if k != k2:
+        raise ValueError(f"contraction mismatch: {tuple(a_mant.shape)} @ "
+                         f"{tuple(b_mant.shape)}")
+    if m % group or k % group or n % group:
+        raise ValueError("packed operands must already be group-padded")
+    bm, bn, bk = min(block_m, m), min(block_n, n), min(block_k, k)
+    if m % bm or n % bn or k % bk:
+        raise ValueError(f"dims {(m, k, n)} must tile by blocks "
+                         f"{(bm, bk, bn)}")
+    ops = (a_mant, a_exp, b_mant, b_exp)
+    if all(t.device.type == "cpu" for t in ops):
+        out = bfp_matmul_packed_plain(*ops, group=group, mbits=mbits)
+    elif a_mant.device.type == "cuda":
+        out = _launch_packed(*ops, group, mbits)
+    else:
+        raise ValueError(f"bfp_matmul_packed: unsupported devices "
+                         f"{[str(t.device) for t in ops]}")
+    return out.to(out_dtype)
+
+
+bfp_matmul_packed.launches = 0

@@ -21,7 +21,9 @@ def _modules():
 
 def test_every_module_imports_with_jax_and_repro_masked():
     mods = _modules()
-    assert "repro_torch.kernels.flash_attention" in mods
+    for m in ("flash_attention", "ops", "bfp_matmul", "bfp_quant",
+              "bfp_common", "ref"):
+        assert f"repro_torch.kernels.{m}" in mods
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
