@@ -8,13 +8,19 @@ Phases, each printing its numbers on lines of their own:
   3. each kernel against its plain PyTorch version on the card, at the main
      path's shapes and a few small ones, with times (kernel, plain version,
      one library call as a yardstick) and the bound the card sets
-     (``flash_check`` lines; ``bfp_check`` lines at the JAX tests' shapes);
+     (``flash_check`` lines; ``bfp_check`` lines at the JAX tests' shapes,
+     and for the two stages of each BFP product, the operand passes
+     bit-exact and the GEMM, on ragged shapes and transposed views);
   4. the BFP path, ``kernels/ops.py``: ``bfp_dense`` forward and backward
      on granite-3-8b's MLP up-projection at full width (x [2,4096,4096],
      w [4096,12800], group 32), quantize + packed product on the same
      operands, and the duplex branch's up-projection; counts zeroed just
      before and read just after, every result held against the plain
-     versions, then each BFP kernel timed (``bfp_path``/``bfp_time`` lines);
+     versions, the operand passes at full width bit for bit, then each BFP
+     kernel timed, each product also by stage (``prepass_ms`` for the two
+     operand passes, ``gemm_ms``) beside the bf16 ceiling 2MKN / 989e12,
+     and ``bfp_dense`` forward + backward timed as a whole
+     (``bfp_path``/``bfp_time`` lines);
      all of it freed before the next phase;
   5. the duplex path: ``repro_torch.launch.train`` trains granite-3-8b at full
      width (random weights from a seed, bf16 backbone, flash kernel on) for
@@ -290,6 +296,74 @@ def check_bfp(gen) -> None:
             "rel_fro_err": rel}), flush=True)
 
 
+# The two stages of each product.  (label, rows, k, group, dtype,
+# transposed, zero gate): ragged shapes, a transposed view, group 3, the
+# gate on and off.
+BFP_OPERAND_CASES = [
+    ("100x70_g32_f32", 100, 70, 32, torch.float32, False, False),
+    ("100x70_g32_bf16_gate", 100, 70, 32, torch.bfloat16, False, True),
+    ("250x190_g3_f32_T_gate", 250, 190, 3, torch.float32, True, True),
+    ("200x300_g3_bf16_T", 200, 300, 3, torch.bfloat16, True, False),
+    ("300x200_g8_f32_gate", 300, 200, 8, torch.float32, False, True),
+    ("64x520_g16_f32_T", 64, 520, 16, torch.float32, True, False),
+]
+
+
+def check_bfp_stages(gen) -> None:
+    """Each operand pass against its plain version (bit-exact, padding and
+    gate flags included) and the GEMM against its plain version (the
+    product gates of ``bfp_gate``)."""
+    from repro_torch.kernels import bfp_common as bc, bfp_matmul as bm, \
+        bfp_quant as bq
+    for label, rows, k, g, dtype, trans, gate in BFP_OPERAND_CASES:
+        x = (torch.randn((k, rows) if trans else (rows, k), generator=gen,
+                         device="cuda") * 3).to(dtype)
+        x = x.T if trans else x
+        x[: rows // 3] = 0       # whole tiles of zeros for the gate
+        for tile in (bc.GEMM_TILE_M, bc.GEMM_TILE_N):
+            got = bm.quantize_operand(x, tile, group=g, gate=gate)
+            want = bm.quantize_operand_plain(x, tile, group=g, gate=gate)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[0], want[0]) and (not gate or torch.equal(
+                    got[1], want[1]))):
+                raise AssertionError(f"quantize_operand {label} tile {tile}:"
+                                     f" not bit-exact")
+        print("bfp_check " + json.dumps({
+            "kernel": "quantize_operand", "case": label,
+            "shape": [rows, k], "padded": list(got[0].shape), "group": g,
+            "dtype": str(dtype), "transposed": trans, "gate": gate,
+            "bit_exact": True}), flush=True)
+        mant, exp = bq.bfp_quantize_plain(x, group=g, block_m=g, block_n=g)
+        if trans:
+            mant, exp = mant.T.contiguous().T, exp.T.contiguous().T
+        for tile in (bc.GEMM_TILE_M, bc.GEMM_TILE_N):
+            got = bq.dequantize_operand(mant, exp, tile, group=g)
+            want = bq.dequantize_operand_plain(mant, exp, tile, group=g)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"dequantize_operand {label} tile "
+                                     f"{tile}: not bit-exact")
+        print("bfp_check " + json.dumps({
+            "kernel": "dequantize_operand", "case": label,
+            "shape": list(mant.shape), "padded": list(got.shape), "group": g,
+            "transposed": trans, "bit_exact": True}), flush=True)
+    # the GEMM on bf16 buffers with whole zero tiles, ragged (m, n)
+    for m, n, k in ((100, 36, 70), (300, 520, 200), (257, 129, 1000)):
+        a = torch.randn((m, k), generator=gen, device="cuda")
+        b = torch.randn((n, k), generator=gen, device="cuda")
+        a[: m // 2] = 0
+        for gate in (False, True):
+            aq, fa = bm.quantize_operand(a, bc.GEMM_TILE_M, gate=gate)
+            bq_, fb = bm.quantize_operand(b, bc.GEMM_TILE_N, gate=gate)
+            got = bc.gemm_tn(aq, bq_, m, n, fa, fb)
+            torch.cuda.synchronize()
+            err, rel = bfp_gate(f"gemm_tn {m}x{n}x{k}", got,
+                                bc.gemm_tn_plain(aq, bq_, m, n))
+            print("bfp_check " + json.dumps({
+                "kernel": "gemm_tn", "case": f"{m}x{k}x{n}", "gate": gate,
+                "max_abs_err": err, "rel_fro_err": rel}), flush=True)
+
+
 def matmul_bound_ms(m, k, n, in_bytes):
     """2MKN operations at the int8 tensor-core rate against the operands
     read once and the f32 output written once."""
@@ -316,7 +390,8 @@ def run_bfp_path() -> dict:
     the packed product) on the same operands, and the duplex branch's MLP
     up-projection (launch/cells.py::duplex_tcfg: d_branch 512, 256 pooled
     positions).  Counts are zeroed just before and read just after."""
-    from repro_torch.kernels import bfp_matmul as bm, bfp_quant as bq, ops
+    from repro_torch.kernels import bfp_common as bc, bfp_matmul as bm, \
+        bfp_quant as bq, ops
     from repro_torch.kernels.bfp_common import qdq_block
     gen = torch.Generator(device="cuda").manual_seed(1)
     cfg = ops.BFPKernelConfig(group=32)
@@ -331,7 +406,8 @@ def run_bfp_path() -> dict:
     gb = torch.randn((2, 256, 2048), generator=gen, device="cuda") * 0.02
     x2, g2 = x.reshape(-1, d), g.reshape(-1, ff)
 
-    counters = (bm.bfp_matmul, bq.bfp_quantize, bq.bfp_matmul_packed)
+    counters = (bm.bfp_matmul, bq.bfp_quantize, bq.bfp_matmul_packed,
+                bm.quantize_operand, bq.dequantize_operand, bc.gemm_tn)
     for f in counters:
         f.launches = 0
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
@@ -349,11 +425,14 @@ def run_bfp_path() -> dict:
     launches = {f.__name__: f.launches for f in counters}
     print(f"bfp_path: launches {json.dumps(launches)} bfp_dense_full_width "
           f"{dense_launches}", flush=True)
+    # each product is two operand passes and one GEMM
     if dense_launches != 3 or launches != {
-            "bfp_matmul": 6, "bfp_quantize": 2, "bfp_matmul_packed": 1}:
+            "bfp_matmul": 6, "bfp_quantize": 2, "bfp_matmul_packed": 1,
+            "quantize_operand": 12, "dequantize_operand": 2, "gemm_tn": 7}:
         raise AssertionError(f"bfp path launched {launches}, bfp_dense "
                              f"{dense_launches}; expected 3 per bfp_dense, "
-                             f"2 quantize, 1 packed")
+                             f"2 quantize, 1 packed, 2 operand passes and "
+                             f"1 GEMM per product")
 
     # the results against the plain versions (launches no longer counted)
     y2 = y.detach().reshape(-1, ff)
@@ -390,15 +469,49 @@ def run_bfp_path() -> dict:
     print(f"bfp_path quantize(x2): bit_exact True max_abs_err {quant_err}",
           flush=True)
 
+    # each stage at full width: the operand passes against their plain
+    # versions, bit for bit, padding included
+    tm, tn = bc.GEMM_TILE_M, bc.GEMM_TILE_N
+    stage_in = {
+        "quantize_operand(x2)": (
+            lambda: bm.quantize_operand(x2, tm)[0],
+            lambda: bm.quantize_operand_plain(x2, tm)[0]),
+        "quantize_operand(w.T)": (
+            lambda: bm.quantize_operand(w.T, tn)[0],
+            lambda: bm.quantize_operand_plain(w.T, tn)[0]),
+        "dequantize_operand(x2)": (
+            lambda: bq.dequantize_operand(xm, xe, tm),
+            lambda: bq.dequantize_operand_plain(xm, xe, tm)),
+        "dequantize_operand(w.T)": (
+            lambda: bq.dequantize_operand(wm.T, we.T, tn),
+            lambda: bq.dequantize_operand_plain(wm.T, we.T, tn)),
+    }
+    for name, (kernel, plain) in stage_in.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"bfp_path {name}: not bit-exact")
+        print(f"bfp_path {name}: shape {list(got.shape)} bit_exact True",
+              flush=True)
+        del got, want
+
     # times at the full-width shape
     m_, k_, n_ = x2.shape[0], d, ff
     qx, qw = qdq_block(x2, 32, 5, 4).bfloat16(), qdq_block(w, 32, 5, 4) \
         .bfloat16()
     library_ms = time_ms(lambda: torch.matmul(qx, qw), 10)  # yardstick only
-    del qx, qw
+    qx, _ = bm.quantize_operand(x2, tm)
+    qw, _ = bm.quantize_operand(w.T, tn)
+    dx_, dw_ = bq.dequantize_operand(xm, xe, tm), \
+        bq.dequantize_operand(wm.T, we.T, tn)
+    ceiling_bf16_ms = 2.0 * m_ * k_ * n_ / PEAK_FLOPS[torch.bfloat16] * 1e3
     rows = {
         "bfp_matmul": {
             "ms": time_ms(lambda: bm.bfp_matmul(x2, w), 5),
+            "prepass_ms": time_ms(lambda: (bm.quantize_operand(x2, tm),
+                                           bm.quantize_operand(w.T, tn)), 5),
+            "gemm_ms": time_ms(lambda: bc.gemm_tn(qx, qw, m_, n_), 5),
+            "ceiling_bf16_ms": ceiling_bf16_ms,
             "plain_ms": time_ms(lambda: bm.bfp_matmul_plain(x2, w), 3, 1),
             "library_ms": library_ms, "max_abs_err": errs["y"][0],
             "rel_fro_err": errs["y"][1],
@@ -412,6 +525,11 @@ def run_bfp_path() -> dict:
                 m_, k_, xm.shape[0], xm.shape[1], 32, 4)))},
         "bfp_matmul_packed": {
             "ms": time_ms(lambda: bq.bfp_matmul_packed(xm, xe, wm, we), 5),
+            "prepass_ms": time_ms(
+                lambda: (bq.dequantize_operand(xm, xe, tm),
+                         bq.dequantize_operand(wm.T, we.T, tn)), 5),
+            "gemm_ms": time_ms(lambda: bc.gemm_tn(dx_, dw_, m_, n_), 5),
+            "ceiling_bf16_ms": ceiling_bf16_ms,
             "plain_ms": time_ms(
                 lambda: bq.bfp_matmul_packed_plain(xm, xe, wm, we), 3, 1),
             "library_ms": library_ms,
@@ -423,8 +541,16 @@ def run_bfp_path() -> dict:
     for name, row in rows.items():
         row["launches"] = launches[name]
         print(f"bfp_time {name}: " + json.dumps(row), flush=True)
+
+    # the path end to end: bfp_dense forward and backward, three products
+    def dense_step():
+        xr.grad = wr.grad = None
+        ops.bfp_dense(xr, wr, cfg).backward(g)
+    dense = {"ms": time_ms(dense_step, 5),
+             "ceiling_bf16_ms": 3 * ceiling_bf16_ms}
+    print("bfp_time bfp_dense_fwd_bwd: " + json.dumps(dense), flush=True)
     del x, w, g, x2, g2, xr, wr, y, y2, yp, xm, xe, wm, we
-    del xb, wb, gb, xbr, wbr, yb
+    del xb, wb, gb, xbr, wbr, yb, qx, qw, dx_, dw_
     torch.cuda.empty_cache()
     return rows
 
@@ -439,8 +565,10 @@ def run_main_path() -> dict:
     argv = ["--arch", "granite-3-8b", "--preset", "full", "--mode", "duplex",
             "--steps", str(MAIN_STEPS), "--seq", "4096", "--batch", "2",
             "--log-every", "1", "--device", "cuda"]
-    from repro_torch.kernels import bfp_matmul as bm, bfp_quant as bq
-    bfp_counters = (bm.bfp_matmul, bq.bfp_quantize, bq.bfp_matmul_packed)
+    from repro_torch.kernels import bfp_common as bc, bfp_matmul as bm, \
+        bfp_quant as bq
+    bfp_counters = (bm.bfp_matmul, bq.bfp_quantize, bq.bfp_matmul_packed,
+                    bm.quantize_operand, bq.dequantize_operand, bc.gemm_tn)
     torch.cuda.reset_peak_memory_stats()
     fa.flash_attention.launches = 0
     for f in bfp_counters:
@@ -535,6 +663,18 @@ def profile_step(entry, cfg, tcfg, policy, state, batch):
               f"{dev / busy_us:.3f} {key[:100]}")
 
 
+def ptxas_lines(log: str) -> list[str]:
+    """ptxas -v's register and spill lines, each after the name of the entry
+    function it describes, and every warning."""
+    out, entry = [], ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line.strip()
+        elif "warning" in line or "registers" in line or "spill" in line:
+            out.append(f"{entry}: {line.strip()}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -550,14 +690,13 @@ def main() -> int:
     from repro_torch.kernels import build
     built = build.build()
     for name, info in built.items():
-        regs = [l.strip() for l in info["log"].splitlines()
-                if "registers" in l or "spill" in l]
-        print(f"build {name}: seconds {info['seconds']!r} ptxas {regs}",
-              flush=True)
+        print(f"build {name}: seconds {info['seconds']!r} ptxas "
+              f"{ptxas_lines(info['log'])}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash = check_flash(gen)
     check_bfp(gen)
+    check_bfp_stages(gen)
     bfp = run_bfp_path()     # before the step, and freed: its peak stands
     main_path = run_main_path()
 
@@ -577,7 +716,9 @@ def main() -> int:
             "replaces": replaces,
             **{k: bfp[name][k] for k in ("launches", "max_abs_err", "ms",
                                          "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms")}})
+                                         "library_ms", "prepass_ms",
+                                         "gemm_ms")
+               if k in bfp[name]}})
     print(f"total_s {time.perf_counter() - t_start!r}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card_line()}")

@@ -9,23 +9,28 @@ Replaces the two Pallas kernels of ``repro/kernels/bfp_quant.py``:
   *block* multiples (``bm = min(block_m, ceil(M, g))``, ``Mp = ceil(M, bm)``),
   the padding quantized from zeros.  Bit-exact with the reference.
 * ``bfp_matmul_packed`` (body ``_packed_matmul_kernel``): the product of
-  packed operands, ``mant·2^(exp−mbits+1)`` dequantized in-tile, f32
-  accumulate, f32 out; dims must be group-padded and tile by the blocks.
+  packed operands, ``mant·2^(exp−mbits+1)``, f32 accumulate, f32 out; dims
+  must be group-padded and tile by the blocks.  On the card it is two
+  stages: ``dequantize_operand`` writes each operand once as a bf16 buffer
+  in the GEMM's layout (B through its transposed view), then
+  ``bfp_common.gemm_tn``, the GEMM that ``bfp_matmul`` ends in too.
 
 Dispatch as everywhere in the port: CPU tensors take the plain version, a
-CUDA tensor launches the kernel of ``csrc/bfp.cu`` (operands read through
+CUDA tensor launches the kernels of ``csrc/bfp.cu`` (operands read through
 their strides) or raises.  Each wrapper counts its launches.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.bfp_common import (DTYPE_CODE, bfp_library,
+from repro_torch.kernels.bfp_common import (DTYPE_CODE, GEMM_TILE_K,
+                                            GEMM_TILE_M, GEMM_TILE_N,
+                                            bfp_library, check_error,
                                             check_kernel_args, cuda_stream,
-                                            dequant_block, quant_block)
+                                            dequant_block, gemm_tn,
+                                            operand_shape, pad_operand,
+                                            quant_block)
 from repro_torch.utils import ceil_to
 
 
@@ -75,9 +80,7 @@ def bfp_quantize(x: torch.Tensor, *, group: int = 32, mbits: int = 5,
             x.data_ptr(), DTYPE_CODE[x.dtype], m, n, *x.stride(),
             mant.data_ptr(), exp.data_ptr(), mp, np_, group, mbits, ebits,
             cuda_stream(x))
-    if err != 0:
-        raise RuntimeError(f"bfp_quantize kernel launch failed: "
-                           f"cudaError {err}")
+    check_error("bfp_quantize", err)
     bfp_quantize.launches += 1
     return mant, exp
 
@@ -92,29 +95,60 @@ def bfp_matmul_packed_plain(a_mant, a_exp, b_mant, b_exp, *, group: int = 32,
                         dequant_block(b_mant, b_exp, group, mbits))
 
 
+def dequantize_operand_plain(mant: torch.Tensor, exp: torch.Tensor,
+                             tile_rows: int, *, group: int = 32,
+                             mbits: int = 5) -> torch.Tensor:
+    """Plain version of the packed operand pass: ``dequant_block`` as bf16,
+    in the GEMM layout (``operand_shape``)."""
+    return pad_operand(dequant_block(mant, exp, group, mbits), *mant.shape,
+                       tile_rows)
+
+
+def dequantize_operand(mant: torch.Tensor, exp: torch.Tensor, tile_rows: int,
+                       *, group: int = 32, mbits: int = 5) -> torch.Tensor:
+    """One packed operand of the GEMM: int8 mantissas (rows x K) and
+    exponents (rows/g x K/g), any strides, as the bf16 (Rp, Kp) buffer of
+    ``mant·2^(exp−mbits+1)``, zeros past the matrix.
+
+    CPU tensors take ``dequantize_operand_plain``; CUDA tensors launch the
+    operand pass (counted in ``dequantize_operand.launches``) or raise.
+    """
+    if mant.device.type == "cpu":
+        return dequantize_operand_plain(mant, exp, tile_rows, group=group,
+                                        mbits=mbits)
+    check_kernel_args("dequantize_operand", group, mbits)
+    (rows, k), (rp, kp) = mant.shape, operand_shape(*mant.shape, tile_rows)
+    if mant.device.type != "cuda" or exp.device != mant.device or \
+            (mant.dtype, exp.dtype) != (torch.int8, torch.int8) or \
+            rows % group or k % group or \
+            tuple(exp.shape) != (rows // group, k // group):
+        raise ValueError(f"dequantize_operand takes group-padded int8 "
+                         f"mantissas and their exponents on one CUDA device, "
+                         f"got {mant.dtype} {tuple(mant.shape)}, {exp.dtype} "
+                         f"{tuple(exp.shape)} on {mant.device}, "
+                         f"{exp.device}")
+    buf = torch.empty((rp, kp), dtype=torch.bfloat16, device=mant.device)
+    with torch.cuda.device(mant.device):
+        err = bfp_library().bfp_dequant_operand_fwd(
+            mant.data_ptr(), exp.data_ptr(), rows, k, *mant.stride(),
+            *exp.stride(), buf.data_ptr(), rp, kp, group, mbits, tile_rows,
+            GEMM_TILE_K, cuda_stream(mant))
+    check_error("dequantize_operand", err)
+    dequantize_operand.launches += 1
+    return buf
+
+
+dequantize_operand.launches = 0
+
+
 def _launch_packed(a_mant, a_exp, b_mant, b_exp, group, mbits):
-    check_kernel_args("bfp_matmul_packed", group, mbits)
-    ops = (a_mant, a_exp, b_mant, b_exp)
-    if not all(t.is_cuda and t.device == a_mant.device for t in ops):
-        raise ValueError("bfp_matmul_packed: operands must be on one CUDA "
-                         "device")
-    if any(t.dtype != torch.int8 for t in ops):
-        raise ValueError(f"bfp_matmul_packed kernel takes int8 mantissas "
-                         f"and exponents, got {[t.dtype for t in ops]}")
-    (m, k), n = a_mant.shape, b_mant.shape[1]
-    want = ((m // group, k // group), (k // group, n // group))
-    if (tuple(a_exp.shape), tuple(b_exp.shape)) != want:
-        raise ValueError(f"exponent shapes {tuple(a_exp.shape)}, "
-                         f"{tuple(b_exp.shape)}; expected {want}")
-    c = torch.empty((m, n), dtype=torch.float32, device=a_mant.device)
-    strides = (ctypes.c_longlong * 8)(*(s for t in ops for s in t.stride()))
-    with torch.cuda.device(a_mant.device):
-        err = bfp_library().bfp_matmul_packed_fwd(
-            *(t.data_ptr() for t in ops), c.data_ptr(), m, k, n, strides,
-            group, mbits, cuda_stream(a_mant))
-    if err != 0:
-        raise RuntimeError(f"bfp_matmul_packed kernel launch failed: "
-                           f"cudaError {err}")
+    """Both operand passes (which check dtypes, devices and exponent
+    shapes), then the GEMM."""
+    aq = dequantize_operand(a_mant, a_exp, GEMM_TILE_M, group=group,
+                            mbits=mbits)
+    bq = dequantize_operand(b_mant.T, b_exp.T, GEMM_TILE_N, group=group,
+                            mbits=mbits)
+    c = gemm_tn(aq, bq, a_mant.shape[0], b_mant.shape[1])
     bfp_matmul_packed.launches += 1
     return c
 
@@ -125,8 +159,9 @@ def bfp_matmul_packed(a_mant, a_exp, b_mant, b_exp, *, group: int = 32,
                       out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Matmul on pre-quantized packed operands (mant/exp from the quantizer).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``bfp_matmul_packed.launches``) or raise.
+    CPU tensors take the plain version; CUDA tensors launch the operand
+    passes and the GEMM (one count in ``bfp_matmul_packed.launches`` per
+    product) or raise.
     """
     (m, k), (k2, n) = a_mant.shape, b_mant.shape
     if k != k2:

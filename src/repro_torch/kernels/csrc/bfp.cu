@@ -18,74 +18,90 @@
 // The wrapper admits 1 <= mbits, ebits <= 7, so every power of two stays a
 // normal f32 and every mantissa fits int8.
 //
-// Tiles.  Every CTA works on 96 x 96 tiles anchored at multiples of 96 from
-// the origin.  96 is a multiple of each supported group (3, 8, 16, 32), so
-// a tile holds whole groups of the global grid and its in-tile group max is
-// the global one; rows and columns past the matrix read as zeros, which is
-// what the reference's zero padding gives.  Any other group is refused
-// (cudaErrorInvalidValue); nothing falls back.
+// Each product is two stages.
 //
-// Products.  A BFP value is at most a 7-bit integer times a power of two, so
-// it is exact in bf16, and so is an int8 mantissa.  Each operand tile is
-// quantized (or dequantized) into shared memory as bf16 and multiplied with
-// mma.sync m16n8k16 (bf16 in, f32 accumulate): 8 warps, each a 48 x 24 block
-// of the 96 x 96 output tile.  The result equals the f32 reference up to the
-// order of the f32 sums.  Operands are read through element strides, so the
-// transposed views of bfp_dense's backward (x2^T, w^T) go in without a copy;
-// a tile is staged along whichever dimension has stride 1, so the global
-// reads coalesce either way.  The output is a contiguous (M, N) f32 array.
+// 1. Operand passes (SIMT, bytes bound), one launch per operand.  A pass
+//    reads its operand once, through element strides, and writes a fresh
+//    bf16 buffer in the GEMM's layout: A as Aq (Mp x Kp), B as Bq = Q(B)^T
+//    (Np x Kp), K contiguous in both, zeros past the matrix.  A BFP value
+//    is at most a 7-bit integer times a power of two inside bf16's exponent
+//    range, so the bf16 buffer holds Q(x) exactly.  bfp_operand_kernel
+//    quantizes (bfp_matmul); bfp_dequant_operand_kernel scales packed int8
+//    mantissas by their group exponents (bfp_matmul_packed).  Since groups
+//    are square and anchored at the origin, Q(B^T) = Q(B)^T, so B goes in
+//    as its transposed view and the same kernel serves both operands.
+//    Staging tiles are 96 x 96, anchored at multiples of 96: 96 is a
+//    multiple of each supported group (3, 8, 16, 32), so a tile holds
+//    whole groups of the global grid and its in-tile group max is the
+//    global one.  Any other group is refused (cudaErrorInvalidValue).  With
+//    the zero gate on, the pass also marks each (GEMM row tile, K tile)
+//    that holds a nonzero value.
+// 2. One bf16 GEMM, C (M x N, f32) = Aq Bq^T, shared by both products; it
+//    knows nothing of groups, so its tiles are powers of two: TMA loads
+//    into a ring of shared-memory stages, wgmma on the tensor cores, f32
+//    accumulation in registers.  See bfp_gemm_kernel.  The host encodes
+//    its tensor maps with cuTensorMapEncodeTiled, taken from the driver
+//    through cudaGetDriverEntryPoint, so nothing links libcuda.
 //
-// What bounds them on the H100.  bfp_matmul at the slice's full width
-// (M=8192, K=4096, N=12800): 2MKN = 8.6e11 operations, 0.43 ms at the int8
-// tensor-core rate (the least the card could take: mantissas fit int8 and a
-// 32-wide K group is one int8 k32 step), 0.87 ms at the bf16 rate this
-// kernel runs at, against 763 MB of f32 in and out (0.23 ms at 3.35 TB/s):
-// operations bound.  This simple design re-quantizes each A tile for every
-// column of CTAs and each B tile for every row of CTAs in SIMT
-// instructions, and keeps one K step in flight (stage, barrier, mma,
-// barrier; no cp.async).  How the time splits between the two is not
-// measured; bfp_matmul_packed, which quantizes nothing but runs the same
-// loop, takes about two thirds of bfp_matmul's time on an H100, so the loop
-// structure costs at least as much as the re-quantization.  What the
-// design does about it: both operands of a K step stay on chip after one
-// global read, and two CTAs per SM let one CTA's staging and quantization
-// overlap the other's products.  The storage path (bfp_quantize once, then
-// bfp_matmul_packed) removes the re-quantization.  bfp_quantize is bytes
-// bound: f32 in, int8 out, 168 MB for an 8192 x 4096 operand, 0.05 ms.
+// The tile-level gate of the reference (skip a product whose quantized A
+// or B tile is all zero, the paper's section V-B gating checkpoint)
+// changes no value: an all-zero tile adds exact zeros.
+//
+// What replaced what.  The first port of the two products (two fused
+// kernels) gave each CTA one 96 x 96 output tile, re-quantized every
+// operand tile it read in SIMT code (each A tile once per CTA column, each
+// B tile once per CTA row), and ran stage -> barrier -> mma.sync -> barrier
+// with one K step in flight.  The operand passes now quantize each operand
+// once, and the TMA + wgmma GEMM replaces the loop.
+//
+// What bounds them on the H100, at the BFP path's full-width shape
+// (M=8192, K=4096, N=12800, f32 operands):
+//   operand passes: bytes.  Q(x) and Q(w)^T read 344 MB of f32 and write
+//     172 MB of bf16, 0.154 ms at 3.35 TB/s (the packed passes read 86 MB
+//     of int8 and write the same 172 MB, 0.077 ms);
+//   GEMM: operations.  2MKN = 8.6e11 bf16 operations, 0.87 ms at 989
+//     TFLOP/s, against 0.18 ms for its bytes (175 MB in, 419 MB of f32 out).
+// The least the card could take for Q(A) Q(B) is the int8 tensor-core
+// rate, 0.43 ms, since every mantissa fits int8.  The design does not take
+// it: each 32-wide K group would need its own int32 -> f32 promotion,
+// scaled per (row group, column group), on every accumulator element, about
+// 16,384 conversions and FMAs per m64n256k32 s8 wgmma of about 128 SM
+// clocks, at some 64 a clock; the promotion, not the MMA, would set the
+// pace, and int8 would lose to bf16.
 //
 // Each C entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for an unsupported
-// group, dtype or bit width).
+// group, dtype, bit width or shape).
 #include <cstdint>
+#include <type_traits>
 
-#include <cuda_runtime.h>
+#include <cuda.h>   // CUtensorMap and its enums; no driver call is linked
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kT = 96;            // tile side: a multiple of 3, 8, 16, 32
+constexpr int kT = 96;            // staging tile side: a multiple of 3, 8,
+                                  // 16, 32
 constexpr int kThreads = 256;     // 8 warps
 constexpr int kFP = kT + 1;       // f32 staging pitch (floats)
-constexpr int kHP = kT + 8;       // bf16 operand pitch: 208 bytes, an odd
-                                  // count of 16-byte chunks (ldmatrix reads
-                                  // free of bank conflicts)
 constexpr int kMaxGroups = 32 * 32;  // groups per tile at g = 3
 constexpr int kPerThread = kT * kT / kThreads;   // tile elements a thread moves
+constexpr int kMaxFlagTiles = 4;  // GEMM tiles (>= 32 wide) a 96-span meets
 static_assert(kT * kT % kThreads == 0, "whole tile per pass");
 
-// Shared memory layout (bytes).  bfp_quantize uses the part up to kSmemQuant.
+// Shared memory layout (bytes).
 constexpr int kOffF = 0;                                // float [kT][kFP]
 constexpr int kOffScale = kOffF + kT * kFP * 4;         // float [kMaxGroups]
 constexpr int kOffInv = kOffScale + kMaxGroups * 4;     // float [kMaxGroups]
 constexpr int kOffSeg = kOffInv + kMaxGroups * 4;       // u8 [kT][32]
 constexpr int kOffExp = kOffSeg + kT * 32;              // i8 [kMaxGroups]
 constexpr int kSmemQuant = kOffExp + kMaxGroups;
-constexpr int kOffA = kSmemQuant;                       // bf16 [kT][kHP]
-constexpr int kOffB = kOffA + kT * kHP * 2;             // bf16 [kT][kHP]
-constexpr int kSmemMatmul = kOffB + kT * kHP * 2;
-static_assert(kOffA % 16 == 0 && kOffB % 16 == 0, "ldmatrix alignment");
+constexpr int kOffFlag = kSmemQuant;                    // int [4][4]
+constexpr int kSmemOperand = kOffFlag + kMaxFlagTiles * kMaxFlagTiles * 4;
+static_assert(kOffFlag % 4 == 0, "int alignment");
 
 struct Tiles {
   float* F;
@@ -93,8 +109,7 @@ struct Tiles {
   float* inv;
   unsigned char* seg;
   int8_t* exp;
-  bf16* A;
-  bf16* B;
+  int* flag;
 };
 
 __device__ __forceinline__ Tiles carve(unsigned char* s) {
@@ -102,12 +117,14 @@ __device__ __forceinline__ Tiles carve(unsigned char* s) {
           reinterpret_cast<float*>(s + kOffScale),
           reinterpret_cast<float*>(s + kOffInv), s + kOffSeg,
           reinterpret_cast<int8_t*>(s + kOffExp),
-          reinterpret_cast<bf16*>(s + kOffA),
-          reinterpret_cast<bf16*>(s + kOffB)};
+          reinterpret_cast<int*>(s + kOffFlag)};
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
 
 // Element i of a tile walk: (row, col) with consecutive threads on the
 // dimension whose stride is 1, so global accesses coalesce.
@@ -180,123 +197,96 @@ __device__ __forceinline__ float mantissa(const Tiles& t, int r, int c,
   return fminf(fmaxf(rintf(t.F[r * kFP + c] * t.inv[q]), -lim), lim);
 }
 
-// Quantize->dequantize one operand tile into H as bf16 (bfp_common.qdq_block);
-// returns whether any value of the tile is nonzero, for every thread.
-template <typename T, int G>
-__device__ int qdq_tile(const Tiles& t, bf16* H, const T* src, int rows,
-                        int cols, long long rs, long long cs, int r0, int c0,
-                        int mbits, int ebits, float lim) {
-  __syncthreads();   // the previous readers of F and H are done
-  stage_tile(t.F, src, rows, cols, rs, cs, r0, c0);
+// Write the staged tile's values, value(r, c) for an even c giving two
+// neighbours at once, to out (rp x kp bf16, row-major) as bf16 pairs, the
+// part of the tile inside [0, rp) x [0, kp) (kp is even).  With flags, also
+// mark each (tr x tk) GEMM tile that receives a nonzero value:
+// flags[(r / tr) * (kp / tk) + c / tk] = 1 (flags were zeroed before).
+template <typename Value>
+__device__ void write_operand(const Tiles& t, Value value, bf16* out, int rp,
+                              int kp, int r0, int c0, unsigned char* flags,
+                              int tr, int tk) {
+  if (flags && threadIdx.x < kMaxFlagTiles * kMaxFlagTiles)
+    t.flag[threadIdx.x] = 0;
   __syncthreads();
-  group_scales<G>(t, mbits, ebits);
-  int nz = 0;
-  for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
-    const int r = i / kT, c = i % kT;
-    int q;
-    const float m = mantissa<G>(t, r, c, lim, q);
-    nz |= m != 0.f;
-    H[r * kHP + c] = __float2bfloat16_rn(m * t.scale[q]);
+  for (int i = threadIdx.x; i < kT * kT / 2; i += kThreads) {
+    const int r = i / (kT / 2), c = (i % (kT / 2)) * 2;
+    if (r0 + r >= rp || c0 + c >= kp) continue;
+    float v0, v1;
+    value(r, c, v0, v1);
+    *reinterpret_cast<__nv_bfloat162*>(
+        out + static_cast<long long>(r0 + r) * kp + c0 + c) =
+        __floats2bfloat162_rn(v0, v1);
+    if (flags && (v0 != 0.f || v1 != 0.f))
+      t.flag[((r0 + r) / tr - r0 / tr) * kMaxFlagTiles +
+             (c0 + c) / tk - c0 / tk] = 1;
   }
-  return __syncthreads_or(nz);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(smem_u32(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc += A (kT x kT, row-major bf16) * B (kT x kT, row-major bf16) for this
-// warp's 48 x 24 block: warps 2 (rows) x 4 (columns).
-__device__ __forceinline__ void mma_tile(const bf16* A, const bf16* B,
-                                         float (&acc)[3][3][4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = (warp / 4) * 48, col0 = (warp % 4) * 24;
-#pragma unroll
-  for (int kk = 0; kk < kT / 16; ++kk) {
-    uint32_t af[3][4];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-      ldmatrix_x4(af[i], A + (row0 + i * 16 + (lane % 16)) * kHP + kk * 16 +
-                             (lane / 16) * 8);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      uint32_t b0, b1;
-      ldmatrix_x2_trans(b0, b1,
-                        B + (kk * 16 + (lane % 16)) * kHP + col0 + j * 8);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) mma_bf16(acc[i][j], af[i], b0, b1);
-    }
+  if (!flags) return;
+  __syncthreads();
+  if (threadIdx.x < kMaxFlagTiles * kMaxFlagTiles && t.flag[threadIdx.x]) {
+    const int fr = r0 / tr + threadIdx.x / kMaxFlagTiles;
+    const int fc = c0 / tk + threadIdx.x % kMaxFlagTiles;
+    flags[static_cast<long long>(fr) * (kp / tk) + fc] = 1;
   }
 }
 
-__device__ __forceinline__ void store_tile(float* C, int m, int n, int m0,
-                                           int n0,
-                                           const float (&acc)[3][3][4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = m0 + (warp / 4) * 48, col0 = n0 + (warp % 4) * 24;
-  const int g = lane / 4, t4 = lane % 4;
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row0 + i * 16 + g + (e / 2) * 8;
-        const int c = col0 + j * 8 + 2 * t4 + (e % 2);
-        if (r < m && c < n) C[static_cast<long long>(r) * n + c] = acc[i][j][e];
-      }
-}
-
-// C = Q(A) Q(B); one CTA per 96 x 96 output tile, K walked in 96-wide steps.
-// skip_zero: the tile-level gate of the reference (skip the product when
-// either quantized operand tile is all zero), which changes no value.
+// Operand pass of bfp_matmul: x (rows x cols, element strides) -> out = the
+// zero-padded Q(x) as bf16 (rp x kp); one CTA per 96 x 96 staging tile of
+// the padded output, so the padding is written too.
 template <typename T, int G>
-__global__ void __launch_bounds__(kThreads, 2)
-bfp_matmul_kernel(const T* a, const T* b, float* c, int m, int k, int n,
-                  long long a_rs, long long a_cs, long long b_rs,
-                  long long b_cs, int mbits, int ebits, int skip_zero) {
+__global__ void __launch_bounds__(kThreads)
+bfp_operand_kernel(const T* x, int rows, int cols, long long rs,
+                   long long cs, bf16* out, int rp, int kp, int mbits,
+                   int ebits, unsigned char* flags, int tr, int tk) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tiles t = carve(smem);
-  const int m0 = blockIdx.y * kT, n0 = blockIdx.x * kT;
+  const int r0 = blockIdx.y * kT, c0 = blockIdx.x * kT;
   const float lim = static_cast<float>((1 << mbits) - 1);
-  float acc[3][3][4];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  for (int k0 = 0; k0 < k; k0 += kT) {
-    const int nz_a = qdq_tile<T, G>(t, t.A, a, m, k, a_rs, a_cs, m0, k0,
-                                    mbits, ebits, lim);
-    const int nz_b = qdq_tile<T, G>(t, t.B, b, k, n, b_rs, b_cs, k0, n0,
-                                    mbits, ebits, lim);
-    if (!skip_zero || (nz_a && nz_b)) mma_tile(t.A, t.B, acc);
+  stage_tile(t.F, x, rows, cols, rs, cs, r0, c0);
+  __syncthreads();
+  group_scales<G>(t, mbits, ebits);
+  write_operand(
+      t,
+      [&](int r, int c, float& v0, float& v1) {
+        int q0, q1;
+        const float m0 = mantissa<G>(t, r, c, lim, q0);
+        const float m1 = mantissa<G>(t, r, c + 1, lim, q1);
+        v0 = m0 * t.scale[q0];
+        v1 = m1 * t.scale[q1];
+      },
+      out, rp, kp, r0, c0, flags, tr, tk);
+}
+
+// Operand pass of bfp_matmul_packed: int8 mantissas (rows x cols) and
+// exponents (rows/G x cols/G), both with element strides -> out =
+// mant * 2^(exp - mbits + 1) as bf16 (rp x kp), zeros past the matrix
+// (bfp_common.dequant_block).
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+bfp_dequant_operand_kernel(const int8_t* mant, const int8_t* exps, int rows,
+                           int cols, long long rs, long long cs,
+                           long long ers, long long ecs, bf16* out, int rp,
+                           int kp, int mbits) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles t = carve(smem);
+  constexpr int NG = kT / G;
+  const int r0 = blockIdx.y * kT, c0 = blockIdx.x * kT;
+  for (int q = threadIdx.x; q < NG * NG; q += kThreads) {
+    const int gr = r0 / G + q / NG, gc = c0 / G + q % NG;
+    const bool ok = gr * G < rows && gc * G < cols;
+    const int e = ok ? exps[gr * ers + gc * ecs] : 0;
+    t.scale[q] = ldexpf(1.f, e - (mbits - 1));
   }
-  store_tile(c, m, n, m0, n0, acc);
+  stage_tile(t.F, mant, rows, cols, rs, cs, r0, c0);
+  __syncthreads();
+  write_operand(
+      t,
+      [&](int r, int c, float& v0, float& v1) {
+        const float* f = t.F + r * kFP + c;
+        v0 = f[0] * t.scale[(r / G) * NG + c / G];
+        v1 = f[1] * t.scale[(r / G) * NG + (c + 1) / G];
+      },
+      out, rp, kp, r0, c0, nullptr, 1, 1);
 }
 
 // x (m x n) -> mant (mp x np, contiguous) and exp (mp/G x np/G, contiguous);
@@ -331,171 +321,452 @@ bfp_quantize_kernel(const T* x, int m, int n, long long rs, long long cs,
   }
 }
 
-// Dequantize one packed operand tile into H as bf16 (bfp_common.dequant_block):
-// mant * 2^(exp - mbits + 1), zeros past the matrix.  The int8 mantissas go
-// from registers straight to bf16, with all of a thread's loads in flight
-// before its first store.
-template <int G>
-__device__ void dequant_tile(const Tiles& t, bf16* H, const int8_t* mant,
-                             const int8_t* exps, int rows, int cols,
-                             long long rs, long long cs, long long ers,
-                             long long ecs, int r0, int c0, int mbits) {
-  constexpr int NG = kT / G;
-  __syncthreads();   // the previous readers of H and the scales are done
-  for (int q = threadIdx.x; q < NG * NG; q += kThreads) {
-    const int gr = r0 / G + q / NG, gc = c0 / G + q % NG;
-    const bool ok = gr * G < rows && gc * G < cols;
-    const int e = ok ? exps[gr * ers + gc * ecs] : 0;
-    t.scale[q] = ldexpf(1.f, e - (mbits - 1));
-  }
-  __syncthreads();
-  const bool col_major = cs != 1 && rs == 1;
-  int v[kPerThread];
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    int r, c;
-    tile_pos(threadIdx.x + j * kThreads, col_major, r, c);
-    const int gr = r0 + r, gc = c0 + c;
-    v[j] = gr < rows && gc < cols ? mant[gr * rs + gc * cs] : 0;
-  }
-#pragma unroll
-  for (int j = 0; j < kPerThread; ++j) {
-    int r, c;
-    tile_pos(threadIdx.x + j * kThreads, col_major, r, c);
-    H[r * kHP + c] = __float2bfloat16_rn(static_cast<float>(v[j]) *
-                                         t.scale[(r / G) * NG + c / G]);
+// ---------------------------------------------------------------------------
+// The bf16 GEMM shared by both products: C (m x n, f32) = Aq Bq^T.
+//
+// One CTA per 128 x 256 output tile, in groups of kGroupM row tiles so
+// that the CTAs in flight share their A and B tiles in L2.  Warp
+// specialised: warpgroup 0 is the producer, of which one thread issues TMA
+// loads (cp.async.bulk.tensor, 128-byte swizzle: a 64-wide bf16 K tile is
+// one 128-byte row) of the A and B tiles into a ring of kStages 48 KB
+// stages, each completion counted on the stage's "full" mbarrier;
+// warpgroups 1 and 2 are the consumers, each owning 64 rows of the tile,
+// which run wgmma.mma_async m64n128k16 (bf16 in, f32 accumulate in 128
+// registers a thread) on each stage as it arrives, keep one K step's
+// products in flight, and release a stage through its "empty" mbarrier
+// once its products are done.  setmaxnreg moves registers from the
+// producer (40) to the consumers (232).  With the zero gate, a consumer
+// skips the products of a K step whose A or B tile flag is 0; the stage
+// still arrives and is still released.  The output tiles divide the
+// full-width shapes exactly (3,200 tiles for 8192 x 12800), so a plain
+// grid of one CTA per tile keeps the card busy.
+// ---------------------------------------------------------------------------
+
+constexpr int kGemmBM = 128, kGemmBN = 256, kGemmBK = 64;
+constexpr int kStages = 4;
+constexpr int kGroupM = 16;                   // row tiles per raster group
+constexpr int kGemmThreads = 384;             // 3 warpgroups
+constexpr int kNSub = kGemmBN / 128;          // n128 products per k16 step
+constexpr int kTileABytes = kGemmBM * kGemmBK * 2;
+constexpr int kTileBBytes = kGemmBN * kGemmBK * 2;
+constexpr int kStageBytes = kTileABytes + kTileBBytes;
+// the stages, 1024-byte aligned (the 128-byte swizzle's period), then the
+// 2 x kStages mbarriers
+constexpr int kSmemGemm = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+static_assert(kGemmBK * 2 == 128, "a K tile row is one 128-byte swizzle row");
+static_assert(kGemmBN % 128 == 0 && kGemmBN <= 256, "TMA box <= 256 rows");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait for the completion of the barrier's phase of this parity.  A wait
+// that has not completed after 4 s traps (a launch error on the host) rather
+// than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  uint64_t t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    const uint64_t t = global_ns();
+    if (t0 == 0) t0 = t;
+    else if (t - t0 > 4000000000ull) __trap();
   }
 }
 
-template <int G>
-__global__ void __launch_bounds__(kThreads, 2)
-bfp_matmul_packed_kernel(const int8_t* am, const int8_t* ae,
-                         const int8_t* bm, const int8_t* be, float* c, int m,
-                         int k, int n, long long am_rs, long long am_cs,
-                         long long ae_rs, long long ae_cs, long long bm_rs,
-                         long long bm_cs, long long be_rs, long long be_cs,
-                         int mbits) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Tiles t = carve(smem);
-  const int m0 = blockIdx.y * kT, n0 = blockIdx.x * kT;
-  float acc[3][3][4];
-#pragma unroll
-  for (int i = 0; i < 3; ++i)
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-  for (int k0 = 0; k0 < k; k0 += kT) {
-    dequant_tile<G>(t, t.A, am, ae, m, k, am_rs, am_cs, ae_rs, ae_cs, m0, k0,
-                    mbits);
-    dequant_tile<G>(t, t.B, bm, be, k, n, bm_rs, bm_cs, be_rs, be_cs, k0, n0,
-                    mbits);
-    __syncthreads();
-    mma_tile(t.A, t.B, acc);
-  }
-  store_tile(c, m, n, m0, n0, acc);
+// TMA: the box at (inner coordinate x, row y) of the tensor map into dst,
+// its bytes counted on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
+      : "memory");
 }
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
+// start address >> 4, leading byte offset 16 (unused by this layout),
+// stride byte offset 1024 (8 rows of 128 bytes), layout type 1 (128B).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// Keep the compiler from moving accumulator accesses across wgmma.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128 f32, wgmma fragment) += A (64 x 16) * B^T (B 128 x 16), both
+// K-major in shared memory.
+__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, 1, 1, 1, 0, 0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db));
+}
+
+// Output tile of CTA id: kGroupM row tiles at a time, down the rows first.
+__device__ __forceinline__ void tile_of(int id, int tiles_m, int tiles_n,
+                                        int& tm, int& tn) {
+  const int per_group = kGroupM * tiles_n;
+  const int first = (id / per_group) * kGroupM;
+  const int rows = min(kGroupM, tiles_m - first);
+  const int r = id % per_group;
+  tm = first + r % rows;
+  tn = r / rows;
+}
+
+__global__ void __launch_bounds__(kGemmThreads, 1)
+bfp_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b, float* c, int m,
+                int n, int nkt, int tiles_m, int tiles_n,
+                const unsigned char* fa, const unsigned char* fb) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = base + kStages * kStageBytes;   // kStages barriers
+  const uint32_t empty = full + kStages * 8;             // kStages barriers
+  int tm, tn;
+  tile_of(blockIdx.x, tiles_m, tiles_n, tm, tn);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);     // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    // producer warpgroup: thread 0 issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(empty + 8 * s, ((kt / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, kStageBytes);
+        const uint32_t dst = base + s * kStageBytes;
+        tma_load(dst, &map_a, full + 8 * s, kt * kGemmBK, tm * kGemmBM);
+        tma_load(dst + kTileABytes, &map_b, full + 8 * s, kt * kGemmBK,
+                 tn * kGemmBN);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = threadIdx.x / 128 - 1;     // consumer: rows cw*64 ..+64
+    float acc[kNSub][64];
+#pragma unroll
+    for (int j = 0; j < kNSub; ++j)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[j][i] = 0.f;
+    // one K step's products stay in flight: the group committed at step kt
+    // (empty when the gate skips it) is waited for at step kt + 1, which
+    // then releases stage kt
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(full + 8 * s, (kt / kStages) & 1);
+      if (!fa || (fa[tm * nkt + kt] && fb[tn * nkt + kt])) {
+        const uint32_t sa = base + s * kStageBytes + cw * 64 * 128;
+        const uint32_t sb = base + s * kStageBytes + kTileABytes;
+#pragma unroll
+        for (int j = 0; j < kNSub; ++j) fence_acc(acc[j]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int k = 0; k < kGemmBK / 16; ++k)
+#pragma unroll
+          for (int j = 0; j < kNSub; ++j)
+            wgmma_128(acc[j], smem_desc(sa + 32 * k),
+                      smem_desc(sb + j * 128 * 128 + 32 * k));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+#pragma unroll
+      for (int j = 0; j < kNSub; ++j) fence_acc(acc[j]);
+      if (kt > 0 && threadIdx.x % 128 == 0)
+        mbar_arrive(empty + 8 * ((kt - 1) % kStages));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < kNSub; ++j) fence_acc(acc[j]);
+    // epilogue: fragment element (row lane/4 [+8], column 8 c8 + 2 (lane%4)
+    // [+1]) of each warp's 16 rows, straight to C, masked at the edge
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int row0 = tm * kGemmBM + cw * 64 + warp * 16 + lane / 4;
+    const int col0 = tn * kGemmBN + 2 * (lane % 4);
+    const bool pairs = n % 2 == 0;
+#pragma unroll
+    for (int j = 0; j < kNSub; ++j)
+#pragma unroll
+      for (int c8 = 0; c8 < 16; ++c8)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + 8 * h, col = col0 + j * 128 + 8 * c8;
+          if (r >= m) continue;
+          const float v0 = acc[j][4 * c8 + 2 * h];
+          const float v1 = acc[j][4 * c8 + 2 * h + 1];
+          float* dst = c + static_cast<long long>(r) * n + col;
+          if (pairs && col < n) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            if (col < n) dst[0] = v0;
+            if (col + 1 < n) dst[1] = v1;
+          }
+        }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
 
 bool bits_ok(int mbits, int ebits) {
   return mbits >= 1 && mbits <= 7 && ebits >= 1 && ebits <= 7;
 }
 
 template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, int smem, cudaStream_t stream,
-                   Args... args) {
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
+                   cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(args...);
+  kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, taken from the driver at run time through the
+// runtime's cudaGetDriverEntryPoint, so the library links no libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a contiguous (rows, kp) bf16 buffer, read in boxes of
+// box_rows x kGemmBK with the 128-byte swizzle the wgmma descriptors expect.
+bool operand_map(CUtensorMap* map, const void* p, int rows, int kp,
+                 int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kp),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kp) * 2};
+  const cuuint32_t box[2] = {kGemmBK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(p), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 dim3 tiles(int rows, int cols) {
   return dim3((cols + kT - 1) / kT, (rows + kT - 1) / kT);
 }
 
-template <typename T, int G>
-cudaError_t matmul_g(const void* a, const void* b, float* c, int m, int k,
-                     int n, long long a_rs, long long a_cs, long long b_rs,
-                     long long b_cs, int mbits, int ebits, int skip_zero,
-                     cudaStream_t st) {
-  return launch(bfp_matmul_kernel<T, G>, tiles(m, n), kSmemMatmul, st,
-                static_cast<const T*>(a), static_cast<const T*>(b), c, m, k,
-                n, a_rs, a_cs, b_rs, b_cs, mbits, ebits, skip_zero);
-}
-
-template <typename T>
-cudaError_t matmul_t(int group, const void* a, const void* b, float* c, int m,
-                     int k, int n, long long a_rs, long long a_cs,
-                     long long b_rs, long long b_cs, int mbits, int ebits,
-                     int skip_zero, cudaStream_t st) {
+// f(std::integral_constant<int, G>{}) for the supported group sizes.
+template <typename F>
+cudaError_t by_group(int group, F f) {
   switch (group) {
-    case 3: return matmul_g<T, 3>(a, b, c, m, k, n, a_rs, a_cs, b_rs, b_cs,
-                                  mbits, ebits, skip_zero, st);
-    case 8: return matmul_g<T, 8>(a, b, c, m, k, n, a_rs, a_cs, b_rs, b_cs,
-                                  mbits, ebits, skip_zero, st);
-    case 16: return matmul_g<T, 16>(a, b, c, m, k, n, a_rs, a_cs, b_rs, b_cs,
-                                    mbits, ebits, skip_zero, st);
-    case 32: return matmul_g<T, 32>(a, b, c, m, k, n, a_rs, a_cs, b_rs, b_cs,
-                                    mbits, ebits, skip_zero, st);
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, int G>
-cudaError_t quantize_g(const void* x, int m, int n, long long rs,
-                       long long cs, int8_t* mant, int8_t* exps, int mp,
-                       int np, int mbits, int ebits, cudaStream_t st) {
-  return launch(bfp_quantize_kernel<T, G>, tiles(mp, np), kSmemQuant, st,
-                static_cast<const T*>(x), m, n, rs, cs, mant, exps, mp, np,
-                mbits, ebits);
+template <typename T>
+cudaError_t operand_t(int group, const void* x, int rows, int cols,
+                      long long rs, long long cs, bf16* out, int rp, int kp,
+                      int mbits, int ebits, unsigned char* flags, int tr,
+                      int tk, cudaStream_t st) {
+  return by_group(group, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    return launch(bfp_operand_kernel<T, G>, tiles(rp, kp), kThreads,
+                  kSmemOperand, st, static_cast<const T*>(x), rows, cols, rs,
+                  cs, out, rp, kp, mbits, ebits, flags, tr, tk);
+  });
 }
 
 template <typename T>
 cudaError_t quantize_t(int group, const void* x, int m, int n, long long rs,
                        long long cs, int8_t* mant, int8_t* exps, int mp,
                        int np, int mbits, int ebits, cudaStream_t st) {
-  switch (group) {
-    case 3: return quantize_g<T, 3>(x, m, n, rs, cs, mant, exps, mp, np,
-                                    mbits, ebits, st);
-    case 8: return quantize_g<T, 8>(x, m, n, rs, cs, mant, exps, mp, np,
-                                    mbits, ebits, st);
-    case 16: return quantize_g<T, 16>(x, m, n, rs, cs, mant, exps, mp, np,
-                                      mbits, ebits, st);
-    case 32: return quantize_g<T, 32>(x, m, n, rs, cs, mant, exps, mp, np,
-                                      mbits, ebits, st);
-    default: return cudaErrorInvalidValue;
-  }
+  return by_group(group, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    return launch(bfp_quantize_kernel<T, G>, tiles(mp, np), kThreads,
+                  kSmemQuant, st, static_cast<const T*>(x), m, n, rs, cs,
+                  mant, exps, mp, np, mbits, ebits);
+  });
 }
 
-template <int G>
-cudaError_t packed_g(const int8_t* am, const int8_t* ae, const int8_t* bm,
-                     const int8_t* be, float* c, int m, int k, int n,
-                     const long long* s, int mbits, cudaStream_t st) {
-  return launch(bfp_matmul_packed_kernel<G>, tiles(m, n), kSmemMatmul, st,
-                am, ae, bm, be, c, m, k, n, s[0], s[1], s[2], s[3], s[4],
-                s[5], s[6], s[7], mbits);
+bool padded_ok(int rows, int cols, int rp, int kp, int tr, int tk) {
+  return rows >= 0 && cols >= 0 && rp >= rows && kp >= cols && tr >= 32 &&
+         tk >= 32 && tk % 2 == 0 && rp % tr == 0 && kp % tk == 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (both operands).  Strides in elements.
-// c: contiguous (m, n) float32.  Returns a cudaError_t value (0 = success).
-extern "C" int bfp_matmul_fwd(const void* a, const void* b, float* c,
-                              int dtype, int m, int k, int n, long long a_rs,
-                              long long a_cs, long long b_rs, long long b_cs,
-                              int group, int mbits, int ebits, int skip_zero,
-                              void* stream) {
-  if (!bits_ok(mbits, ebits)) return cudaErrorInvalidValue;
-  if (m == 0 || n == 0) return cudaSuccess;
+// Operand pass of bfp_matmul.  x: (rows, cols) with element strides, dtype
+// 0 = float32, 1 = bfloat16; out: contiguous (rp, kp) bf16, rp and kp
+// multiples of the GEMM tile (tr, tk); flags: contiguous (rp/tr, kp/tk)
+// uint8, or null for no zero gate.
+extern "C" int bfp_operand_fwd(const void* x, int dtype, int rows, int cols,
+                               long long rs, long long cs, void* out, int rp,
+                               int kp, int group, int mbits, int ebits,
+                               unsigned char* flags, int tr, int tk,
+                               void* stream) {
+  if (!bits_ok(mbits, ebits) || !padded_ok(rows, cols, rp, kp, tr, tk))
+    return cudaErrorInvalidValue;
+  if (rp == 0 || kp == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (flags) {
+    cudaError_t err = cudaMemsetAsync(
+        flags, 0, static_cast<size_t>(rp / tr) * (kp / tk), st);
+    if (err != cudaSuccess) return err;
+  }
+  bf16* o = static_cast<bf16*>(out);
   switch (dtype) {
-    case 0: return matmul_t<float>(group, a, b, c, m, k, n, a_rs, a_cs, b_rs,
-                                   b_cs, mbits, ebits, skip_zero, st);
-    case 1: return matmul_t<bf16>(group, a, b, c, m, k, n, a_rs, a_cs, b_rs,
-                                  b_cs, mbits, ebits, skip_zero, st);
+    case 0: return operand_t<float>(group, x, rows, cols, rs, cs, o, rp, kp,
+                                    mbits, ebits, flags, tr, tk, st);
+    case 1: return operand_t<bf16>(group, x, rows, cols, rs, cs, o, rp, kp,
+                                   mbits, ebits, flags, tr, tk, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Operand pass of bfp_matmul_packed.  mant: (rows, cols) int8, exps:
+// (rows/group, cols/group) int8, both with element strides; rows and cols
+// multiples of the group; out: contiguous (rp, kp) bf16 as above.
+extern "C" int bfp_dequant_operand_fwd(const int8_t* mant,
+                                       const int8_t* exps, int rows, int cols,
+                                       long long rs, long long cs,
+                                       long long ers, long long ecs,
+                                       void* out, int rp, int kp, int group,
+                                       int mbits, int tr, int tk,
+                                       void* stream) {
+  if (mbits < 1 || mbits > 7 || group <= 0 || rows % group ||
+      cols % group || !padded_ok(rows, cols, rp, kp, tr, tk))
+    return cudaErrorInvalidValue;
+  if (rp == 0 || kp == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* o = static_cast<bf16*>(out);
+  return by_group(group, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    return launch(bfp_dequant_operand_kernel<G>, tiles(rp, kp), kThreads,
+                  kSmemQuant, st, mant, exps, rows, cols, rs, cs, ers, ecs, o,
+                  rp, kp, mbits);
+  });
+}
+
+// C = Aq Bq^T: aq contiguous (mp, kp) bf16, bq contiguous (np, kp) bf16,
+// c contiguous (m, n) float32; mp, np, kp multiples of the GEMM tile
+// (bfp_gemm_tiles), m <= mp, n <= np.  fa (mp/BM, kp/BK) and fb (np/BN,
+// kp/BK) uint8 zero-gate flags, both null for no gate.
+extern "C" int bfp_gemm_fwd(const void* aq, const void* bq, float* c, int m,
+                            int n, int mp, int np, int kp,
+                            const unsigned char* fa, const unsigned char* fb,
+                            void* stream) {
+  if (m < 0 || n < 0 || m > mp || n > np || mp % kGemmBM || np % kGemmBN ||
+      kp % kGemmBK || (fa == nullptr) != (fb == nullptr))
+    return cudaErrorInvalidValue;
+  if (m == 0 || n == 0) return cudaSuccess;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (kp == 0)
+    return cudaMemsetAsync(c, 0, static_cast<size_t>(m) * n * sizeof(float),
+                           st);
+  CUtensorMap map_a, map_b;
+  if (!operand_map(&map_a, aq, mp, kp, kGemmBM) ||
+      !operand_map(&map_b, bq, np, kp, kGemmBN))
+    return cudaErrorInvalidValue;
+  const int tiles_m = mp / kGemmBM, tiles_n = np / kGemmBN;
+  return launch(bfp_gemm_kernel, dim3(tiles_m * tiles_n), kGemmThreads,
+                kSmemGemm, st, map_a, map_b, c, m, n, kp / kGemmBK, tiles_m,
+                tiles_n, fa, fb);
+}
+
+// The GEMM's tile (BM, BN, BK): the operand passes pad to its multiples.
+extern "C" void bfp_gemm_tiles(int* t) {
+  t[0] = kGemmBM;
+  t[1] = kGemmBN;
+  t[2] = kGemmBK;
 }
 
 // x: (m, n) with element strides; mant: contiguous (mp, np) int8; exps:
@@ -514,30 +785,6 @@ extern "C" int bfp_quantize_fwd(const void* x, int dtype, int m, int n,
                                      np, mbits, ebits, st);
     case 1: return quantize_t<bf16>(group, x, m, n, rs, cs, mant, exps, mp,
                                     np, mbits, ebits, st);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// Packed operands: mantissas (m, k) and (k, n), exponents (m/g, k/g) and
-// (k/g, n/g), all int8 with element strides (s: am_rs, am_cs, ae_rs, ae_cs,
-// bm_rs, bm_cs, be_rs, be_cs); m, k, n multiples of the group.
-extern "C" int bfp_matmul_packed_fwd(const int8_t* am, const int8_t* ae,
-                                     const int8_t* bm, const int8_t* be,
-                                     float* c, int m, int k, int n,
-                                     const long long* strides, int group,
-                                     int mbits, void* stream) {
-  if (mbits < 1 || mbits > 7 || group <= 0 || m % group || k % group ||
-      n % group)
-    return cudaErrorInvalidValue;
-  if (m == 0 || n == 0) return cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (group) {
-    case 3: return packed_g<3>(am, ae, bm, be, c, m, k, n, strides, mbits, st);
-    case 8: return packed_g<8>(am, ae, bm, be, c, m, k, n, strides, mbits, st);
-    case 16: return packed_g<16>(am, ae, bm, be, c, m, k, n, strides, mbits,
-                                 st);
-    case 32: return packed_g<32>(am, ae, bm, be, c, m, k, n, strides, mbits,
-                                 st);
     default: return cudaErrorInvalidValue;
   }
 }
