@@ -77,13 +77,18 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(b, h, kv, sq, skv, d, causal, dtype):
-    """Least time for the attention forward: the (query, key) pairs these
-    inputs need (the causal triangle, top-left aligned) at 4·d FLOPs each
-    over the peak for the dtype, against q/k/v read once and o written once
-    over the memory rate."""
+def attention_flops(b, h, sq, skv, d, causal):
+    """The (query, key) pairs these inputs need (the causal triangle,
+    top-left aligned) at 4·d FLOPs each."""
     pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
-    flops = 4.0 * b * h * d * pairs
+    return 4.0 * b * h * d * pairs
+
+
+def attention_bound_ms(b, h, kv, sq, skv, d, causal, dtype):
+    """Least time for the attention forward: its FLOPs over the peak for
+    the dtype, against q/k/v read once and o written once over the memory
+    rate."""
+    flops = attention_flops(b, h, sq, skv, d, causal)
     nbytes = (2 * b * h * sq * d + 2 * b * kv * skv * d) * \
         torch.tensor([], dtype=dtype).element_size()
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
@@ -91,11 +96,23 @@ def attention_bound_ms(b, h, kv, sq, skv, d, causal, dtype):
         else "bytes"
 
 
-# (label, b, h, kv, sq, skv, d, causal, softcap, dtype, iters)
+# (label, b, h, kv, sq, skv, d, causal, softcap, dtype, iters).  Beside the
+# main shape: MQA; rectangular causal; softcap; d=64 with Sq/Skv off the
+# 128-row tiles; non-causal with Skv < Sq; f32 (the SIMT kernel); and the
+# V-layout probe: q = 0, so every output row is the mean of V's rows, which
+# a wrong MN-major V descriptor cannot give.
 FLASH_CASES = [
     ("main", 2, 32, 8, 4096, 4096, 128, True, None, torch.bfloat16, 10),
     ("mqa", 1, 8, 1, 1024, 1024, 128, True, None, torch.bfloat16, 20),
     ("rect_causal_bf16", 1, 8, 2, 384, 640, 128, True, None, torch.bfloat16,
+     20),
+    ("softcap_bf16", 2, 8, 2, 1024, 1024, 128, True, 20.0, torch.bfloat16,
+     20),
+    ("ragged_d64_bf16", 2, 8, 2, 200, 328, 64, True, None, torch.bfloat16,
+     20),
+    ("short_kv_noncausal_bf16", 1, 8, 2, 512, 320, 128, False, None,
+     torch.bfloat16, 20),
+    ("v_probe_bf16", 1, 4, 4, 128, 128, 128, False, None, torch.bfloat16,
      20),
     ("rect_causal_f32", 1, 8, 2, 384, 640, 64, True, None, torch.float32, 20),
     ("softcap_f32", 2, 4, 2, 512, 512, 128, True, 20.0, torch.float32, 20),
@@ -122,14 +139,15 @@ def check_flash(gen) -> dict:
          iters) in FLASH_CASES:
         q = torch.randn((b, h, sq, d), generator=gen, device="cuda",
                         dtype=dtype)
+        if label == "v_probe_bf16":
+            q.zero_()
         k = torch.randn((b, kv, skv, d), generator=gen, device="cuda",
                         dtype=dtype)
         v = torch.randn((b, kv, skv, d), generator=gen, device="cuda",
                         dtype=dtype)
-        kw = dict(causal=causal, softcap=cap)
-        # chunks are the reference's tiling contract only (128 tiles
-        # every shape here); the kernel uses its own tiles
-        kw = dict(kw, q_chunk=128, kv_chunk=128)
+        # chunks are the reference's tiling contract only (each length
+        # tiles by itself); the kernel uses its own tiles
+        kw = dict(causal=causal, softcap=cap, q_chunk=sq, kv_chunk=skv)
         got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         want = fa.flash_attention_plain(q, k, v, causal=causal, softcap=cap)
@@ -160,12 +178,15 @@ def check_flash(gen) -> dict:
                                               enable_gqa=True), iters)
         bound_ms, bound_by = attention_bound_ms(b, h, kv, sq, skv, d, causal,
                                                 dtype)
+        tflops = attention_flops(b, h, sq, skv, d, causal) / kernel_ms / 1e9
         row = {"shape": label, "q": [b, h, sq, d], "kv": [b, kv, skv, d],
                "causal": causal, "softcap": cap, "dtype": str(dtype),
                "max_abs_err": err, "tol": TOL[dtype], "rel_fro_err": rel_all,
                "rel_fro_err_tail": rel_tail, "rel_tol": REL_TOL[dtype],
-               "kernel_ms": kernel_ms,
+               "kernel_ms": kernel_ms, "tflops": tflops,
                "plain_ms": plain_ms, "library_ms": library_ms,
+               "kernel_over_library": None if library_ms is None
+               else kernel_ms / library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by}
         print("flash_check " + json.dumps(row), flush=True)
         if label == "main":
@@ -665,12 +686,15 @@ def profile_step(entry, cfg, tcfg, policy, state, batch):
 
 def ptxas_lines(log: str) -> list[str]:
     """ptxas -v's register and spill lines, each after the name of the entry
-    function it describes, and every warning."""
+    function it describes, every warning, and every coded performance note
+    (C75xx: wgmma serialized, setmaxnreg ignored, warpgroup.arrive
+    injected)."""
     out, entry = [], ""
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1] if "'" in line else line.strip()
-        elif "warning" in line or "registers" in line or "spill" in line:
+        elif any(k in line for k in ("warning", "registers", "spill",
+                                     "(C7")):
             out.append(f"{entry}: {line.strip()}")
     return out
 
@@ -690,8 +714,12 @@ def main() -> int:
     from repro_torch.kernels import build
     built = build.build()
     for name, info in built.items():
-        print(f"build {name}: seconds {info['seconds']!r} ptxas "
-              f"{ptxas_lines(info['log'])}", flush=True)
+        lines = ptxas_lines(info["log"])
+        # the entry each C7519 names (ptxas prints these before the entry)
+        c7519 = sorted({ln.split("in function '")[-1].rstrip("'")
+                        for ln in lines if "C7519" in ln})
+        print(f"build {name}: seconds {info['seconds']!r} ptxas {lines} "
+              f"C7519 in {c7519}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flash = check_flash(gen)

@@ -2,8 +2,9 @@
 ``ctypes``.
 
 Each ``csrc/<name>.cu`` exports a plain C interface and compiles on its own
-into ``_build/lib<name>-<hash>.so`` (the hash covers the source and the
-flags, so an edited source rebuilds).  Nothing is compiled at import: a
+into ``_build/lib<name>-<hash>.so`` (the hash covers the source, the
+``csrc`` headers it includes, and the flags, so an edited source or header
+rebuilds).  Nothing is compiled at import: a
 library is built at its first use, or up front by ``build()``, which starts
 one ``nvcc`` per source, all at once.  ``_build/`` is listed in
 ``.gitignore``.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -39,10 +41,25 @@ def nvcc() -> str:
     return found
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _sources_of(path: Path, seen: list[Path]) -> list[Path]:
+    """``path`` and every file of its directory it includes with quotes,
+    transitively, each once, in the order first met."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+        _sources_of(path.parent / inc.decode(), seen)
+    return seen
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources_of(CSRC / f"{name}.cu", []):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict[str, dict]:

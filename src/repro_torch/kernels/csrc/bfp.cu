@@ -43,6 +43,13 @@
 //    its tensor maps with cuTensorMapEncodeTiled, taken from the driver
 //    through cudaGetDriverEntryPoint, so nothing links libcuda.
 //
+// bfp_quantize is one pass, bytes bound: bfp_quantize_rows_kernel reads a
+// source with contiguous, 16-byte aligned rows in 16-byte loads, takes each
+// group's exponent by warp shuffles without shared memory, and writes
+// 4- or 8-byte words of mantissas; group 3, column-major and unaligned
+// sources take bfp_quantize_tile_kernel (96 x 96 staging tiles, 4-byte
+// mantissa words where the row allows).
+//
 // The tile-level gate of the reference (skip a product whose quantized A
 // or B tile is all zero, the paper's section V-B gating checkpoint)
 // changes no value: an all-zero tile adds exact zeros.
@@ -61,6 +68,8 @@
 //     of int8 and write the same 172 MB, 0.077 ms);
 //   GEMM: operations.  2MKN = 8.6e11 bf16 operations, 0.87 ms at 989
 //     TFLOP/s, against 0.18 ms for its bytes (175 MB in, 419 MB of f32 out).
+//   bfp_quantize of x (8192 x 4096 f32): bytes.  134 MB read, 34 MB of
+//     mantissas and 32 KB of exponents written, 0.050 ms at 3.35 TB/s.
 // The least the card could take for Q(A) Q(B) is the int8 tensor-core
 // rate, 0.43 ms, since every mantissa fits int8.  The design does not take
 // it: each 32-wide K group would need its own int32 -> f32 promotion,
@@ -75,11 +84,14 @@
 #include <cstdint>
 #include <type_traits>
 
-#include <cuda.h>   // CUtensorMap and its enums; no driver call is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 using bf16 = __nv_bfloat16;
 
@@ -289,14 +301,17 @@ bfp_dequant_operand_kernel(const int8_t* mant, const int8_t* exps, int rows,
       out, rp, kp, r0, c0, nullptr, 1, 1);
 }
 
-// x (m x n) -> mant (mp x np, contiguous) and exp (mp/G x np/G, contiguous);
-// one CTA per 96 x 96 tile of the padded output.  The padded region is
-// quantized from zeros, as the reference pads before quantizing.
+// x (m x n, any strides) -> mant (mp x np, contiguous) and exp (mp/G x
+// np/G, contiguous); one CTA per 96 x 96 tile of the padded output, staged
+// through shared memory.  The padded region is quantized from zeros, as the
+// reference pads before quantizing.  Serves what bfp_quantize_rows_kernel
+// does not take: group 3, column-major or unaligned sources.  Mantissas go
+// out four to a store where the row allows it.
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
-bfp_quantize_kernel(const T* x, int m, int n, long long rs, long long cs,
-                    int8_t* mant, int8_t* exps, int mp, int np, int mbits,
-                    int ebits) {
+bfp_quantize_tile_kernel(const T* x, int m, int n, long long rs,
+                         long long cs, int8_t* mant, int8_t* exps, int mp,
+                         int np, int mbits, int ebits) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Tiles t = carve(smem);
   constexpr int NG = kT / G;
@@ -305,13 +320,22 @@ bfp_quantize_kernel(const T* x, int m, int n, long long rs, long long cs,
   stage_tile(t.F, x, m, n, rs, cs, r0, c0);
   __syncthreads();
   group_scales<G>(t, mbits, ebits);
-  for (int i = threadIdx.x; i < kT * kT; i += kThreads) {
-    const int r = i / kT, c = i % kT;
+  const bool words = np % 4 == 0;   // c0 is a multiple of 4 too
+  for (int i = threadIdx.x; i < kT * kT / 4; i += kThreads) {
+    const int r = i / (kT / 4), c = (i % (kT / 4)) * 4;
     if (r0 + r >= mp || c0 + c >= np) continue;
-    int q;
-    const float v = mantissa<G>(t, r, c, lim, q);
-    mant[static_cast<long long>(r0 + r) * np + c0 + c] =
-        static_cast<int8_t>(v);
+    int8_t* dst = mant + static_cast<long long>(r0 + r) * np + c0 + c;
+    int8_t q[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int gq;
+      q[j] = static_cast<int8_t>(mantissa<G>(t, r, c + j, lim, gq));
+    }
+    if (words && c0 + c + 4 <= np) {
+      *reinterpret_cast<char4*>(dst) = make_char4(q[0], q[1], q[2], q[3]);
+    } else {
+      for (int j = 0; j < 4 && c0 + c + j < np; ++j) dst[j] = q[j];
+    }
   }
   const int egr = mp / G, egc = np / G;
   for (int q = threadIdx.x; q < NG * NG; q += kThreads) {
@@ -319,6 +343,107 @@ bfp_quantize_kernel(const T* x, int m, int n, long long rs, long long cs,
     if (gr < egr && gc < egc)
       exps[static_cast<long long>(gr) * egc + gc] = t.exp[q];
   }
+}
+
+// Value j of 16 bytes of T held as four words: an f32 word, or one bf16 of
+// a pair (the first in the low half).
+template <typename T>
+__device__ __forceinline__ float word_value(const uint32_t (&w)[4], int j) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(w[j]);
+  } else {
+    return __uint_as_float(j % 2 ? w[j / 2] & 0xFFFF0000u : w[j / 2] << 16);
+  }
+}
+
+// The same quantization for a source whose rows are contiguous, 16-byte
+// aligned (pointer and row stride), and a group of 8, 16 or 32, with no
+// shared memory and no barrier.  A warp owns G rows x 16 VEC columns (VEC
+// values in 16 bytes: 4 f32 or 8 bf16): lane l reads columns
+// (l % 16) VEC .. + VEC of rows l / 16, l / 16 + 2, ..., G / 2 loads of 16
+// bytes all in flight before the first use.  A group's max exponent is a
+// max over the thread's values, then over the G / VEC lanes of its columns
+// and the lane 16 apart (shuffles).  Each thread writes its VEC mantissas of
+// a row in one 4- or 8-byte store; one lane per group writes the exponent.
+// A CTA is 8 warps side by side along the row; the grid covers the padded
+// output, whose padding is quantized from zeros.
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+bfp_quantize_rows_kernel(const T* __restrict__ x, int m, int n, long long rs,
+                         int8_t* __restrict__ mant, int8_t* __restrict__ exps,
+                         int mp, int np, int mbits, int ebits) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int LG = G / VEC;       // lanes across one group's columns
+  constexpr int RPT = G / 2;        // rows a thread holds
+  static_assert(G % VEC == 0 && (16 * VEC) % G == 0, "whole groups a warp");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rl = lane / 16;
+  const int c = ((blockIdx.x * (kThreads / 32) + warp) * 16 + lane % 16) * VEC;
+  const int r0 = blockIdx.y * G;
+  uint32_t v[RPT][4];   // the raw 16 bytes of each row: 64 registers
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = r0 + rl + 2 * i;
+    const T* src = x + static_cast<long long>(r) * rs + c;
+    if (r < m && c + VEC <= n) {
+      const uint4 u = *reinterpret_cast<const uint4*>(src);
+      v[i][0] = u.x; v[i][1] = u.y; v[i][2] = u.z; v[i][3] = u.w;
+    } else {
+      float f[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        f[j] = r < m && c + j < n ? to_f32(src[j]) : 0.f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if constexpr (sizeof(T) == 4)
+          v[i][k] = __float_as_uint(f[k]);
+        else   // bf16 values are f32 with 16 zero low bits: repack exactly
+          v[i][k] = (__float_as_uint(f[2 * k]) >> 16) |
+                    (__float_as_uint(f[2 * k + 1]) & 0xFFFF0000u);
+      }
+    }
+  }
+  unsigned int e = 0;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      e = max(e, (__float_as_uint(word_value<T>(v[i], j)) >> 23) & 0xFFu);
+#pragma unroll
+  for (int off = 1; off < LG; off *= 2)
+    e = max(e, __shfl_xor_sync(0xffffffffu, e, off));
+  e = max(e, __shfl_xor_sync(0xffffffffu, e, 16));
+  const int lo = -(1 << (ebits - 1)), hi = (1 << (ebits - 1)) - 1;
+  const int ex = min(max(static_cast<int>(e) - 127, lo), hi);
+  const float inv = ldexpf(1.f, (mbits - 1) - ex);
+  const float lim = static_cast<float>((1 << mbits) - 1);
+  if (c >= np) return;              // whole groups leave together
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int r = r0 + rl + 2 * i;
+    uint32_t w[VEC / 4];
+#pragma unroll
+    for (int k = 0; k < VEC / 4; ++k) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float q = fminf(
+            fmaxf(rintf(word_value<T>(v[i], 4 * k + j) * inv), -lim), lim);
+        word |= (static_cast<uint32_t>(static_cast<int>(q)) & 0xFFu)
+                << (8 * j);
+      }
+      w[k] = word;
+    }
+    int8_t* dst = mant + static_cast<long long>(r) * np + c;
+    if constexpr (VEC == 4) {
+      *reinterpret_cast<uint32_t*>(dst) = w[0];
+    } else {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    }
+  }
+  if (rl == 0 && (lane % 16) % LG == 0)
+    exps[static_cast<long long>(r0 / G) * (np / G) + c / G] =
+        static_cast<int8_t>(ex);
 }
 
 // ---------------------------------------------------------------------------
@@ -356,115 +481,6 @@ constexpr int kSmemGemm = 1024 + kStages * kStageBytes + 2 * kStages * 8;
 static_assert(kGemmBK * 2 == 128, "a K tile row is one 128-byte swizzle row");
 static_assert(kGemmBN % 128 == 0 && kGemmBN <= 256, "TMA box <= 256 rows");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait for the completion of the barrier's phase of this parity.  A wait
-// that has not completed after 4 s traps (a launch error on the host) rather
-// than hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  uint64_t t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    const uint64_t t = global_ns();
-    if (t0 == 0) t0 = t;
-    else if (t - t0 > 4000000000ull) __trap();
-  }
-}
-
-// TMA: the box at (inner coordinate x, row y) of the tensor map into dst,
-// its bytes counted on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int x, int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(x), "r"(y)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
-// start address >> 4, leading byte offset 16 (unused by this layout),
-// stride byte offset 1024 (8 rows of 128 bytes), layout type 1 (128B).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(16 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-// Keep the compiler from moving accumulator accesses across wgmma.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x 128 f32, wgmma fragment) += A (64 x 16) * B^T (B 128 x 16), both
-// K-major in shared memory.
-__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da,
-                                          uint64_t db) {
-  asm volatile(
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, 1, 1, 1, 0, 0;\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db));
-}
-
 // Output tile of CTA id: kGroupM row tiles at a time, down the rows first.
 __device__ __forceinline__ void tile_of(int id, int tiles_m, int tiles_n,
                                         int& tm, int& tn) {
@@ -492,7 +508,7 @@ bfp_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 2);     // one arrival per consumer warpgroup
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
   if (threadIdx.x < 128) {
@@ -528,7 +544,7 @@ bfp_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
         const uint32_t sb = base + s * kStageBytes + kTileABytes;
 #pragma unroll
         for (int j = 0; j < kNSub; ++j) fence_acc(acc[j]);
-        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        wgmma_fence();
 #pragma unroll
         for (int k = 0; k < kGemmBK / 16; ++k)
 #pragma unroll
@@ -536,14 +552,14 @@ bfp_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
             wgmma_128(acc[j], smem_desc(sa + 32 * k),
                       smem_desc(sb + j * 128 * 128 + 32 * k));
       }
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      wgmma_commit();
+      wgmma_wait<1>();
 #pragma unroll
       for (int j = 0; j < kNSub; ++j) fence_acc(acc[j]);
       if (kt > 0 && threadIdx.x % 128 == 0)
         mbar_arrive(empty + 8 * ((kt - 1) % kStages));
     }
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    wgmma_wait<0>();
 #pragma unroll
     for (int j = 0; j < kNSub; ++j) fence_acc(acc[j]);
     // epilogue: fragment element (row lane/4 [+8], column 8 c8 + 2 (lane%4)
@@ -591,49 +607,15 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, taken from the driver at run time through the
-// runtime's cudaGetDriverEntryPoint, so the library links no libcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The tensor map of a contiguous (rows, kp) bf16 buffer, read in boxes of
 // box_rows x kGemmBK with the 128-byte swizzle the wgmma descriptors expect.
 bool operand_map(CUtensorMap* map, const void* p, int rows, int kp,
                  int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kp),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kp) * 2};
   const cuuint32_t box[2] = {kGemmBK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(p), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return bf16_map(map, p, 2, dims, strides, box);
 }
 
 dim3 tiles(int rows, int cols) {
@@ -669,9 +651,21 @@ template <typename T>
 cudaError_t quantize_t(int group, const void* x, int m, int n, long long rs,
                        long long cs, int8_t* mant, int8_t* exps, int mp,
                        int np, int mbits, int ebits, cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(T);
+  const bool rows = (cs == 1 || n <= 1) && (rs % VEC == 0 || m <= 1) &&
+                    reinterpret_cast<uintptr_t>(x) % 16 == 0;
   return by_group(group, [&](auto g) {
     constexpr int G = decltype(g)::value;
-    return launch(bfp_quantize_kernel<T, G>, tiles(mp, np), kThreads,
+    if constexpr (G % VEC == 0) {
+      if (rows) {
+        constexpr int cols = kThreads / 32 * 16 * VEC;   // per CTA
+        return launch(bfp_quantize_rows_kernel<T, G>,
+                      dim3((np + cols - 1) / cols, mp / G), kThreads, 0, st,
+                      static_cast<const T*>(x), m, n, rs, mant, exps, mp, np,
+                      mbits, ebits);
+      }
+    }
+    return launch(bfp_quantize_tile_kernel<T, G>, tiles(mp, np), kThreads,
                   kSmemQuant, st, static_cast<const T*>(x), m, n, rs, cs,
                   mant, exps, mp, np, mbits, ebits);
   });

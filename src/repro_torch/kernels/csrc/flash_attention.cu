@@ -6,42 +6,45 @@
 //   o[b,h] = softmax(mask(softcap(q[b,h] k[b,h/g]^T / sqrt(d)))) v[b,h/g]
 // with GQA (kv head = h / (H/KV)), the causal mask top-left aligned
 // (key position <= query position, both counted from 0, also when
-// Sq != Skv), masked scores set to -1e30, softcap cap*tanh(s/cap) applied
-// after the 1/sqrt(d) scale, the online softmax state (m, l, acc) kept in
-// f32, and the output written in the input's dtype (f32 or bf16).
+// Sq != Skv), masked scores given no weight (the reference's -1e30: every
+// row it stores has a live key in every tile it visits), keys past Skv
+// given none, softcap cap*tanh(s/cap) applied after the 1/sqrt(d) scale,
+// the online softmax state (m, l, acc) kept in f32, and the output written
+// in the input's dtype (f32 or bf16) with the caller's strides.
 //
-// One kernel per dtype behind one entry point, both one CTA per (query tile
-// of 64 rows, head, batch), walking kv tiles of 64 keys up to the causal
-// diagonal, with the kv head as an index (no expanded copy of K/V) and the
-// heaviest query tiles issued first so the causal triangle balances:
-//  * bf16 (the main path): tensor cores through mma.sync m16n8k16 (bf16
-//    operands, f32 accumulate), 4 warps of 16 query rows, scores and output
-//    accumulator in mma fragments, K/V double-buffered in shared memory with
-//    cp.async.  P is rounded to bf16 as the A operand of P·V; m, l and acc
-//    stay f32.  It reads 16-byte chunks, so every pointer must be 16-byte
-//    aligned and every stride a multiple of 8 elements.
-//  * f32: f32 SIMT FMAs, 256 threads, K/V/scores staged in shared memory as
-//    f32 — exact enough for the 2e-5 check.
+// One kernel per dtype behind one entry point, both walking the kv tiles of
+// a query tile up to the causal diagonal, with the kv head as an index (no
+// expanded copy of K/V) and the heaviest query tiles issued first so the
+// causal triangle balances:
+//  * bf16 (the main path): flash_fwd_wgmma_kernel, 128 x 128 tiles, TMA
+//    loads by a producer warpgroup, wgmma products and the softmax in two
+//    consumer warpgroups; see the section below.  TMA needs every pointer
+//    16-byte aligned and every stride a multiple of 8 elements.
+//  * f32: f32 SIMT FMAs, 64 x 64 tiles, 256 threads, K/V/scores staged in
+//    shared memory as f32 -- exact enough for the 2e-5 check.
 //
 // Bound at the main path's shapes (B=2, H=32, KV=8, S=4096, d=128, bf16,
 // causal): 4*B*H*d*S(S+1)/2 = 275 GFLOP per launch, 0.28 ms at the H100's
 // 989 TFLOP/s bf16 tensor-core peak, against 168 MB of q/k/v/o (0.05 ms at
-// 3.35 TB/s): compute-bound.  What the design does about it: the products
-// run on the tensor cores, scores and softmax state never leave the chip,
-// and each q/k/v byte is read once per CTA, so the time is tensor-core
-// arithmetic plus the softmax between the two products.  mma.sync reaches
-// only part of the Hopper peak; wgmma with TMA-fed tiles and warp
-// specialisation is the later step toward the bound.
+// 3.35 TB/s): compute-bound.  What the design does about it: both products
+// run on wgmma, the only path to Hopper's tensor-core rate; TMA feeds them
+// without spending consumer instructions on copies; scores and softmax
+// state never leave the registers; each q/k/v byte is read once per CTA.
 //
 // The C entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() (or cudaErrorInvalidValue for an unsupported
-// dtype or head dim, or bf16 operands that are not 16-byte aligned).
+// dtype or head dim, bf16 operands that are not 16-byte aligned, or a
+// tensor map the driver refuses).
 #include <cstdint>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "hopper.cuh"
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kBQ = 64;        // query rows per CTA
 constexpr int kBK = 64;        // keys per kv tile
@@ -239,56 +242,83 @@ flash_fwd_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core path: mma.sync m16n8k16 (bf16 in, f32 accumulate).
-// 4 warps per CTA, 16 query rows each; Q fragments stay in registers, the
-// score tile and the output accumulator live in mma fragments, and the
-// probabilities go from the score fragments straight into the A operand of
-// the P·V product (rounded to bf16 there; m, l and acc stay f32).  K and V
-// tiles are double-buffered in shared memory with cp.async, so the next
-// tile's loads overlap this tile's products.  Rows are padded by 8 bf16
-// so that ldmatrix reads are free of bank conflicts.
+// bf16 path: TMA + warp-specialised wgmma.
+//
+// One CTA per (128-query tile, head, batch), 384 threads in three
+// warpgroups.  Warpgroup 0 is the producer: one of its threads loads the
+// CTA's Q tile once and then the K and V tiles of 128 keys into a ring of
+// kStages stages with TMA (4-D tensor maps over (d, S, heads, batch) with
+// the caller's strides, 128-byte swizzle, so a d = 128 tile is two 64-wide
+// boxes), each arrival counted on the stage's "full" mbarrier (one for K,
+// one for V, so S = Q K^T starts before V lands).  Warpgroups 1 and 2 are
+// the consumers, 64 query rows each:
+//   S = Q K^T   wgmma m64n128k16, A = Q and B = K both K-major in shared
+//               memory, f32 scores in 64 registers a thread;
+//   softmax     on the fragments: a row lives in the 4 threads of a quad,
+//               so its max and sum are two shuffles each; the 1/sqrt(d)
+//               scale and log2(e) fold into one FMA before ex2.approx; the
+//               per-element mask runs only on a tile that holds the causal
+//               diagonal or keys past Skv;
+//   O += P V    wgmma m64n{D}k16 with A = P from registers (each k16 slice
+//               of the score fragment rounded to bf16 pairs in place: the
+//               accumulator's quad layout is the A fragment's) and B = V
+//               MN-major (keys are the reduction, V rows are d-contiguous:
+//               the transpose bit and an MN-major descriptor read the tile
+//               as TMA wrote it);
+// and release the stage through its "empty" mbarrier once the products
+// that read it have retired.  The two consumers take turns issuing S = Q K^T
+// (named barriers, see Turns), so one's softmax runs while the other's
+// products hold the tensor cores.  setmaxnreg hands the producer's
+// registers (it keeps 24) to the consumers (240), though ptxas compiles
+// them within 168 (below).  m, l and O stay f32 in registers;
+// O / l is written as bf16 pairs straight to global memory, rows >= Sq
+// skipped.  Rows and keys past Sq / Skv arrive as TMA's zero fill; keys
+// past Skv get no weight.
+//
+// Not done, and why: issuing tile t's S with tile t-1's P V, so that a
+// consumer's own softmax overlaps its products, keeps S, P and O (160
+// registers) live at once; ptxas compiles each branch within the 168
+// registers a thread that 384 threads leave at entry, whatever setmaxnreg
+// asks, so that version spills.  Without the producer warpgroup (256
+// threads, 246 registers, loads issued by a consumer warp) it fits, and
+// measured no faster on the H100 (PERF.md).
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int kTQ = 128;           // query rows per CTA
+constexpr int kTK = 128;           // keys per kv tile
+constexpr int kStages = 2;
+constexpr int kTmaThreads = 384;   // producer + 2 consumer warpgroups
+constexpr int kBoxBytes = 128 * 128;   // 128 rows x one 64-wide bf16 box
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
+// Shared memory: Q, then kStages x (K, V), 1024-byte aligned (the swizzle's
+// period), then the mbarriers: full_q, full_k[kStages], full_v[kStages],
+// empty[kStages].
+template <int D>
+struct TmaLayout {
+  static constexpr int kTile = kTQ * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kKV = kTile;                // stage s: K, then V
+  static constexpr int kBars = kTile * (1 + 2 * kStages);
+  static constexpr int kBytes = 1024 + kBars + 8 * (1 + 3 * kStages);
+};
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
+struct TmaParams {
+  void* o;
+  long long ob, oh, os;   // element strides of o: batch, head, sequence
+  int group;              // query heads per kv head
+  int sq, skv;
+  int causal;
+  float c;                // log2(e) x (softcap, or the 1/sqrt(d) scale)
+  float cap_scale;        // scale / softcap; 0: no softcap
+};
 
-// d += a (16x16, row) * b (16x8, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -296,203 +326,286 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
-constexpr int mma_smem_bytes() {
-  return (kBQ + 4 * kBK) * (D + 8) * 2;   // Q + two stages of K and V
+// The two consumer warpgroups take turns issuing their products (named
+// barriers 1 and 2, one per warpgroup, 256 threads each: the waiting
+// warpgroup's bar.sync and the other's bar.arrive), so that one
+// warpgroup's softmax runs while the other's products hold the tensor
+// cores.  Warpgroup 0 goes first; each turn ends by handing over, except
+// warpgroup 1's last, so that every arrival meets a wait.
+struct Turns {
+  int mine, other;
+  __device__ __forceinline__ Turns(int cw, bool any) : mine(1 + cw),
+                                                       other(2 - cw) {
+    if (cw == 1 && any)
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(other) : "memory");
+  }
+  __device__ __forceinline__ void begin() const {
+    asm volatile("bar.sync %0, 256;\n" ::"r"(mine) : "memory");
+  }
+  __device__ __forceinline__ void end(bool last) const {
+    if (!(last && mine == 2))
+      asm volatile("bar.arrive %0, 256;\n" ::"r"(other) : "memory");
+  }
+};
+
+// The online softmax of one 64 x 128 score tile in a consumer's fragments
+// (keys k0 ..; rows row0 and row0 + 8 of this thread, its columns
+// 8j + 2 t4 (+1)): softcap, mask (only on a tile that needs it), row max
+// over the quad, then s = 2^(s c - m c) in place, alpha = the factor that
+// rescales the earlier sum and output, and l = l alpha + this thread's
+// part of the row sum.
+__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m_r)[2],
+                                             float (&l_r)[2],
+                                             float (&alpha)[2],
+                                             const TmaParams& p, int k0,
+                                             int q0, int row0, int t4) {
+  if (p.cap_scale > 0.f) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) s[i] = tanhf(s[i] * p.cap_scale);
+  }
+  if ((p.causal && k0 + kTK - 1 > q0) || k0 + kTK > p.skv) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      const int ki = k0 + 8 * (i / 4) + 2 * t4 + (i % 2);
+      const int qi = row0 + 8 * ((i / 2) % 2);
+      if (ki >= p.skv || (p.causal && ki > qi)) s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+  float mc[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // a row with no live key yet keeps 0 as its base (no inf - inf)
+    mc[r] = mx[r] == -INFINITY ? 0.f : mx[r] * p.c;
+    alpha[r] = ex2(fmaf(m_r[r], p.c, -mc[r]));
+    m_r[r] = mx[r];
+    l_r[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float e = ex2(fmaf(s[i], p.c, -mc[(i / 2) % 2]));
+    s[i] = e;
+    l_r[(i / 2) % 2] += e;
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const Params p) {
-  using bf16 = __nv_bfloat16;
-  constexpr int PITCH = D + 8;        // bf16 elements per smem row
-  constexpr int CHUNKS = D / 8;       // 16-byte chunks per row
-  constexpr int NT = kBK / 8;         // key n-tiles per kv tile
-  constexpr int DT = D / 8;           // output n-tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + kBQ * PITCH;        // [2][kBK][PITCH]
-  bf16* Vs = Ks + 2 * kBK * PITCH;    // [2][kBK][PITCH]
+__global__ void __launch_bounds__(kTmaThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const TmaParams p) {
+  using L = TmaLayout<D>;
+  constexpr int NB = D / 64;        // 64-wide boxes per row of a tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full_q = base + L::kBars;
+  const uint32_t full_k = full_q + 8;
+  const uint32_t full_v = full_k + 8 * kStages;
+  const uint32_t empty = full_v + 8 * kStages;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
   const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / p.group;
-  const int q0 = qt * kBQ;
+  const int q0 = qt * kTQ;
+  // keys a causal tile needs: k <= last live query of the tile
+  const int kv_end = p.causal ? min(p.skv, min(p.sq, q0 + kTQ)) : p.skv;
+  const int n_tiles = (kv_end + kTK - 1) / kTK;
 
-  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.qb + h * p.qh;
-  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.kb + kvh * p.kh;
-  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.vb + kvh * p.vh;
-  bf16* og = static_cast<bf16*>(p.o) + b * p.ob + h * p.oh;
-
-  const int kv_end = p.causal ? min(p.skv, min(p.sq, q0 + kBQ)) : p.skv;
-  const int n_tiles = (kv_end + kBK - 1) / kBK;
-
-  auto load_kv = [&](int tile, int stage) {
-    bf16* ks = Ks + stage * kBK * PITCH;
-    bf16* vs = Vs + stage * kBK * PITCH;
-    for (int i = tid; i < kBK * CHUNKS; i += kMmaThreads) {
-      const int r = i / CHUNKS, c = (i % CHUNKS) * 8, ki = tile * kBK + r;
-      const bool ok = ki < p.skv;
-      const long long row = ok ? ki : 0;
-      cp_async16(ks + r * PITCH + c, kg + row * p.ks + c, ok);
-      cp_async16(vs + r * PITCH + c, vg + row * p.vs + c, ok);
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);     // one arrival per consumer warpgroup
     }
-  };
-
-  for (int i = tid; i < kBQ * CHUNKS; i += kMmaThreads) {
-    const int r = i / CHUNKS, c = (i % CHUNKS) * 8, qi = q0 + r;
-    const bool ok = qi < p.sq;
-    cp_async16(Qs + r * PITCH + c, qg + (ok ? qi : 0) * p.qs + c, ok);
+    mbar_fence_init();
   }
-  if (n_tiles > 0) load_kv(0, 0);
-  cp_async_commit();
+  __syncthreads();
 
-  uint32_t qf[D / 16][4];
-  float o[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  float m_r[2] = {kNegInf, kNegInf};   // rows g and g+8 of this warp
-  float l_r[2] = {0.f, 0.f};           // this thread's partial row sums
-  const int row0 = q0 + warp * 16 + g;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t + 1 < n_tiles) {
-      load_kv(t + 1, (t + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // the warpgroup, warp-uniform as far as the compiler can tell: else
+  // ptxas sees the wgmmas in a divergent path and serializes them (C7520)
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      const int kvh = h / p.group;
+      mbar_expect_tx(full_q, L::kTile);
+      for (int j = 0; j < NB; ++j)
+        tma_load_4d(base + L::kQ + j * kBoxBytes, &map_q, full_q, 64 * j, q0,
+                    h, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        mbar_wait(empty + 8 * s, ((t / kStages) & 1) ^ 1);
+        const uint32_t kd = base + L::kKV + s * 2 * L::kTile;
+        mbar_expect_tx(full_k + 8 * s, L::kTile);
+        for (int j = 0; j < NB; ++j)
+          tma_load_4d(kd + j * kBoxBytes, &map_k, full_k + 8 * s, 64 * j,
+                      t * kTK, kvh, b);
+        mbar_expect_tx(full_v + 8 * s, L::kTile);
+        for (int j = 0; j < NB; ++j)
+          tma_load_4d(kd + L::kTile + j * kBoxBytes, &map_v, full_v + 8 * s,
+                      64 * j, t * kTK, kvh, b);
+      }
     }
-    __syncthreads();
-    if (t == 0) {
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = wg - 1;                   // consumer: rows cw*64 .. +64
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    // this thread's rows: row0 (fragment elements 4j, 4j+1) and row0 + 8
+    // (4j+2, 4j+3); its columns 8j + 2 (lane % 4) (+1)
+    const int row0 = q0 + cw * 64 + warp * 16 + lane / 4;
+    const uint32_t qa = base + L::kQ + cw * 64 * 128;
+    float o[D / 2];
+    float s[64];
+    uint32_t pa[kTK / 16][4];   // P of the last tile, bf16 A fragments
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        ldmatrix_x4(qf[kk], Qs + (warp * 16 + (lane % 16)) * PITCH + kk * 16 +
-                                (lane / 16) * 8);
-    }
-    const bf16* ks = Ks + (t & 1) * kBK * PITCH;
-    const bf16* vs = Vs + (t & 1) * kBK * PITCH;
-    const int k0 = t * kBK;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_r[2] = {-INFINITY, -INFINITY};   // row max, in raw score units
+    float l_r[2] = {0.f, 0.f};               // this thread's partial sums
+    float alpha[2];
+    Turns turns(cw, n_tiles > 0);
+    mbar_wait(full_q, 0);
+    auto stage_k = [&](int t) {
+      return base + L::kKV + (t % kStages) * 2 * L::kTile;
+    };
+    auto issue_s = [&](int t) {       // S = Q K_t^T
+      const uint32_t kb = stage_k(t);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t bf[4];
-        ldmatrix_x4(bf, ks + (j * 8 + (lane / 16) * 8 + (lane % 8)) * PITCH +
-                            kk * 16 + ((lane / 8) % 2) * 8);
-        mma_bf16(s[j], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[j + 1], qf[kk], bf[2], bf[3]);
+        const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        if (kk == 0)
+          wgmma_128<0>(s, smem_desc(qa + off), smem_desc(kb + off));
+        else
+          wgmma_128<1>(s, smem_desc(qa + off), smem_desc(kb + off));
       }
+      wgmma_commit();
+    };
+    auto issue_pv = [&](int t) {      // O += P_t V_t, after V_t has landed
+      mbar_wait(full_v + 8 * (t % kStages), (t / kStages) & 1);
+      const uint32_t vb = stage_k(t) + L::kTile;
+#pragma unroll
+      for (int kk = 0; kk < kTK / 16; ++kk) {
+        const uint64_t dv = smem_desc_mn(vb + kk * 16 * 128, kBoxBytes);
+        if constexpr (D == 128)
+          wgmma_128_rs_mn(o, pa[kk], dv);
+        else
+          wgmma_64_rs_mn(o, pa[kk], dv);
+      }
+      wgmma_commit();
+    };
+    auto release = [&](int t) {
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * (t % kStages));
+    };
+    // P_t as bf16 pairs: key n-tiles 2kk, 2kk+1 make the A fragment of
+    // k16 step kk, in the accumulator's own quad layout
+    auto to_pa = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kTK / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+    };
+    auto rescale_o = [&]() {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+    };
+
+    auto wait_k = [&](int t) {
+      mbar_wait(full_k + 8 * (t % kStages), (t / kStages) & 1);
+    };
+    // S = Q K_t^T is issued in this warpgroup's turn, then the turn passes
+    // to the other, whose S runs while this one computes its softmax; P V
+    // follows at once, outside the turns.
+    for (int t = 0; t < n_tiles; ++t) {
+      wait_k(t);
+      turns.begin();
+      wgmma_fence();
+      issue_s(t);
+      turns.end(t == n_tiles - 1);
+      wgmma_wait<0>();
+      fence_acc(s);
+      softmax_tile(s, m_r, l_r, alpha, p, t * kTK, q0, row0, lane % 4);
+      rescale_o();
+      to_pa();
+      wgmma_fence();
+      issue_pv(t);
+      wgmma_wait<0>();
+      fence_acc(o);
+      release(t);
     }
 
-    // scale, softcap, mask; online softmax on the fragments
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = row0 + (e / 2) * 8;
-        const int ki = k0 + j * 8 + 2 * t4 + (e % 2);
-        float x = s[j][e] * p.scale;
-        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-        if (ki >= p.skv) x = -INFINITY;
-        else if (p.causal && ki > qi) x = kNegInf;
-        s[j][e] = x;
-        mx[e / 2] = fmaxf(mx[e / 2], x);
-      }
-    float alpha[2];
+    bf16* og = static_cast<bf16*>(p.o) + b * p.ob + h * p.oh;
+    const int t4 = lane % 4;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_r[r], mx[r]);
-      alpha[r] = __expf(m_r[r] - m_new);
-      m_r[r] = m_new;
-      l_r[r] *= alpha[r];
-    }
+      float l = l_r[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = 1.f / fmaxf(l, 1e-30f);
+      const int qi = row0 + 8 * r;
+      if (qi >= p.sq) continue;
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = __expf(s[j][e] - m_r[e / 2]);
-        s[j][e] = pe;
-        l_r[e / 2] += pe;
-      }
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-
-    // O += P V: the score fragments of key n-tiles 2kk, 2kk+1 are the A
-    // operand of key step kk
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                        pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                        pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                        pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < DT; n += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vs + (kk * 16 + ((lane / 8) % 2) * 8 + (lane % 8)) *
-                                       PITCH + n * 8 + (lane / 16) * 8);
-        mma_bf16(o[n], pa, bv[0], bv[1]);
-        mma_bf16(o[n + 1], pa, bv[2], bv[3]);
-      }
-    }
-    __syncthreads();   // this stage is refilled by the next iteration's load
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
-    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
-    l_r[r] = fmaxf(l_r[r], 1e-30f);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = row0 + r * 8;
-    if (qi >= p.sq) continue;
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      const __nv_bfloat162 v2 = __floats2bfloat162_rn(o[n][2 * r] / l_r[r],
-                                                      o[n][2 * r + 1] / l_r[r]);
-      *reinterpret_cast<__nv_bfloat162*>(og + qi * p.os + n * 8 + 2 * t4) = v2;
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(og + qi * p.os + 8 * j + 2 * t4) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
+                                  o[4 * j + 2 * r + 1] * inv);
     }
   }
 }
 
+// The 4-D tensor map (d, seq, heads, batch) of a bf16 operand with element
+// strides (batch, head, seq); boxes of 64 x 128 x 1 x 1.
+bool operand_map(CUtensorMap* map, const void* ptr, int d, int seq,
+                 int heads, int batch, long long sb, long long sh,
+                 long long ss) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 128, 1, 1};
+  return bf16_map(map, ptr, 4, dims, strides, box);
+}
+
 template <int D>
-cudaError_t launch_mma(const Params& p, int batch, int heads,
-                       cudaStream_t stream) {
-  const int smem = mma_smem_bytes<D>();
+cudaError_t launch_wgmma(const Params& p, int batch, int heads,
+                         cudaStream_t stream) {
+  static_assert(kTQ == 128 && kTK == 128, "TMA boxes are 128 rows");
+  const int kv_heads = heads / p.group;
+  CUtensorMap mq, mk, mv;
+  if (!operand_map(&mq, p.q, D, p.sq, heads, batch, p.qb, p.qh, p.qs) ||
+      !operand_map(&mk, p.k, D, p.skv, kv_heads, batch, p.kb, p.kh, p.ks) ||
+      !operand_map(&mv, p.v, D, p.skv, kv_heads, batch, p.vb, p.vh, p.vs))
+    return cudaErrorInvalidValue;
+  const bool cap = p.softcap > 0.f;
+  const TmaParams tp{p.o, p.ob, p.oh, p.os, p.group, p.sq, p.skv, p.causal,
+                     kLog2e * (cap ? p.softcap : p.scale),
+                     cap ? p.scale / p.softcap : 0.f};
+  const int smem = TmaLayout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.sq + kBQ - 1) / kBQ, heads, batch);
-  flash_fwd_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(p);
+  const dim3 grid((p.sq + kTQ - 1) / kTQ, heads, batch);
+  flash_fwd_wgmma_kernel<D><<<grid, kTmaThreads, smem, stream>>>(mq, mk, mv,
+                                                                  tp);
   return cudaGetLastError();
 }
 
-// The tensor-core path reads 16-byte chunks: every pointer 16-byte aligned
-// and every stride a multiple of 8 elements.
-bool mma_aligned(const Params& p) {
+// TMA needs 16-byte aligned bases and strides: every pointer 16-byte
+// aligned and every stride a multiple of 8 bf16.
+bool tma_aligned(const Params& p) {
   const long long strides[] = {p.qb, p.qh, p.qs, p.kb, p.kh, p.ks,
                                p.vb, p.vh, p.vs, p.ob, p.oh, p.os};
   for (long long s : strides)
@@ -523,13 +636,13 @@ cudaError_t dispatch_f32(const Params& p, int d, int batch, int heads,
   }
 }
 
-// bf16 runs on the tensor-core kernel only; the caller aligns the operands.
+// bf16 runs on the wgmma kernel only; the caller aligns the operands.
 cudaError_t dispatch_bf16(const Params& p, int d, int batch, int heads,
                           cudaStream_t stream) {
-  if (!mma_aligned(p)) return cudaErrorInvalidValue;
+  if (!tma_aligned(p)) return cudaErrorInvalidValue;
   switch (d) {
-    case 64: return launch_mma<64>(p, batch, heads, stream);
-    case 128: return launch_mma<128>(p, batch, heads, stream);
+    case 64: return launch_wgmma<64>(p, batch, heads, stream);
+    case 128: return launch_wgmma<128>(p, batch, heads, stream);
     default: return cudaErrorInvalidValue;
   }
 }

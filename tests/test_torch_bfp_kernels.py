@@ -552,6 +552,40 @@ def test_cuda_bfp_quantize_bit_exact(m, n, group, blk, dtype):
     assert torch.equal(mant, pm) and torch.equal(exp, pe)
 
 
+def _quantize_layout(x, layout):
+    """x (m, n) as the kernel may meet it: contiguous (row stride n), rows
+    16-byte aligned with a ragged n (a view of a wider buffer), a transposed
+    view (column-major), or rows whose start is 4 bytes off 16."""
+    m, n = x.shape
+    if layout == "transposed":
+        return x.T.contiguous().T
+    if layout in ("aligned_rows", "offset"):
+        lead = 0 if layout == "aligned_rows" else 1
+        wide = torch.zeros((m, ceil_to(n + lead, 16)), dtype=x.dtype,
+                           device=x.device)
+        wide[:, lead:lead + n] = x
+        return wide[:, lead:lead + n]
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", bc.SUPPORTED_GROUPS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize(
+    "layout", ["contiguous", "aligned_rows", "transposed", "offset"])
+def test_cuda_bfp_quantize_bit_exact_by_layout(group, dtype, layout):
+    """Ragged (m, n) off every group and vector width, padding included."""
+    _need_card()
+    _, x = _pair(_rand(30, (203, 141), scale=3.0), dtype, "cuda")
+    x = _quantize_layout(x, layout)
+    blk = 48 if group == 3 else 64
+    mant, exp = bfp_quantize(x, group=group, block_m=blk, block_n=blk)
+    torch.cuda.synchronize()
+    pm, pe = bfp_quantize_plain(x, group=group, block_m=blk, block_n=blk)
+    assert mant.shape == pm.shape and exp.shape == pe.shape
+    assert torch.equal(mant, pm) and torch.equal(exp, pe)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("group,blk", [(32, 32), (8, 64), (3, 48)])
 def test_cuda_bfp_matmul_packed_matches_plain(group, blk):

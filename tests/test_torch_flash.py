@@ -4,6 +4,8 @@ kernel against the plain version on the card.
 
 JAX is imported inside the tests that use it, so that the card's machine,
 which has no JAX, can collect this file and run the ``cuda`` tests."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -121,7 +123,10 @@ def test_bf16_alignment_rule():
 
 # (b, h, kv, sq, skv, d, causal, softcap, dtype): the main path's shape at
 # reduced sequence, MQA, rectangular causal with ragged tiles, softcap,
-# non-causal with Skv < Sq — in bf16 (tensor-core kernel) and f32 (SIMT).
+# non-causal with Skv < Sq — in bf16 (tensor-core kernel) and f32 (SIMT);
+# then the bf16 kernel's 128 x 128 tiling: several query and kv tiles with
+# GQA group 4, Sq and Skv off the 128 grid (causal and not), and d=64 over
+# more kv tiles than the two stages of the K/V ring.
 CUDA_CASES = [
     (2, 32, 8, 512, 512, 128, True, None, torch.bfloat16),
     (1, 4, 1, 192, 192, 64, True, None, torch.bfloat16),
@@ -131,6 +136,10 @@ CUDA_CASES = [
     (1, 8, 2, 96, 160, 128, True, None, torch.float32),
     (2, 4, 2, 128, 128, 64, True, 20.0, torch.float32),
     (1, 4, 4, 128, 64, 128, False, None, torch.float32),
+    (1, 8, 2, 384, 384, 128, True, None, torch.bfloat16),
+    (2, 4, 2, 200, 328, 128, True, None, torch.bfloat16),
+    (1, 4, 1, 328, 200, 64, False, None, torch.bfloat16),
+    (1, 4, 2, 640, 640, 64, True, None, torch.bfloat16),
 ]
 
 
@@ -144,7 +153,8 @@ def test_cuda_kernel_matches_plain(b, h, kv, sq, skv, d, causal, softcap,
                      device="cuda")
     before = tf.flash_attention.launches
     got = tf.flash_attention(q, k, v, causal=causal, softcap=softcap,
-                             q_chunk=32, kv_chunk=32)
+                             q_chunk=math.gcd(sq, 32),
+                             kv_chunk=math.gcd(skv, 32))
     torch.cuda.synchronize()
     assert tf.flash_attention.launches == before + 1
     want = tf.flash_attention_plain(q, k, v, causal=causal, softcap=softcap)
@@ -165,6 +175,27 @@ def test_cuda_kernel_takes_transposed_views():
     want = tf.flash_attention_plain(q, k, v, causal=True)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     assert got.transpose(1, 2).is_contiguous()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_takes_main_path_views():
+    """Batch 2 of [B,S,H,d] tensors seen as [B,H,S,d], as attention_layer
+    passes them: q's sequence stride is H*d, k/v's KV*d."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(9)
+    x = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(
+        "cuda", torch.bfloat16)
+         for s in ((2, 384, 16, 128), (2, 384, 4, 128), (2, 384, 4, 128))]
+    q, k, v = (t.transpose(1, 2) for t in x)          # [B,S,H,d] → [B,H,S,d]
+    before = tf.flash_attention.launches
+    got = tf.flash_attention(q, k, v, causal=True, q_chunk=128,
+                             kv_chunk=128)
+    assert tf.flash_attention.launches == before + 1
+    assert got.stride() == q.stride()
+    want = tf.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
 
 
 @pytest.mark.cuda

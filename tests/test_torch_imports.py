@@ -44,6 +44,7 @@ def test_every_module_imports_with_jax_and_repro_masked():
 
 def _sources():
     return sorted(PKG.rglob("*.py")) + sorted(PKG.rglob("*.cu")) + \
+        sorted(PKG.rglob("*.cuh")) + \
         [ROOT / "chip_smoke.py"]
 
 
