@@ -30,17 +30,43 @@ Phases, each printing its numbers on lines of their own:
      is then held against the plain attention path's on the same state;
      the step launches no BFP kernel (its branch quantizes by fake-quant,
      as the reference's does);
-  6. one JSON line with every kernel's numbers, the card line again, and
+  6. ``f1_check`` (run before the BFP path): the kernel wrappers refuse
+     autograd on the card as on the CPU -- flash on bf16 CUDA tensors that
+     require grad and ``ops.matmul`` raise under grad mode, and both launch
+     under ``torch.no_grad()``;
+  7. ``full_path``: the full finetune (the paper's FR baseline) on
+     granite-3-8b at full width, depth cut to 8 of 40 layers (f32 params,
+     gradients and SGD momentum of 40 layers need 98 GB), bf16 compute,
+     flash off, B=4 x S=1024, 3 steps through ``train.loop``; loss and time
+     per step (``full_step`` lines), peak memory beside the duplex path's,
+     the backbone checksum before and after (must differ), no kernel
+     launched; then one more step under the profiler (``full_profile``
+     lines);
+  8. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
+     on, B=2 x S=4096: 4 steps straight; then 2 steps saving a checkpoint
+     every 2 into a directory that is removed afterwards, whose restored
+     state must equal the saved one bit for bit; then a run to 4 steps that
+     must resume from step 2 and match the straight run's steps 2-3 and
+     final branch (rtol 1e-5, atol 1e-6); save and restore times in s and
+     GB/s;
+  9. ``arms``: ``repro_torch.bench.table2_accuracy`` on the card with the
+     reference's step counts: each arm's validation loss and accuracy, the
+     ordering row, the wall time;
+  10. one JSON line with every kernel's numbers, the card line again, and
      the last line {"ok": true, "device": {...}}.
+Each of the paths 4-9 zeroes every kernel's launch count just before it
+and reads the counts just after.
 Any failure raises and the exit code is not 0.  Without a CUDA device it
 exits with code 2 before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses as dc
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -75,6 +101,31 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port, by name; each counts its launches
+    in ``.launches``."""
+    from repro_torch.kernels import bfp_common as bc, bfp_matmul as bm, \
+        bfp_quant as bq, flash_attention as fa
+    fns = (fa.flash_attention, bm.bfp_matmul, bq.bfp_quantize,
+           bq.bfp_matmul_packed, bm.quantize_operand, bq.dequantize_operand,
+           bc.gemm_tn)
+    return {f.__name__: f for f in fns}
+
+
+def zero_counts() -> None:
+    for f in kernel_counters().values():
+        f.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: f.launches for name, f in kernel_counters().items()}
+
+
+def tree_nbytes(tree) -> int:
+    from repro_torch.utils import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
 def attention_flops(b, h, sq, skv, d, causal):
@@ -427,10 +478,7 @@ def run_bfp_path() -> dict:
     gb = torch.randn((2, 256, 2048), generator=gen, device="cuda") * 0.02
     x2, g2 = x.reshape(-1, d), g.reshape(-1, ff)
 
-    counters = (bm.bfp_matmul, bq.bfp_quantize, bq.bfp_matmul_packed,
-                bm.quantize_operand, bq.dequantize_operand, bc.gemm_tn)
-    for f in counters:
-        f.launches = 0
+    zero_counts()
     xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
     y = ops.bfp_dense(xr, wr, cfg)
     y.backward(g)
@@ -443,11 +491,12 @@ def run_bfp_path() -> dict:
     yb = ops.bfp_dense(xbr, wbr, cfg)
     yb.backward(gb)
     torch.cuda.synchronize()
-    launches = {f.__name__: f.launches for f in counters}
+    launches = read_counts()
+    flash_launches = launches.pop("flash_attention")
     print(f"bfp_path: launches {json.dumps(launches)} bfp_dense_full_width "
           f"{dense_launches}", flush=True)
     # each product is two operand passes and one GEMM
-    if dense_launches != 3 or launches != {
+    if dense_launches != 3 or flash_launches or launches != {
             "bfp_matmul": 6, "bfp_quantize": 2, "bfp_matmul_packed": 1,
             "quantize_operand": 12, "dequantize_operand": 2, "gemm_tn": 7}:
         raise AssertionError(f"bfp path launched {launches}, bfp_dense "
@@ -577,28 +626,21 @@ def run_bfp_path() -> dict:
 
 
 def run_main_path() -> dict:
-    import dataclasses as dc
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train
     from repro_torch.train import train_step as ts
 
     argv = ["--arch", "granite-3-8b", "--preset", "full", "--mode", "duplex",
             "--steps", str(MAIN_STEPS), "--seq", "4096", "--batch", "2",
             "--log-every", "1", "--device", "cuda"]
-    from repro_torch.kernels import bfp_common as bc, bfp_matmul as bm, \
-        bfp_quant as bq
-    bfp_counters = (bm.bfp_matmul, bq.bfp_quantize, bq.bfp_matmul_packed,
-                    bm.quantize_operand, bq.dequantize_operand, bc.gemm_tn)
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0
-    for f in bfp_counters:
-        f.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     out = train.main(argv)
     wall = time.perf_counter() - t0
-    launches = fa.flash_attention.launches
-    bfp_launches = sum(f.launches for f in bfp_counters)
+    counts = read_counts()
+    launches = counts.pop("flash_attention")
+    bfp_launches = sum(counts.values())
     peak = torch.cuda.max_memory_allocated()
 
     report = out["report"]
@@ -654,9 +696,10 @@ def run_main_path() -> dict:
             "step_times": [m["step_time_s"] for m in report.metrics_history]}
 
 
-def profile_step(entry, cfg, tcfg, policy, state, batch):
-    """One more duplex step under torch.profiler: device time by kernel and
-    the device's busy share of the step's wall time."""
+def profile_step(entry, cfg, tcfg, policy, state, batch, label="profile"):
+    """One more step under torch.profiler: device time by kernel and the
+    device's busy share of the step's wall time, on ``<label>_step`` and
+    ``<label>_kernel`` lines."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train import train_step as ts
     step = ts.make_train_step(entry, cfg, tcfg, policy)
@@ -677,11 +720,242 @@ def profile_step(entry, cfg, tcfg, policy, state, batch):
             rows.append((dev, e.key, e.count))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    print(f"profile_step: wall_s {wall!r} device_busy_s {busy_us / 1e6!r} "
-          f"busy_share {busy_us / 1e6 / wall!r} (profiler on)")
+    print(f"{label}_step: wall_s {wall!r} device_busy_s "
+          f"{busy_us / 1e6!r} busy_share {busy_us / 1e6 / wall!r} "
+          f"(profiler on)")
     for dev, key, count in rows[:12]:
-        print(f"profile_kernel: {dev / 1e3:.3f} ms x{count} "
+        print(f"{label}_kernel: {dev / 1e3:.3f} ms x{count} "
               f"{dev / busy_us:.3f} {key[:100]}")
+
+
+def f1_check() -> None:
+    """The kernel wrappers refuse autograd on CUDA tensors, as on the CPU
+    and as ``jax.grad`` through the reference's kernels; under
+    ``torch.no_grad()`` they launch."""
+    from repro_torch.kernels import flash_attention as fa, ops
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+               for s in ((1, 8, 256, 128), (1, 2, 256, 128),
+                         (1, 2, 256, 128)))
+    a = torch.randn((256, 128), generator=gen, device="cuda")
+    b = torch.randn((128, 96), generator=gen, device="cuda")
+    kw = dict(q_chunk=256, kv_chunk=256)
+    cases = {"flash_attention": (lambda x: fa.flash_attention(x, k, v, **kw),
+                                 q, "flash_attention"),
+             "ops.matmul": (lambda x: ops.matmul(x, b), a, "bfp_matmul")}
+    for name, (call, x, kernel) in cases.items():
+        try:
+            call(x.clone().requires_grad_())
+            raised = False
+        except RuntimeError as e:
+            if "no backward" not in str(e):
+                raise
+            raised = True
+        if not raised:
+            raise AssertionError(f"f1_check: {name} on a CUDA input that "
+                                 f"requires grad did not raise")
+        zero_counts()
+        with torch.no_grad():
+            out = call(x.clone().requires_grad_())
+        torch.cuda.synchronize()
+        launched = read_counts()[kernel]
+        finite = bool(torch.isfinite(out.float()).all())
+        if launched != 1 or not finite:
+            raise AssertionError(f"f1_check: {name} under no_grad launched "
+                                 f"{kernel} {launched} times, finite "
+                                 f"{finite}")
+        print(f"f1_check {name}: raises_under_grad True "
+              f"launches_under_no_grad {launched}", flush=True)
+
+
+def run_full_path(duplex_peak: int) -> dict:
+    """The full finetune (FR) on granite-3-8b at full width, depth cut to 8
+    of 40 layers, through ``train.loop``: TrainConfig(mode="full") as the
+    launcher builds it (SGD momentum 0.9, lr 1e-3), f32 params, bf16
+    compute, flash off, B=4, S=1024 (the full_attention path), random
+    weights from seed 0."""
+    from repro_torch.configs.granite_3_8b import FULL
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import layers as L, registry
+    from repro_torch.train import loop, train_step as ts
+    from repro_torch.utils import count_params, tree_checksum
+    cfg = dc.replace(FULL, n_layers=8).validate()
+    entry = registry.get("granite-3-8b")
+    policy = L.Policy(compute_dtype=torch.bfloat16)
+    tcfg = ts.TrainConfig(mode="full")
+    step = ts.make_train_step(entry, cfg, tcfg, policy)
+    initial = {}
+
+    def init_fn():
+        st = ts.init_state(torch.Generator(device="cuda").manual_seed(0),
+                           entry, cfg, tcfg, policy, device="cuda")
+        initial["checksum"] = tree_checksum(st["backbone"])
+        initial["params"] = count_params(st["backbone"])
+        return st
+
+    def step_fn(state, batch):
+        return step(state, {k: torch.as_tensor(v, device="cuda").long()
+                            for k, v in batch.items()})
+
+    data = DataConfig(vocab=cfg.vocab, seq_len=1024, batch_per_host=4,
+                      seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    report = loop.run(loop.LoopConfig(total_steps=MAIN_STEPS, log_every=1),
+                      data, step_fn, init_fn, log_fn=lambda s: None)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    after = tree_checksum(report.state["backbone"])
+    for m in report.metrics_history:
+        print(f"full_step {m['step']}: loss {m['loss']!r} step_time_s "
+              f"{m['step_time_s']!r} grad_norm {m['grad_norm']!r}",
+              flush=True)
+    print(f"full_path: layers {cfg.n_layers} backbone_params "
+          f"{initial['params']} batch 4 seq 1024 steps {report.steps_run} "
+          f"wall_s {wall!r} max_memory_allocated_bytes {peak} "
+          f"duplex_main_path_peak_bytes {duplex_peak} backbone_checksum "
+          f"{initial['checksum']} -> {after} launches {json.dumps(counts)}",
+          flush=True)
+    losses = [m["loss"] for m in report.metrics_history]
+    if len(losses) != MAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"full path losses not finite: {losses}")
+    if after == initial["checksum"]:
+        raise AssertionError("full path: the backbone did not change")
+    if any(counts.values()):
+        raise AssertionError(f"full path launched kernels {counts}; with "
+                             f"flash off and no BFP op it launches none")
+    batch = {k: torch.as_tensor(v, device="cuda").long()
+             for k, v in SyntheticLM(data).batch(0).items()}
+    profile_step(entry, cfg, tcfg, policy, report.state, batch,
+                 label="full_profile")
+    times = [m["step_time_s"] for m in report.metrics_history]
+    del report, batch
+    torch.cuda.empty_cache()
+    return {"peak_bytes": peak, "step_times": times}
+
+
+def run_resume_path() -> dict:
+    """Checkpoint and resume of the duplex step at full width, depth cut to
+    4 layers (bf16 backbone of 1.0 B params, flash on), B=2, S=4096."""
+    from repro_torch.ckpt.checkpoint import CheckpointConfig, Checkpointer
+    from repro_torch.configs.granite_3_8b import FULL
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.cells import duplex_tcfg
+    from repro_torch.models import layers as L, registry
+    from repro_torch.train import loop, train_step as ts
+    from repro_torch.utils import tree_flatten
+    cfg = dc.replace(FULL, n_layers=4, use_flash=True).validate()
+    entry = registry.get("granite-3-8b")
+    policy = L.Policy(compute_dtype=torch.bfloat16)
+    tcfg = duplex_tcfg(cfg)
+    step = ts.make_train_step(entry, cfg, tcfg, policy)
+    data = DataConfig(vocab=cfg.vocab, seq_len=4096, batch_per_host=2, seed=0)
+
+    def init_fn():
+        return ts.init_state(torch.Generator(device="cuda").manual_seed(0),
+                             entry, cfg, tcfg, policy, device="cuda")
+
+    def step_fn(state, batch):
+        return step(state, {k: torch.as_tensor(v, device="cuda").long()
+                            for k, v in batch.items()})
+
+    def run(total, ckpt=None):
+        return loop.run(loop.LoopConfig(total_steps=total, ckpt_every=2,
+                                        ckpt=ckpt, log_every=1),
+                        data, step_fn, init_fn, log_fn=lambda s: None,
+                        device="cuda")
+
+    zero_counts()
+    straight = run(4)
+    with tempfile.TemporaryDirectory(prefix="_smoke_ckpt_",
+                                     dir=ROOT) as tmp:
+        ck_cfg = CheckpointConfig(str(Path(tmp) / "run"))
+        first = run(2, ck_cfg)
+        saved = first.state
+        nbytes = tree_nbytes(saved)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = Checkpointer(ck_cfg).restore(device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        mismatched = [p for (p, a), (_, b) in zip(tree_flatten(restored),
+                                                  tree_flatten(saved))
+                      if a.dtype != b.dtype or not torch.equal(a, b)]
+        if [p for p, _ in tree_flatten(restored)] != \
+                [p for p, _ in tree_flatten(saved)] or mismatched:
+            raise AssertionError(f"resume_path: the restored state differs "
+                                 f"from the saved one at {mismatched[:5]}")
+        del restored
+        t0 = time.perf_counter()
+        Checkpointer(CheckpointConfig(str(Path(tmp) / "timed"))).save(
+            2, saved)
+        save_s = time.perf_counter() - t0
+        del first, saved
+        resumed = run(4, ck_cfg)
+    counts = read_counts()
+    if resumed.resumed_from != 2 or resumed.steps_run != 2:
+        raise AssertionError(f"resume_path: resumed_from "
+                             f"{resumed.resumed_from}, ran "
+                             f"{resumed.steps_run} steps")
+    want = {m["step"]: m["loss"] for m in straight.metrics_history}
+    got = {m["step"]: m["loss"] for m in resumed.metrics_history}
+    if sorted(got) != [2, 3]:
+        raise AssertionError(f"resume_path: resumed steps {sorted(got)}")
+    for s_ in (2, 3):
+        if not math.isclose(got[s_], want[s_], rel_tol=1e-5, abs_tol=1e-6):
+            raise AssertionError(f"resume_path: step {s_} loss {got[s_]} vs "
+                                 f"{want[s_]} straight through")
+    branch_err = max(float((a.float() - b.float()).abs().max())
+                     for (_, a), (_, b) in zip(
+                         tree_flatten(resumed.state["branch"]),
+                         tree_flatten(straight.state["branch"])))
+    for (p, a), (_, b) in zip(tree_flatten(resumed.state["branch"]),
+                              tree_flatten(straight.state["branch"])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=p)
+    n_attn = cfg.n_rep * len(cfg.pattern)
+    if counts["flash_attention"] != n_attn * 8 or \
+            sum(counts.values()) != counts["flash_attention"]:
+        raise AssertionError(f"resume_path launched {counts}; expected "
+                             f"{n_attn * 8} flash launches (8 steps) and no "
+                             f"other kernel")
+    print(f"resume_path: layers {cfg.n_layers} state_bytes {nbytes} "
+          f"resumed_from {resumed.resumed_from} restored_bit_identical True "
+          f"loss_step2 {got[2]!r} vs {want[2]!r} loss_step3 {got[3]!r} vs "
+          f"{want[3]!r} branch_max_abs_diff {branch_err!r} save_s "
+          f"{save_s!r} save_GBps {nbytes / save_s / 1e9!r} restore_s "
+          f"{restore_s!r} restore_GBps {nbytes / restore_s / 1e9!r} "
+          f"launches {json.dumps(counts)}", flush=True)
+    del straight, resumed
+    torch.cuda.empty_cache()
+    return {"save_s": save_s, "restore_s": restore_s, "bytes": nbytes}
+
+
+def run_arms() -> dict:
+    """The four accuracy arms (Table II) on the card, at the reference's
+    step counts (pretrain 150, each arm 200)."""
+    from repro_torch.bench import table2_accuracy
+    zero_counts()
+    t0 = time.perf_counter()
+    rows, results = table2_accuracy.run("cuda")
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    for row in rows:
+        print(f"arms_row {row}", flush=True)
+    print("arms: " + json.dumps({
+        "val": {arm: {"loss": l, "accuracy": a, "train_s": t}
+                for arm, (l, a, t) in results.items()},
+        "wall_s": wall, "launches": counts}), flush=True)
+    for arm, (l, a, _) in results.items():
+        if not (math.isfinite(l) and 0.0 <= a <= 1.0):
+            raise AssertionError(f"arms: {arm} gave loss {l}, accuracy {a}")
+    if any(counts.values()):
+        raise AssertionError(f"arms launched kernels {counts}; flash is off "
+                             f"and the branch quantizes by fake-quant")
+    return {"wall_s": wall}
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -725,8 +999,12 @@ def main() -> int:
     flash = check_flash(gen)
     check_bfp(gen)
     check_bfp_stages(gen)
+    f1_check()
     bfp = run_bfp_path()     # before the step, and freed: its peak stands
     main_path = run_main_path()
+    run_full_path(main_path["peak_bytes"])
+    run_resume_path()
+    run_arms()
 
     kernels = [{
         "name": "flash_attention", "route": "cuda",

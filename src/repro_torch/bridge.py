@@ -9,10 +9,10 @@ duplex branch's ``tap_proj`` and ``blocks`` stacked on a leading
 ``n_blocks`` axis.  So the bridge is a leafwise conversion: floats keep
 their dtype (bfloat16 arrays from ``ml_dtypes`` become ``torch.bfloat16``
 exactly), integers keep theirs.  A whole ``init_state`` crosses over:
-``step``, ``backbone``, ``branch`` and the optimizer state (AdamW's
-``step`` included once it exists).  ``device`` has no default: the port
-runs on ``cuda`` unless a caller names ``cpu``, as the tests do.  This
-module imports no JAX.
+``step``, ``backbone``, ``branch`` (duplex mode only) and the optimizer
+state (AdamW's ``step`` included once it exists).  ``device`` has no
+default: the port runs on ``cuda`` unless a caller names ``cpu``, as the
+tests do.  This module imports no JAX.
 """
 from __future__ import annotations
 
@@ -46,8 +46,12 @@ def to_numpy(tree: Any) -> Any:
 
 
 def state_from_jax(state: dict, device) -> dict:
-    """A JAX ``train_step.init_state`` (or a later state) as the port's."""
-    missing = {"step", "backbone", "branch", "opt"} - set(state)
-    if missing:
-        raise ValueError(f"not a duplex train state: missing {sorted(missing)}")
+    """A JAX ``train_step.init_state`` (or a later state) as the port's:
+    duplex ``{step, backbone, branch, opt}`` or full ``{step, backbone,
+    opt}``."""
+    keys = set(state)
+    if keys not in ({"step", "backbone", "branch", "opt"},
+                    {"step", "backbone", "opt"}):
+        raise ValueError(f"not a duplex or full train state: keys "
+                         f"{sorted(keys)}")
     return to_torch(state, device)

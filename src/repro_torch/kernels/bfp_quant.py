@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import refuse_autograd
 from repro_torch.kernels.bfp_common import (DTYPE_CODE, GEMM_TILE_K,
                                             GEMM_TILE_M, GEMM_TILE_N,
                                             bfp_library, check_error,
@@ -57,8 +58,10 @@ def bfp_quantize(x: torch.Tensor, *, group: int = 32, mbits: int = 5,
 
     Counterpart of the JAX ``bfp_quantize_pallas``.  CPU tensors take the
     plain version; CUDA tensors launch the kernel (counted in
-    ``bfp_quantize.launches``) or raise.
+    ``bfp_quantize.launches``) or raise.  Forward only: an input that
+    requires grad under grad mode raises ``RuntimeError``.
     """
+    refuse_autograd("bfp_quantize", x)
     if x.dim() != 2:
         raise ValueError(f"expected 2D input, got {tuple(x.shape)}")
     if x.device.type == "cpu":
@@ -161,8 +164,10 @@ def bfp_matmul_packed(a_mant, a_exp, b_mant, b_exp, *, group: int = 32,
 
     CPU tensors take the plain version; CUDA tensors launch the operand
     passes and the GEMM (one count in ``bfp_matmul_packed.launches`` per
-    product) or raise.
+    product) or raise.  Forward only, like every kernel wrapper (integer
+    operands cannot require grad, so only float inputs are checked).
     """
+    refuse_autograd("bfp_matmul_packed", a_mant, a_exp, b_mant, b_exp)
     (m, k), (k2, n) = a_mant.shape, b_mant.shape
     if k != k2:
         raise ValueError(f"contraction mismatch: {tuple(a_mant.shape)} @ "

@@ -39,6 +39,8 @@ import math
 
 import torch
 
+from repro_torch.kernels import refuse_autograd
+
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -129,8 +131,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Fused flash attention; returns [B, H, Sq, d] in q.dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in ``flash_attention.launches``) or raise.
+    (counted in ``flash_attention.launches``) or raise.  Forward only: an
+    input that requires grad under grad mode raises ``RuntimeError``.
     """
+    refuse_autograd("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     _, nkv, skv, _ = k.shape
     if h % nkv:

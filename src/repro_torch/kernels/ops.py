@@ -8,6 +8,10 @@ quantization is exactly the transpose of the forward one (Q(Wᵀ) = Q(W)ᵀ).
 
 There is no ``interpret`` switch: the tensors' device decides, as in every
 kernel wrapper of the port (CPU → plain version, CUDA → kernel or raise).
+``matmul``, ``quantize`` and ``matmul_packed`` are forward only, as in the
+reference: under grad mode an input that requires grad raises
+``RuntimeError`` in the kernel wrapper they call.  ``bfp_dense`` is its own
+``autograd.Function``, whose forward and backward run with grad mode off.
 """
 from __future__ import annotations
 

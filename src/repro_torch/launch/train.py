@@ -1,14 +1,19 @@
-"""Training launcher for the port: the DuDNN duplex step on one card.
+"""Training launcher for the port on one card: the DuDNN duplex step, or
+the full finetune (the paper's FR baseline).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-8b \\
-        --preset full --mode duplex --steps 3 --seq 4096 --batch 2
+        --preset full --mode duplex --steps 3 --seq 4096 --batch 2 \\
+        --ckpt-dir /path/to/ckpt --ckpt-every 100
 
 Runs on ``cuda`` unless ``--device cpu`` is given; a CUDA request without a
 card raises.  ``--preset full`` runs the model at its published widths with
-a bf16 backbone and compute and the backbone attention on the hand-written
-flash kernel (``use_flash=True``); ``--preset smoke`` is the tiny f32
-config.  Weights are random, drawn from seed 0 with a
-``torch.Generator`` on the device.  There is no mesh: one card.
+bf16 compute; in duplex mode the backbone is stored in bf16 and its
+attention runs the hand-written flash kernel (``use_flash=True``).  Full
+mode keeps f32 params and flash off, as the reference does: the kernel has
+no backward.  ``--preset smoke`` is the tiny f32 config.  Weights are
+random, drawn from seed 0 with a ``torch.Generator`` on the device.  With
+``--ckpt-dir`` the loop saves every ``--ckpt-every`` steps and resumes from
+the latest checkpoint there.  There is no mesh: one card.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import dataclasses as dc
 
 import torch
 
+from repro_torch.ckpt.checkpoint import CheckpointConfig
 from repro_torch.core import duplex as dx
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.launch.cells import duplex_tcfg
@@ -25,18 +31,20 @@ from repro_torch.train import loop, train_step as ts
 from repro_torch.utils import tree_checksum, tree_leaves, tree_map
 
 
-def build(arch: str, preset: str):
-    """(entry, cfg, tcfg, policy) for an arch and preset."""
+def build(arch: str, preset: str, mode: str = "duplex"):
+    """(entry, cfg, tcfg, policy) for an arch, preset and mode."""
     entry = registry.get(arch)
     cfg = entry.config(preset)
+    tcfg = duplex_tcfg(cfg) if mode == "duplex" else \
+        ts.TrainConfig(mode="full")
     if preset == "full":
-        cfg = dc.replace(cfg, use_flash=True)
+        if mode == "duplex":
+            cfg = dc.replace(cfg, use_flash=True)
         policy = L.Policy(compute_dtype=torch.bfloat16)
-        tcfg = duplex_tcfg(cfg)
     else:
         policy = L.Policy(compute_dtype=torch.float32)
         tcfg = dc.replace(
-            duplex_tcfg(cfg), backbone_dtype=torch.float32,
+            tcfg, backbone_dtype=torch.float32,
             duplex=dx.DuplexConfig(n_blocks=2, d_branch=32, pool_factor=4,
                                    branch_heads=2,
                                    bfp=L.BFPPolicy(enabled=True,
@@ -46,14 +54,18 @@ def build(arch: str, preset: str):
 
 def main(argv=None) -> dict:
     """Parse ``argv``, train, and return ``{"report": LoopReport,
-    "backbone_checksum": (before, after), "branch_max_abs_change": x}``."""
+    "backbone_checksum": (before, after), "branch_max_abs_change": x}``.
+    ``before`` and the branch's change are None when the run resumed from a
+    checkpoint, and the change is None in full mode (no branch)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(registry.ARCHS))
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
-    ap.add_argument("--mode", default="duplex", choices=["duplex"])
+    ap.add_argument("--mode", default="duplex", choices=["duplex", "full"])
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8, help="global batch")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card raises")
@@ -64,7 +76,7 @@ def main(argv=None) -> dict:
         raise RuntimeError("CUDA device requested but torch.cuda."
                            "is_available() is False; pass --device cpu to "
                            "run on the CPU")
-    entry, cfg, tcfg, policy = build(args.arch, args.preset)
+    entry, cfg, tcfg, policy = build(args.arch, args.preset, args.mode)
     step = ts.make_train_step(entry, cfg, tcfg, policy)
     initial = {}
 
@@ -72,7 +84,8 @@ def main(argv=None) -> dict:
         gen = torch.Generator(device=device).manual_seed(0)
         st = ts.init_state(gen, entry, cfg, tcfg, policy, device=device)
         initial["backbone"] = tree_checksum(st["backbone"])
-        initial["branch"] = tree_map(torch.clone, st["branch"])
+        if "branch" in st:
+            initial["branch"] = tree_map(torch.clone, st["branch"])
         return st
 
     def step_fn(state, batch):
@@ -80,18 +93,24 @@ def main(argv=None) -> dict:
                             for k, v in batch.items()})
 
     report = loop.run(
-        loop.LoopConfig(total_steps=args.steps, log_every=args.log_every,
-                        step_deadline_s=60.0),
+        loop.LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
+                        ckpt=(CheckpointConfig(args.ckpt_dir)
+                              if args.ckpt_dir else None),
+                        log_every=args.log_every, step_deadline_s=60.0),
         DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                    batch_per_host=args.batch, seed=0),
-        step_fn, init_fn)
+        step_fn, init_fn, device=device)
     final = report.state
-    bb = (initial["backbone"], tree_checksum(final["backbone"]))
-    moved = max(float((a - b).abs().max()) for a, b in zip(
-        tree_leaves(initial["branch"]), tree_leaves(final["branch"])))
-    print(f"finished {report.steps_run} steps in {report.wall_s:.1f}s; "
-          f"backbone checksum {bb[0]} -> {bb[1]}; "
-          f"branch max |change| {moved:.3e}")
+    bb = (initial.get("backbone"), tree_checksum(final["backbone"]))
+    moved = None
+    if "branch" in initial:
+        moved = max(float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(initial["branch"]), tree_leaves(final["branch"])))
+    start = "fresh start" if report.resumed_from is None else \
+        f"resumed from step {report.resumed_from}"
+    print(f"finished {report.steps_run} steps ({start}) in "
+          f"{report.wall_s:.1f}s; backbone checksum {bb[0]} -> {bb[1]}; "
+          f"branch max |change| {moved}")
     return {"report": report, "backbone_checksum": bb,
             "branch_max_abs_change": moved}
 

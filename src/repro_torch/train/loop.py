@@ -1,16 +1,23 @@
-"""Host-side training loop: straggler deadline and metric logging.
+"""Host-side training loop: checkpoint cadence, restart-resume, straggler
+deadline, metric logging.
 
-Counterpart of ``repro/train/loop.py``.  Checkpointing and restart-resume
-are not ported yet: a ``LoopConfig`` with ``ckpt`` set raises
-``NotImplementedError`` until the checkpoint slice lands.  The report also
-carries the final state, since the loop owns it.
+Counterpart of ``repro/train/loop.py``, with the same fault-tolerance
+contract:
+* every ``ckpt_every`` steps the full state is saved asynchronously (the
+  host copy is taken before the next step), and a final save blocks;
+* on (re)start the loop restores the latest published checkpoint onto
+  ``device`` and the data pipeline resumes at the same batch index, so a
+  killed job continues exactly (up to the save cadence);
+* a per-step wall-clock deadline flags stragglers.
+The report also carries the final state, since the loop owns it.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Optional
+from typing import Callable, Optional
 
+from repro_torch.ckpt.checkpoint import CheckpointConfig, Checkpointer
 from repro_torch.data.pipeline import DataConfig, Prefetcher, make_source
 
 
@@ -18,7 +25,7 @@ from repro_torch.data.pipeline import DataConfig, Prefetcher, make_source
 class LoopConfig:
     total_steps: int
     ckpt_every: int = 100
-    ckpt: Optional[Any] = None                # not ported yet
+    ckpt: Optional[CheckpointConfig] = None
     log_every: int = 10
     step_deadline_s: Optional[float] = None   # straggler threshold
     max_straggler_strikes: int = 3
@@ -27,6 +34,7 @@ class LoopConfig:
 @dataclasses.dataclass
 class LoopReport:
     steps_run: int
+    resumed_from: Optional[int]
     metrics_history: list
     straggler_strikes: int
     wall_s: float
@@ -34,15 +42,25 @@ class LoopReport:
 
 
 def run(loop_cfg: LoopConfig, data_cfg: DataConfig, train_step: Callable,
-        init_state_fn: Callable, log_fn: Callable = print) -> LoopReport:
-    """Run training; returns the report.  ``train_step(state, batch) →
-    (state, metrics)`` takes numpy batches; ``init_state_fn()`` builds the
-    initial state.  A step's time ends when its loss reaches the host."""
+        init_state_fn: Callable, log_fn: Callable = print, *,
+        device=None) -> LoopReport:
+    """Run (or resume) training; returns the report.  ``train_step(state,
+    batch) → (state, metrics)`` takes numpy batches; ``init_state_fn()``
+    builds a fresh state when no checkpoint exists; a checkpoint is
+    restored onto ``device``, which ``loop_cfg.ckpt`` requires.  A step's
+    time ends when its loss reaches the host."""
+    ckpt = None
     if loop_cfg.ckpt is not None:
-        raise NotImplementedError(
-            "checkpointing is not ported to repro_torch yet (ROADMAP §1 "
-            "'Modules to port' item 9)")
-    state = init_state_fn()
+        if device is None:
+            raise ValueError("a loop with checkpoints needs the device to "
+                             "restore onto")
+        ckpt = Checkpointer(loop_cfg.ckpt)
+    resumed_from = None
+    if ckpt and ckpt.latest_step() is not None:
+        state = ckpt.restore(device=device)
+        resumed_from = int(state["step"])
+    else:
+        state = init_state_fn()
     start_step = int(state["step"])
 
     source = make_source(data_cfg)
@@ -77,10 +95,18 @@ def run(loop_cfg: LoopConfig, data_cfg: DataConfig, train_step: Callable,
                 history.append(m)
                 log_fn(f"step {step}: loss={m['loss']:.4f} "
                        f"acc={m.get('accuracy', 0):.3f} {dt*1e3:.0f}ms")
+
+            if ckpt and (step + 1) % loop_cfg.ckpt_every == 0:
+                ckpt.save(step + 1, state, blocking=False)
+        if ckpt:
+            ckpt.save(loop_cfg.total_steps, state, blocking=True)
     finally:
         prefetch.close()
+        if ckpt:
+            ckpt.wait()
     return LoopReport(
         steps_run=loop_cfg.total_steps - start_step,
+        resumed_from=resumed_from,
         metrics_history=history,
         straggler_strikes=strikes,
         wall_s=time.time() - t_loop,

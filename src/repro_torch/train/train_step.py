@@ -1,7 +1,9 @@
-"""The paper's Duplex training step (frozen backbone + reversible branch).
+"""Train steps: the paper's Duplex regime (frozen backbone + reversible
+branch) as the first-class path, plus the full-finetune baseline (the
+paper's FR comparison arm).
 
-Counterpart of ``repro/train/train_step.py`` for ``mode="duplex"``.
-Dataflow (paper Fig 9):
+Counterpart of ``repro/train/train_step.py``.
+Duplex step dataflow (paper Fig 9):
   1. backbone forward in ``backbone_dtype`` under ``torch.no_grad()``,
      collecting pooled per-superblock taps — no backbone activations kept;
   2. reversible branch over pooled streams (O(1) saved activations);
@@ -10,8 +12,10 @@ Dataflow (paper Fig 9):
      through it;
   4. gradients and the optimizer touch ONLY the branch params.
 
-``mode="full"`` is not ported: with ``use_flash`` it would differentiate
-through the flash kernel, which has no backward.
+``mode="full"`` differentiates the whole backbone, kept at its f32 init
+dtype, with the loss plus ``aux_weight·aux``.  It runs the backbone under
+autograd, so with ``use_flash`` it raises: the flash kernel is forward
+only, as ``jax.grad`` through the reference's raises.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    mode: str = "duplex"                   # duplex (full: not ported)
+    mode: str = "duplex"                   # duplex | full
     duplex: dx.DuplexConfig = dx.DuplexConfig()
     opt: OptConfig = SGDConfig()
     lr: float = 1e-3
@@ -40,14 +44,6 @@ class TrainConfig:
     aux_weight: float = 1e-2               # MoE load-balance weight (full mode)
     microbatch: int = 1                    # gradient-accumulation splits
     backbone_dtype: torch.dtype = torch.bfloat16   # frozen storage precision
-
-
-def _check_mode(tcfg: TrainConfig):
-    if tcfg.mode != "duplex":
-        raise NotImplementedError(
-            f"mode={tcfg.mode!r} is not ported to repro_torch: the full "
-            f"finetune would differentiate through the flash kernel, which "
-            f"has no backward")
 
 
 def tap_indices(n_rep: int, n_blocks: int) -> np.ndarray:
@@ -60,14 +56,19 @@ def tap_indices(n_rep: int, n_blocks: int) -> np.ndarray:
 def init_state(gen: torch.Generator, entry, cfg: ModelConfig,
                tcfg: TrainConfig, policy: L.Policy = L.Policy(), *,
                device=None) -> dict:
-    """``{"step", "backbone", "branch", "opt"}``; the backbone is drawn
-    straight into ``backbone_dtype`` with ``requires_grad=False``."""
-    _check_mode(tcfg)
+    """Duplex: ``{"step", "backbone", "branch", "opt"}``, the backbone drawn
+    straight into ``backbone_dtype``.  Full: ``{"step", "backbone", "opt"}``,
+    the backbone at its f32 init dtype and the optimizer state over all of
+    it.  No tensor requires grad."""
+    step = torch.zeros((), dtype=torch.int32, device=device)
+    if tcfg.mode != "duplex":
+        backbone = entry.module.init_params(gen, cfg, device=device)
+        return {"step": step, "backbone": backbone,
+                "opt": opt_init(tcfg.opt, backbone)}
     backbone = entry.module.init_params(gen, cfg, dtype=tcfg.backbone_dtype,
                                         device=device)
     branch = dx.duplex_init(gen, tcfg.duplex, cfg.d_model, device=device)
-    return {"step": torch.zeros((), dtype=torch.int32, device=device),
-            "backbone": backbone, "branch": branch,
+    return {"step": step, "backbone": backbone, "branch": branch,
             "opt": opt_init(tcfg.opt, branch)}
 
 
@@ -79,15 +80,32 @@ def _lr(tcfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
 
 def make_loss_fn(entry, cfg: ModelConfig, tcfg: TrainConfig,
                  policy: L.Policy = L.Policy()):
-    """Returns ``loss_fn(branch, backbone, batch) -> (loss, metrics)``,
-    the duplex loss that ``make_train_step`` differentiates."""
-    _check_mode(tcfg)
+    """Returns ``loss_fn(trainable, frozen, batch) -> (loss, metrics)``, the
+    loss that ``make_train_step`` differentiates: duplex ``(branch,
+    backbone, batch)``, full ``(backbone, None, batch)``."""
     module = entry.module
+
+    def check_batch(batch):
+        if "frontend" in batch:
+            raise NotImplementedError("frontend stubs are not ported yet")
+
+    if tcfg.mode != "duplex":
+        def full_loss_fn(backbone, _unused, batch):
+            check_batch(batch)
+            out = module.forward(backbone, cfg, batch["tokens"],
+                                 policy=policy)
+            logits = module.lm_logits(backbone, cfg, out["hidden"], policy)
+            loss, metrics = lm_cross_entropy(logits, batch["labels"],
+                                             batch.get("mask"),
+                                             z_loss=tcfg.z_loss)
+            return loss + tcfg.aux_weight * out["aux"], metrics
+
+        return full_loss_fn
+
     idx = tap_indices(cfg.n_rep, tcfg.duplex.n_blocks)
 
     def loss_fn(branch, backbone, batch):
-        if "frontend" in batch:
-            raise NotImplementedError("frontend stubs are not ported yet")
+        check_batch(batch)
         with torch.no_grad():
             out = module.forward(backbone, cfg, batch["tokens"],
                                  collect_taps=True, tap_indices=idx,
@@ -112,25 +130,26 @@ def make_train_step(entry, cfg: ModelConfig, tcfg: TrainConfig,
     given state's tensors are not modified.
     """
     loss_fn = make_loss_fn(entry, cfg, tcfg, policy)
+    trainable = "branch" if tcfg.mode == "duplex" else "backbone"
 
-    def grad_fn(branch, backbone, batch):
-        paths, leaves = zip(*tree_flatten(branch))
+    def grad_fn(params, frozen, batch):
+        paths, leaves = zip(*tree_flatten(params))
         leaves = [p.detach().requires_grad_() for p in leaves]
         loss, metrics = loss_fn(tree_unflatten(list(zip(paths, leaves))),
-                                backbone, batch)
+                                frozen, batch)
         grads = torch.autograd.grad(loss, leaves)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return metrics, tree_unflatten(list(zip(paths, grads)))
 
     def train_step(state, batch):
-        frozen = state["backbone"]
+        frozen = state["backbone"] if tcfg.mode == "duplex" else None
         if tcfg.microbatch > 1:
             k = tcfg.microbatch
             mbs = [{n: x.reshape((k, x.shape[0] // k) + x.shape[1:])[j]
                     for n, x in batch.items()} for j in range(k)]
             gsum, ms = None, []
             for mb in mbs:
-                metrics, g = grad_fn(state["branch"], frozen, mb)
+                metrics, g = grad_fn(state[trainable], frozen, mb)
                 g = tree_map(lambda t: t.float(), g)
                 gsum = g if gsum is None else tree_map(torch.add, gsum, g)
                 ms.append(metrics)
@@ -138,13 +157,13 @@ def make_train_step(entry, cfg: ModelConfig, tcfg: TrainConfig,
             metrics = {n: torch.mean(torch.stack([m[n] for m in ms]))
                        for n in ms[0]}
         else:
-            metrics, grads = grad_fn(state["branch"], frozen, batch)
+            metrics, grads = grad_fn(state[trainable], frozen, batch)
 
         lr = _lr(tcfg, state["step"])
         new_p, new_opt, om = opt_update(tcfg.opt, grads, state["opt"],
-                                        state["branch"], lr)
+                                        state[trainable], lr)
         new_state = dict(state)
-        new_state["branch"] = new_p
+        new_state[trainable] = new_p
         new_state["opt"] = new_opt
         new_state["step"] = state["step"] + 1
         return new_state, {**metrics, **om, "lr": lr}

@@ -1,6 +1,7 @@
-"""repro_torch stands alone: it imports without JAX and without the JAX
-package, and its sources (and chip_smoke.py) name neither, nor a library
-attention or torch.compile."""
+"""repro_torch stands alone: it imports without JAX, without the JAX
+package and without msgpack (the card's machine has none; the checkpointer
+carries its own encoder), and its sources (and chip_smoke.py) name none of
+them, nor a library attention or torch.compile."""
 import pkgutil
 import re
 import subprocess
@@ -20,18 +21,22 @@ def _modules():
 
 
 def test_every_module_imports_with_jax_and_repro_masked():
+    """Every module imports with jax, repro and msgpack masked."""
     mods = _modules()
     for m in ("flash_attention", "ops", "bfp_matmul", "bfp_quant",
               "bfp_common", "ref"):
         assert f"repro_torch.kernels.{m}" in mods
+    for m in ("optim.schedule", "ckpt.checkpoint", "ckpt.msgpack_lite",
+              "bench.common", "bench.table2_accuracy",
+              "examples.train_duplex_lm"):
+        assert f"repro_torch.{m}" in mods
+    masked = ("jax", "repro", "msgpack")
     code = (
         "import sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['repro'] = None\n"
+        f"for m in {masked!r}: sys.modules[m] = None\n"
         "import importlib\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'repro' or m.startswith('repro.')]\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {masked!r}]\n"
         "assert all(sys.modules[m] is None for m in bad), bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -52,6 +57,7 @@ FORBIDDEN = [
     (r"^\s*import\s+jax\b|^\s*from\s+jax\b", "imports jax"),
     (r"^\s*import\s+repro\.|^\s*from\s+repro\.|^\s*import\s+repro\s*$"
      r"|^\s*from\s+repro\s+import", "imports the JAX package"),
+    (r"^\s*import\s+msgpack\b|^\s*from\s+msgpack\b", "imports msgpack"),
     (r"scaled_dot_product_attention", "library attention"),
     (r"torch\.compile", "torch.compile"),
 ]

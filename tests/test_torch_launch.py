@@ -7,7 +7,6 @@ import torch
 
 from repro_torch.kernels import flash_attention as tf
 from repro_torch.launch import train
-from repro_torch.train import loop
 
 
 def test_smoke_steps_on_cpu(capsys):
@@ -47,10 +46,25 @@ def test_cuda_request_without_card_raises(monkeypatch):
                     "--steps", "1"])
 
 
-def test_checkpoint_config_is_not_ported():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        loop.run(loop.LoopConfig(total_steps=1, ckpt=object()), None,
-                 None, None)
+def test_full_mode_smoke_steps_on_cpu(capsys):
+    out = train.main(["--arch", "qwen2-72b", "--preset", "smoke", "--mode",
+                      "full", "--steps", "3", "--seq", "32", "--batch", "4",
+                      "--device", "cpu", "--log-every", "1"])
+    report = out["report"]
+    assert report.steps_run == 3 and report.resumed_from is None
+    assert set(report.state) == {"step", "backbone", "opt"}
+    assert all(math.isfinite(m["loss"]) for m in report.metrics_history)
+    before, after = out["backbone_checksum"]
+    assert before != after                     # the backbone trains
+    assert out["branch_max_abs_change"] is None
+    assert "finished 3 steps (fresh start)" in capsys.readouterr().out
+
+
+def test_full_mode_keeps_flash_off_and_f32_params():
+    _, cfg, tcfg, policy = train.build("granite-3-8b", "full", "full")
+    assert not cfg.use_flash and policy.compute_dtype == torch.bfloat16
+    assert tcfg.mode == "full" and tcfg.lr == 1e-3
+    assert tcfg.opt.momentum == 0.9            # SGD, the reference's default
 
 
 @pytest.mark.cuda
