@@ -29,7 +29,8 @@ Phases, each printing its numbers on lines of their own:
      must move and the backbone's checksum must not; the flash path's loss
      is then held against the plain attention path's on the same state;
      the step launches no BFP kernel (its branch quantizes by fake-quant,
-     as the reference's does);
+     as the reference's does); each path frees its state before the next,
+     so that each peak stands alone;
   6. ``f1_check`` (run before the BFP path): the kernel wrappers refuse
      autograd on the card as on the CPU -- flash on bf16 CUDA tensors that
      require grad and ``ops.matmul`` raise under grad mode, and both launch
@@ -42,25 +43,42 @@ Phases, each printing its numbers on lines of their own:
      the backbone checksum before and after (must differ), no kernel
      launched; then one more step under the profiler (``full_profile``
      lines);
-  8. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
+  8. ``moe_path``: the duplex step of phase 5 on granite-moe-1b-a400m at
+     full width and depth (24 layers, 32 experts top-8, group 4096,
+     capacity 1280), flash on, B=2 x S=4096, 3 steps through the launcher:
+     72 flash launches and no BFP launch, each step's backbone aux loss
+     (``moe_step`` lines), the first MoE layer's dropped share and the time
+     of its routing and of the whole layer (``moe_route``), the flash loss
+     against plain attention, one step profiled (``moe_profile`` lines);
+     then ``moe_full_path``: the FR step of phase 7 on the same model, not
+     cut (``moe_full_step``, ``moe_full_profile`` lines), which must move
+     the first layer's router and experts and carry ``aux_weight·aux`` in
+     its objective (``moe_full_aux``); then ``moe_top1_path``:
+     llama4-maverick-400b-a17b at full width, depth cut to 1 of 48 layers
+     (128 experts top-1 + a shared expert, 34.7 GB of bf16 backbone), the
+     duplex step with flash on, B=2 x S=4096, 2 steps: finite losses, one
+     flash launch a step, the frozen backbone unchanged, and the share of
+     (token, pass) assignments its MoE layer dropped (``moe_top1_*``);
+  9. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
      on, B=2 x S=4096: 4 steps straight; then 2 steps saving a checkpoint
      every 2 into a directory that is removed afterwards, whose restored
      state must equal the saved one bit for bit; then a run to 4 steps that
      must resume from step 2 and match the straight run's steps 2-3 and
      final branch (rtol 1e-5, atol 1e-6); save and restore times in s and
      GB/s;
-  9. ``arms``: ``repro_torch.bench.table2_accuracy`` on the card with the
+  10. ``arms``: ``repro_torch.bench.table2_accuracy`` on the card with the
      reference's step counts: each arm's validation loss and accuracy, the
      ordering row, the wall time;
-  10. one JSON line with every kernel's numbers, the card line again, and
+  11. one JSON line with every kernel's numbers, the card line again, and
      the last line {"ok": true, "device": {...}}.
-Each of the paths 4-9 zeroes every kernel's launch count just before it
+Each of the paths 4-10 zeroes every kernel's launch count just before it
 and reads the counts just after.
 Any failure raises and the exit code is not 0.  Without a CUDA device it
 exits with code 2 before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses as dc
 import json
 import math
@@ -149,7 +167,9 @@ def attention_bound_ms(b, h, kv, sq, skv, d, causal, dtype):
 
 # (label, b, h, kv, sq, skv, d, causal, softcap, dtype, iters).  Beside the
 # main shape: MQA; rectangular causal; softcap; d=64 with Sq/Skv off the
-# 128-row tiles; non-causal with Skv < Sq; f32 (the SIMT kernel); and the
+# 128-row tiles; granite-moe-1b's attention (d=64, a multi-wave grid);
+# llama4-maverick's (GQA ratio 5, a multi-wave grid); non-causal with
+# Skv < Sq; f32 (the SIMT kernel); and the
 # V-layout probe: q = 0, so every output row is the mean of V's rows, which
 # a wrong MN-major V descriptor cannot give.
 FLASH_CASES = [
@@ -161,6 +181,9 @@ FLASH_CASES = [
      20),
     ("ragged_d64_bf16", 2, 8, 2, 200, 328, 64, True, None, torch.bfloat16,
      20),
+    ("granite_moe_d64", 2, 16, 8, 4096, 4096, 64, True, None, torch.bfloat16,
+     10),
+    ("llama4_h40", 2, 40, 8, 4096, 4096, 128, True, None, torch.bfloat16, 10),
     ("short_kv_noncausal_bf16", 1, 8, 2, 512, 320, 128, False, None,
      torch.bfloat16, 20),
     ("v_probe_bf16", 1, 4, 4, 128, 128, 128, False, None, torch.bfloat16,
@@ -182,10 +205,11 @@ def rel_fro(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def check_flash(gen) -> dict:
-    """Kernel vs plain version per shape; returns the main shape's numbers."""
+    """Kernel vs plain version per shape; returns each shape's numbers by
+    label."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    main = None
+    rows = {}
     for (label, b, h, kv, sq, skv, d, causal, cap, dtype,
          iters) in FLASH_CASES:
         q = torch.randn((b, h, sq, d), generator=gen, device="cuda",
@@ -240,11 +264,10 @@ def check_flash(gen) -> dict:
                else kernel_ms / library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by}
         print("flash_check " + json.dumps(row), flush=True)
-        if label == "main":
-            main = row
+        rows[label] = row
         del q, k, v, got, want
         torch.cuda.empty_cache()
-    return main
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -625,14 +648,47 @@ def run_bfp_path() -> dict:
     return rows
 
 
-def run_main_path() -> dict:
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.launch import train
-    from repro_torch.train import train_step as ts
+@contextlib.contextmanager
+def first_moe_input(store: list):
+    """Record ``(params, x, MoEConfig)`` of the first MoE layer call inside
+    the block.  The transformer reaches ``moe.moe_apply`` through the
+    module, so wrapping that name sees the layer's normed input."""
+    from repro_torch.models import moe
+    plain = moe.moe_apply
 
-    argv = ["--arch", "granite-3-8b", "--preset", "full", "--mode", "duplex",
+    def recording(params, x, cfg, **kw):
+        if not store:
+            store.append((params, x, cfg))
+        return plain(params, x, cfg, **kw)
+
+    moe.moe_apply = recording
+    try:
+        yield store
+    finally:
+        moe.moe_apply = plain
+
+
+def routing(params, x, mcfg, policy):
+    """The port's routing of one MoE layer's input: (kept mask, capacity,
+    group size)."""
+    from repro_torch.models import moe
+    xg, gates = moe.router_gates(params, x, mcfg, policy=policy)
+    cap = moe.capacity(mcfg, xg.shape[1])
+    return moe.route(gates, mcfg.top_k, cap)[2], cap, xg.shape[1]
+
+
+def run_main_path(arch: str = "granite-3-8b", label: str = "main"):
+    """The duplex step through the launcher at full width and depth, B=2,
+    S=4096, 3 steps: granite-3-8b (``main``) or granite-moe-1b-a400m
+    (``moe``).  Returns the path's numbers and its run (entry, configs,
+    final state, batches), which the caller reads further and then
+    drops, so that the next path's peak stands alone."""
+    from repro_torch.launch import train
+
+    argv = ["--arch", arch, "--preset", "full", "--mode", "duplex",
             "--steps", str(MAIN_STEPS), "--seq", "4096", "--batch", "2",
             "--log-every", "1", "--device", "cuda"]
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
@@ -644,12 +700,13 @@ def run_main_path() -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     report = out["report"]
+    entry, cfg, tcfg, policy = train.build(arch, "full")
     for m in report.metrics_history:
-        print(f"main_step {m['step']}: loss {m['loss']!r} step_time_s "
+        print(f"{label}_step {m['step']}: loss {m['loss']!r} step_time_s "
               f"{m['step_time_s']!r} grad_norm {m['grad_norm']!r}")
-    entry, cfg, tcfg, policy = train.build("granite-3-8b", "full")
     n_attn = cfg.n_rep * len(cfg.pattern)
-    print(f"main_path: steps {report.steps_run} wall_s {wall!r} "
+    print(f"{label}_path: arch {arch} layers {cfg.n_layers} steps "
+          f"{report.steps_run} wall_s {wall!r} "
           f"max_memory_allocated_bytes {peak} flash_launches {launches} "
           f"expected {n_attn * MAIN_STEPS} backbone_checksum "
           f"{out['backbone_checksum']} branch_max_abs_change "
@@ -657,7 +714,7 @@ def run_main_path() -> dict:
           flush=True)
     losses = [m["loss"] for m in report.metrics_history]
     if len(losses) != MAIN_STEPS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"main path losses not finite: {losses}")
+        raise AssertionError(f"{label} path losses not finite: {losses}")
     if bfp_launches:   # the branch quantizes by fake-quant, as the reference
         raise AssertionError(f"the duplex step launched {bfp_launches} BFP "
                              f"kernels; the reference's step reaches none")
@@ -670,15 +727,38 @@ def run_main_path() -> dict:
     if not out["branch_max_abs_change"] > 0:
         raise AssertionError("branch params did not move")
 
-    # reference: the same loss through the plain attention path (blockwise,
-    # PyTorch ops) on the final state and the first batch.  bf16 backbone
-    # over 40 layers: the two attention outputs differ by bf16 rounding, so
-    # the losses agree to 1e-2 relative, not bit for bit.
-    state = report.state
-    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=4096,
-                                   batch_per_host=2, seed=0)).batch(0)
-    batch = {k: torch.as_tensor(v, device="cuda").long()
-             for k, v in batch.items()}
+    batches = [cuda_batch(cfg, 4096, 2, m["step"])
+               for m in report.metrics_history]
+    check_plain_attention(entry, cfg, tcfg, policy, report.state,
+                          batches[0], label)
+    profile_step(entry, cfg, tcfg, policy, report.state, batches[0],
+                 label="profile" if label == "main" else f"{label}_profile")
+    times = [m["step_time_s"] for m in report.metrics_history]
+    run = {"entry": entry, "cfg": cfg, "policy": policy,
+           "state": report.state, "batches": batches, "step_times": times,
+           "steps": [m["step"] for m in report.metrics_history],
+           "n_layers": n_attn}
+    return {"label": label, "launches": launches, "peak_bytes": peak,
+            "step_times": times}, run
+
+
+def cuda_batch(cfg, seq: int, batch: int, step: int) -> dict:
+    """Step ``step``'s batch of the synthetic data the launcher and the loop
+    read (seed 0), on the card."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  batch_per_host=batch, seed=0))
+    return {k: torch.as_tensor(v, device="cuda").long()
+            for k, v in data.batch(step).items()}
+
+
+def check_plain_attention(entry, cfg, tcfg, policy, state, batch,
+                          label: str) -> None:
+    """The duplex loss on the final state and one batch through the flash
+    kernel and through the plain attention path (blockwise, PyTorch ops).
+    bf16 backbone: the two attention outputs differ by bf16 rounding, so
+    the losses agree to 1e-2 relative, not bit for bit."""
+    from repro_torch.train import train_step as ts
     with torch.no_grad():
         lf, _ = ts.make_loss_fn(entry, cfg, tcfg, policy)(
             state["branch"], state["backbone"], batch)
@@ -686,14 +766,43 @@ def run_main_path() -> dict:
                                 tcfg, policy)(
             state["branch"], state["backbone"], batch)
     rel = abs(float(lf) - float(lp)) / abs(float(lp))
-    print(f"main_path_reference: loss_flash {float(lf)!r} loss_plain_attention"
-          f" {float(lp)!r} rel_diff {rel!r}", flush=True)
+    print(f"{label}_path_reference: loss_flash {float(lf)!r} "
+          f"loss_plain_attention {float(lp)!r} rel_diff {rel!r}", flush=True)
     if not rel <= 1e-2:
         raise AssertionError(f"flash path loss {float(lf)} vs plain attention"
                              f" path {float(lp)}: rel diff {rel} > 1e-2")
-    profile_step(entry, cfg, tcfg, policy, state, batch)
-    return {"launches": launches, "peak_bytes": peak,
-            "step_times": [m["step_time_s"] for m in report.metrics_history]}
+
+
+def report_moe_path(run: dict, label: str = "moe") -> None:
+    """The MoE duplex path's own readings: each step's backbone aux loss
+    (the backbone is frozen, so each step's forward again), and the routing
+    (gates + top-k passes) and whole MoE layer of the first layer's input,
+    timed alone, with its dropped share."""
+    from repro_torch.models import moe
+    entry, cfg, policy = run["entry"], run["cfg"], run["policy"]
+    backbone, first = run["state"]["backbone"], []
+    with torch.no_grad(), first_moe_input(first):
+        aux = [float(entry.module.forward(backbone, cfg, b["tokens"],
+                                          policy=policy)["aux"])
+               for b in run["batches"]]
+    for step, a in zip(run["steps"], aux):
+        print(f"{label}_step {step}: backbone_aux {a!r}")
+    if not all(map(math.isfinite, aux)):
+        raise AssertionError(f"{label} path aux not finite: {aux}")
+    params, x, mcfg = first[0]
+    with torch.no_grad():
+        keep, cap, g = routing(params, x, mcfg, policy)
+        route_ms = time_ms(lambda: routing(params, x, mcfg, policy), 10)
+        layer_ms = time_ms(lambda: moe.moe_apply(params, x, mcfg,
+                                                 policy=policy), 10)
+    step_s = min(run["step_times"][1:])
+    n = run["n_layers"]
+    print(f"{label}_route: layer 0 tokens {x.shape[0] * x.shape[1]} "
+          f"group {g} capacity {cap} dropped_share "
+          f"{1.0 - float(keep.float().mean())!r} route_ms {route_ms!r} "
+          f"moe_layer_ms {layer_ms!r} moe_layers {n} "
+          f"route_share_of_step {n * route_ms / 1e3 / step_s!r} "
+          f"moe_share_of_step {n * layer_ms / 1e3 / step_s!r}", flush=True)
 
 
 def profile_step(entry, cfg, tcfg, policy, state, batch, label="profile"):
@@ -769,29 +878,42 @@ def f1_check() -> None:
               f"launches_under_no_grad {launched}", flush=True)
 
 
-def run_full_path(duplex_peak: int) -> dict:
-    """The full finetune (FR) on granite-3-8b at full width, depth cut to 8
-    of 40 layers, through ``train.loop``: TrainConfig(mode="full") as the
-    launcher builds it (SGD momentum 0.9, lr 1e-3), f32 params, bf16
-    compute, flash off, B=4, S=1024 (the full_attention path), random
-    weights from seed 0."""
-    from repro_torch.configs.granite_3_8b import FULL
-    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+def run_full_path(duplex: dict, arch: str = "granite-3-8b",
+                  n_layers: int | None = 8, label: str = "full") -> dict:
+    """The full finetune (FR) through ``train.loop``: TrainConfig(mode=
+    "full") as the launcher builds it (SGD momentum 0.9, lr 1e-3), f32
+    params, bf16 compute, flash off, B=4, S=1024 (the full_attention path),
+    random weights from seed 0.  ``full``: granite-3-8b at full width, depth
+    cut to 8 of 40 layers; ``moe_full``: granite-moe-1b-a400m whole, which
+    also checks that the router and the experts of the first layer moved
+    and that the loss carries ``aux_weight·aux``.  ``duplex`` is the
+    numbers of the same model's duplex path, whose peak is printed
+    beside."""
+    from repro_torch.data.pipeline import DataConfig
     from repro_torch.models import layers as L, registry
     from repro_torch.train import loop, train_step as ts
     from repro_torch.utils import count_params, tree_checksum
-    cfg = dc.replace(FULL, n_layers=8).validate()
-    entry = registry.get("granite-3-8b")
+    entry = registry.get(arch)
+    cfg = entry.full if n_layers is None else \
+        dc.replace(entry.full, n_layers=n_layers).validate()
     policy = L.Policy(compute_dtype=torch.bfloat16)
     tcfg = ts.TrainConfig(mode="full")
     step = ts.make_train_step(entry, cfg, tcfg, policy)
+    moe = cfg.family == "moe"
     initial = {}
+
+    def first_experts(backbone):
+        p = backbone["stack"]["sub0"]["moe"]
+        return {"router": tree_checksum(p["router"]["w"]),
+                "wi": tree_checksum(p["wi"])}
 
     def init_fn():
         st = ts.init_state(torch.Generator(device="cuda").manual_seed(0),
                            entry, cfg, tcfg, policy, device="cuda")
         initial["checksum"] = tree_checksum(st["backbone"])
         initial["params"] = count_params(st["backbone"])
+        if moe:
+            initial["experts"] = first_experts(st["backbone"])
         return st
 
     def step_fn(state, batch):
@@ -811,31 +933,139 @@ def run_full_path(duplex_peak: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     after = tree_checksum(report.state["backbone"])
     for m in report.metrics_history:
-        print(f"full_step {m['step']}: loss {m['loss']!r} step_time_s "
+        print(f"{label}_step {m['step']}: loss {m['loss']!r} step_time_s "
               f"{m['step_time_s']!r} grad_norm {m['grad_norm']!r}",
               flush=True)
-    print(f"full_path: layers {cfg.n_layers} backbone_params "
+    print(f"{label}_path: arch {arch} layers {cfg.n_layers} backbone_params "
           f"{initial['params']} batch 4 seq 1024 steps {report.steps_run} "
           f"wall_s {wall!r} max_memory_allocated_bytes {peak} "
-          f"duplex_main_path_peak_bytes {duplex_peak} backbone_checksum "
-          f"{initial['checksum']} -> {after} launches {json.dumps(counts)}",
-          flush=True)
+          f"duplex_{duplex['label']}_path_peak_bytes "
+          f"{duplex['peak_bytes']} "
+          f"backbone_checksum {initial['checksum']} -> {after} launches "
+          f"{json.dumps(counts)}", flush=True)
     losses = [m["loss"] for m in report.metrics_history]
     if len(losses) != MAIN_STEPS or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"full path losses not finite: {losses}")
+        raise AssertionError(f"{label} path losses not finite: {losses}")
     if after == initial["checksum"]:
-        raise AssertionError("full path: the backbone did not change")
+        raise AssertionError(f"{label} path: the backbone did not change")
     if any(counts.values()):
-        raise AssertionError(f"full path launched kernels {counts}; with "
+        raise AssertionError(f"{label} path launched kernels {counts}; with "
                              f"flash off and no BFP op it launches none")
-    batch = {k: torch.as_tensor(v, device="cuda").long()
-             for k, v in SyntheticLM(data).batch(0).items()}
+    batch = cuda_batch(cfg, 1024, 4, 0)
+    if moe:
+        moved = {k: v != initial["experts"][k]
+                 for k, v in first_experts(report.state["backbone"]).items()}
+        # the step's objective (metrics["loss"] is the cross-entropy alone)
+        with torch.no_grad():
+            total, ms = ts.make_loss_fn(entry, cfg, tcfg, policy)(
+                report.state["backbone"], None, batch)
+            aux = float(entry.module.forward(report.state["backbone"], cfg,
+                                             batch["tokens"],
+                                             policy=policy)["aux"])
+        gap = float(total) - float(ms["loss"])
+        print(f"{label}_aux: objective {float(total)!r} cross_entropy "
+              f"{float(ms['loss'])!r} aux {aux!r} aux_weight "
+              f"{tcfg.aux_weight!r} objective_minus_ce {gap!r} "
+              f"stack/sub0/moe changed {json.dumps(moved)}", flush=True)
+        if not all(moved.values()):
+            raise AssertionError(f"{label} path: the gradient did not reach "
+                                 f"the router and the experts: {moved}")
+        if not (math.isfinite(aux) and aux > 0 and math.isclose(
+                gap, tcfg.aux_weight * aux, rel_tol=1e-3, abs_tol=1e-5)):
+            raise AssertionError(f"{label} path: objective - cross-entropy "
+                                 f"{gap} is not aux_weight * aux = "
+                                 f"{tcfg.aux_weight * aux}")
     profile_step(entry, cfg, tcfg, policy, report.state, batch,
-                 label="full_profile")
+                 label=f"{label}_profile")
     times = [m["step_time_s"] for m in report.metrics_history]
     del report, batch
     torch.cuda.empty_cache()
     return {"peak_bytes": peak, "step_times": times}
+
+
+def run_moe_top1_path() -> dict:
+    """llama4-maverick-400b-a17b at full width (128 experts top-1 with a
+    shared expert, d 5120, 40 heads, kv 8, head dim 128, vocab 202,048),
+    depth cut to 1 of 48 layers (one layer's experts are 16.1 B params,
+    32.2 GB in bf16): the duplex step, flash on, B=2, S=4096, 2 steps,
+    through ``train.loop``; then the share of (token, pass)
+    assignments that the first step's MoE layer dropped, from the port's
+    routing of that layer's input, and the flash loss against the plain
+    attention loss on the final state and the first batch."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.cells import duplex_tcfg
+    from repro_torch.models import layers as L, registry
+    from repro_torch.train import loop, train_step as ts
+    from repro_torch.utils import count_params, tree_checksum
+    arch, steps = "llama4-maverick-400b-a17b", 2
+    entry = registry.get(arch)
+    cfg = dc.replace(entry.full, n_layers=1, use_flash=True).validate()
+    policy = L.Policy(compute_dtype=torch.bfloat16)
+    tcfg = duplex_tcfg(cfg)
+    step = ts.make_train_step(entry, cfg, tcfg, policy)
+    initial = {}
+
+    def init_fn():
+        st = ts.init_state(torch.Generator(device="cuda").manual_seed(0),
+                           entry, cfg, tcfg, policy, device="cuda")
+        initial["checksum"] = tree_checksum(st["backbone"])
+        initial["params"] = count_params(st["backbone"])
+        initial["bytes"] = tree_nbytes(st["backbone"])
+        return st
+
+    def step_fn(state, batch):
+        return step(state, {k: torch.as_tensor(v, device="cuda").long()
+                            for k, v in batch.items()})
+
+    data = DataConfig(vocab=cfg.vocab, seq_len=4096, batch_per_host=2,
+                      seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    report = loop.run(loop.LoopConfig(total_steps=steps, log_every=1),
+                      data, step_fn, init_fn, log_fn=lambda s: None)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    backbone = report.state["backbone"]
+    after = tree_checksum(backbone)
+    batch = cuda_batch(cfg, 4096, 2, report.metrics_history[0]["step"])
+    first = []     # the backbone is frozen: step 0's MoE input again
+    with torch.no_grad(), first_moe_input(first):
+        entry.module.forward(backbone, cfg, batch["tokens"], policy=policy)
+        keep, cap, g = routing(*first[0], policy)
+    dropped = 1.0 - float(keep.float().mean())
+    for m in report.metrics_history:
+        print(f"moe_top1_step {m['step']}: loss {m['loss']!r} step_time_s "
+              f"{m['step_time_s']!r} grad_norm {m['grad_norm']!r}",
+              flush=True)
+    print(f"moe_top1_path: arch {arch} layers {cfg.n_layers} of "
+          f"{entry.full.n_layers} backbone_params {initial['params']} "
+          f"backbone_bytes {initial['bytes']} batch 2 seq 4096 "
+          f"steps {report.steps_run} wall_s {wall!r} "
+          f"max_memory_allocated_bytes {peak} group {g} capacity {cap} "
+          f"dropped_share {dropped!r} backbone_checksum "
+          f"{initial['checksum']} -> {after} launches {json.dumps(counts)}",
+          flush=True)
+    losses = [m["loss"] for m in report.metrics_history]
+    if len(losses) != steps or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"moe_top1 path losses not finite: {losses}")
+    if after != initial["checksum"]:
+        raise AssertionError("moe_top1 path: the backbone changed")
+    if counts["flash_attention"] != cfg.n_layers * steps or \
+            sum(counts.values()) != counts["flash_attention"]:
+        raise AssertionError(f"moe_top1 path launched {counts}; expected "
+                             f"{cfg.n_layers * steps} flash launches and no "
+                             f"other kernel")
+    if not 0.0 <= dropped < 1.0:
+        raise AssertionError(f"moe_top1 path: dropped share {dropped}")
+    del first, keep
+    check_plain_attention(entry, cfg, tcfg, policy, report.state, batch,
+                          "moe_top1")
+    del report, backbone, batch
+    torch.cuda.empty_cache()
+    return {"launches": counts["flash_attention"], "peak_bytes": peak}
 
 
 def run_resume_path() -> dict:
@@ -996,13 +1226,21 @@ def main() -> int:
               f"C7519 in {c7519}", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    flash = check_flash(gen)
+    flash_rows = check_flash(gen)
+    flash, flash_moe = flash_rows["main"], flash_rows["granite_moe_d64"]
     check_bfp(gen)
     check_bfp_stages(gen)
     f1_check()
     bfp = run_bfp_path()     # before the step, and freed: its peak stands
-    main_path = run_main_path()
-    run_full_path(main_path["peak_bytes"])
+    main_path, run = run_main_path()
+    del run          # each path frees its state: its peak stands alone
+    run_full_path(main_path)
+    moe_path, run = run_main_path("granite-moe-1b-a400m", label="moe")
+    report_moe_path(run)
+    del run
+    run_full_path(moe_path, "granite-moe-1b-a400m", None, label="moe_full")
+    top1 = run_moe_top1_path()
+    flash_top1 = flash_rows["llama4_h40"]
     run_resume_path()
     run_arms()
 
@@ -1014,6 +1252,14 @@ def main() -> int:
         "max_abs_err": flash["max_abs_err"], "ms": flash["kernel_ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "launches_by_path": {"main_path": main_path["launches"],
+                             "moe_path": moe_path["launches"],
+                             "moe_top1_path": top1["launches"]},
+        **{name: {k: row[k] for k in (
+            "q", "kv", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
+           for name, row in (("moe_shape", flash_moe),
+                             ("moe_top1_shape", flash_top1))},
     }]
     for name, replaces in BFP_REPLACES.items():
         kernels.append({

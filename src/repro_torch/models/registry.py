@@ -1,14 +1,15 @@
 """Architecture registry: --arch <id> → configs + model API.
 
 Counterpart of ``repro/models/registry.py``.  The port covers the dense
-attention families; the other architectures of the JAX registry raise
+and MoE attention families; the other architectures of the JAX registry raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import granite_3_8b, qwen2_72b
+from repro_torch.configs import (granite_3_8b, granite_moe_1b,
+                                 llama4_maverick, qwen2_72b)
 from repro_torch.configs.common import ModelConfig
 from repro_torch.models import transformer
 
@@ -28,22 +29,21 @@ ARCHS: dict[str, ArchEntry] = {
     name: ArchEntry(name=name, full=mod.FULL, smoke=mod.SMOKE,
                     module=transformer)
     for name, mod in (("granite-3-8b", granite_3_8b),
-                      ("qwen2-72b", qwen2_72b))
+                      ("qwen2-72b", qwen2_72b),
+                      ("granite-moe-1b-a400m", granite_moe_1b),
+                      ("llama4-maverick-400b-a17b", llama4_maverick))
 }
 
 # Architectures of the JAX registry that the port does not cover yet.
+_KINDS = "ROADMAP §1 'Modules to port' item 2 (The other layer kinds"
 NOT_PORTED: dict[str, str] = {
-    "granite-moe-1b-a400m": "ROADMAP §1 'Modules to port' item 10 (MoE)",
-    "llama4-maverick-400b-a17b": "ROADMAP §1 'Modules to port' item 10 (MoE)",
-    "mamba2-780m": "ROADMAP §1 'Modules to port' item 11 (SSD)",
-    "recurrentgemma-9b": "ROADMAP §1 'Modules to port' item 11 (RG-LRU, "
-                         "local attention)",
-    "whisper-base": "ROADMAP §1 'Modules to port' item 11 (enc-dec)",
-    "llama-3.2-vision-90b": "ROADMAP §1 'Modules to port' item 11 "
-                            "(cross-attention frontend)",
-    "gemma2-9b": "ROADMAP §1 'Modules to port' item 11 (local attention)",
-    "starcoder2-7b": "ROADMAP §1 'Modules to port' item 6 (its layer kinds "
-                     "are ported; its config is not copied or tested yet)",
+    "mamba2-780m": f"{_KINDS}: SSD)",
+    "recurrentgemma-9b": f"{_KINDS}: RG-LRU, local attention)",
+    "whisper-base": f"{_KINDS}: enc-dec)",
+    "llama-3.2-vision-90b": f"{_KINDS}: cross-attention frontend)",
+    "gemma2-9b": f"{_KINDS}: local attention)",
+    "starcoder2-7b": f"{_KINDS}: its layer kinds are ported; its config "
+                     f"is not copied or tested yet)",
 }
 
 

@@ -4,8 +4,9 @@ Counterpart of ``repro/models/transformer.py:33-277``.  The repeating layer
 pattern's params are stacked on a leading ``n_rep`` axis (the JAX package's
 scan layout, ``params["stack"]["sub<i>"]``) and the forward walks it with a
 Python loop; remainder layers run unrolled.  The port covers ``attn``
-layers with dense MLPs; other layer kinds raise ``NotImplementedError``.
-Serving (``prefill``/``decode_step``) is not ported yet.
+layers with dense or MoE channel mixers; other layer kinds raise
+``NotImplementedError``.  Serving (``prefill``/``decode_step``) is not
+ported yet (ROADMAP §1 item 3, 'Serving').
 """
 from __future__ import annotations
 
@@ -15,17 +16,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.common import LayerSpec, ModelConfig
-from repro_torch.models import layers as L
+from repro_torch.models import layers as L, moe as moe_mod
 
 _PORTED_KINDS = ("attn",)
-_PORTED_MLPS = ("dense", "none")
+_PORTED_MLPS = ("dense", "moe", "none")
 
 
 def _check_spec(spec: LayerSpec):
     if spec.kind not in _PORTED_KINDS or spec.mlp not in _PORTED_MLPS:
         raise NotImplementedError(
             f"layer {spec} is not ported to repro_torch yet (ROADMAP §1 "
-            f"'Modules to port' items 10-11)")
+            f"'Modules to port' item 2, 'The other layer kinds')")
 
 
 def _norm_init(cfg: ModelConfig, d: int, **kw) -> dict:
@@ -62,6 +63,14 @@ def attn_cfg_for(cfg: ModelConfig, spec: LayerSpec) -> L.AttnConfig:
     )
 
 
+def _moe_cfg(cfg: ModelConfig) -> moe_mod.MoEConfig:
+    return moe_mod.MoEConfig(
+        d_model=cfg.d_model, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
+        top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+        group_size=cfg.moe_group_size, gated=cfg.gated_mlp,
+        shared_expert=cfg.shared_expert)
+
+
 def sinusoidal_embed(positions: torch.Tensor, d: int) -> torch.Tensor:
     half = d // 2
     freq = torch.exp(-math.log(10000.0) * torch.arange(
@@ -87,25 +96,39 @@ def _sub_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                               gated=cfg.gated_mlp, **kw)
         if cfg.post_norm:
             p["mlp_post_norm"] = _norm_init(cfg, cfg.d_model, **kw)
+    elif spec.mlp == "moe":
+        p["mlp_norm"] = _norm_init(cfg, cfg.d_model, **kw)
+        p["moe"] = moe_mod.moe_init(gen, _moe_cfg(cfg), **kw)
+        if cfg.post_norm:
+            p["mlp_post_norm"] = _norm_init(cfg, cfg.d_model, **kw)
     return p
 
 
+def _apply_mlp(p, h, spec, cfg, policy, bfp):
+    """Channel mixer + residual; returns (h, aux), aux None without MoE."""
+    if spec.mlp == "none":
+        return h, None
+    aux = None
+    u = _norm(cfg, p["mlp_norm"], h)
+    if spec.mlp == "dense":
+        y = L.mlp(p["mlp"], u, policy=policy, bfp=bfp, act=_act(cfg))
+    else:
+        y, aux = moe_mod.moe_apply(p["moe"], u, _moe_cfg(cfg), policy=policy,
+                                   bfp=bfp)
+    if cfg.post_norm:
+        y = _norm(cfg, p["mlp_post_norm"], y)
+    return h + y, aux
+
+
 def _sub_apply(p, h, spec, cfg, *, policy, bfp, positions):
-    """Full-sequence sublayer (train / scoring). Returns h."""
+    """Full-sequence sublayer (train / scoring). Returns (h, aux)."""
     _check_spec(spec)
     u = _norm(cfg, p["norm"], h)
     y = L.attention_layer(p["attn"], u, attn_cfg_for(cfg, spec),
                           policy=policy, bfp=bfp, positions=positions)
     if cfg.post_norm:
         y = _norm(cfg, p["post_norm"], y)
-    h = h + y
-    if spec.mlp == "none":
-        return h
-    u = _norm(cfg, p["mlp_norm"], h)
-    y = L.mlp(p["mlp"], u, policy=policy, bfp=bfp, act=_act(cfg))
-    if cfg.post_norm:
-        y = _norm(cfg, p["mlp_post_norm"], y)
-    return h + y
+    return _apply_mlp(p, h + y, spec, cfg, policy, bfp)
 
 
 # --------------------------------------------------------------------------
@@ -152,7 +175,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             policy: L.Policy = L.Policy(), bfp: L.BFPPolicy = L.NO_BFP,
             collect_taps: bool = False, tap_indices=None,
             tap_pool: int = 1) -> dict:
-    """Full-sequence forward. Returns {hidden, taps, aux, emb}.
+    """Full-sequence forward. Returns {hidden, taps, aux, emb}; ``aux`` is
+    the f32 sum of the MoE layers' load-balancing losses (0 without MoE).
 
     With ``tap_indices`` (+ ``tap_pool``) only the selected superblocks'
     hidden states are kept, pooled as the loop passes them:
@@ -165,7 +189,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = torch.arange(s, device=dev).expand(b, s)
     h = embed_tokens(params, cfg, tokens, positions, policy)
     emb = h
-
+    aux = torch.zeros((), dtype=torch.float32, device=dev)   # dense: adds 0
     taps = None
     if cfg.n_rep:
         use_buf = collect_taps and tap_indices is not None
@@ -174,8 +198,10 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         for step_i in range(cfg.n_rep):
             p_rep = _index(params["stack"], step_i)
             for i, spec in enumerate(cfg.pattern):
-                h = _sub_apply(p_rep[f"sub{i}"], h, spec, cfg, policy=policy,
-                               bfp=bfp, positions=positions)
+                h, a = _sub_apply(p_rep[f"sub{i}"], h, spec, cfg,
+                                  policy=policy, bfp=bfp, positions=positions)
+                if a is not None:
+                    aux = aux + a
             if step_i in wanted:
                 pooled[step_i] = pool_seq(h, tap_pool)
             elif collect_taps and not use_buf:
@@ -185,10 +211,11 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         elif collect_taps:
             taps = torch.stack(every)                     # [n_rep,B,S,D]
     for i, spec in enumerate(cfg.remainder):
-        h = _sub_apply(params["rem"][f"sub{i}"], h, spec, cfg, policy=policy,
-                       bfp=bfp, positions=positions)
+        h, a = _sub_apply(params["rem"][f"sub{i}"], h, spec, cfg,
+                          policy=policy, bfp=bfp, positions=positions)
+        if a is not None:
+            aux = aux + a
     h = _norm(cfg, params["final_norm"], h)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
     return {"hidden": h, "taps": taps, "aux": aux, "emb": emb}
 
 

@@ -126,7 +126,9 @@ def test_bf16_alignment_rule():
 # non-causal with Skv < Sq — in bf16 (tensor-core kernel) and f32 (SIMT);
 # then the bf16 kernel's 128 x 128 tiling: several query and kv tiles with
 # GQA group 4, Sq and Skv off the 128 grid (causal and not), and d=64 over
-# more kv tiles than the two stages of the K/V ring.
+# more kv tiles than the two stages of the K/V ring; last, llama4-maverick's
+# odd GQA group of 5 (40 heads over 8), on a multi-wave bf16 grid and on the
+# f32 kernel.
 CUDA_CASES = [
     (2, 32, 8, 512, 512, 128, True, None, torch.bfloat16),
     (1, 4, 1, 192, 192, 64, True, None, torch.bfloat16),
@@ -140,6 +142,8 @@ CUDA_CASES = [
     (2, 4, 2, 200, 328, 128, True, None, torch.bfloat16),
     (1, 4, 1, 328, 200, 64, False, None, torch.bfloat16),
     (1, 4, 2, 640, 640, 64, True, None, torch.bfloat16),
+    (2, 40, 8, 1024, 1024, 128, True, None, torch.bfloat16),
+    (1, 10, 2, 96, 160, 64, True, None, torch.float32),
 ]
 
 

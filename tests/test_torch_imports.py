@@ -28,7 +28,8 @@ def test_every_module_imports_with_jax_and_repro_masked():
         assert f"repro_torch.kernels.{m}" in mods
     for m in ("optim.schedule", "ckpt.checkpoint", "ckpt.msgpack_lite",
               "bench.common", "bench.table2_accuracy",
-              "examples.train_duplex_lm"):
+              "examples.train_duplex_lm", "models.moe",
+              "configs.granite_moe_1b", "configs.llama4_maverick"):
         assert f"repro_torch.{m}" in mods
     masked = ("jax", "repro", "msgpack")
     code = (

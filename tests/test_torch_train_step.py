@@ -31,6 +31,8 @@ from repro_torch.utils import tree_flatten, tree_unflatten
 
 JP32 = JL.Policy(compute_dtype=jnp.float32)
 TP32 = TL.Policy(compute_dtype=torch.float32)
+ARCHS = ["granite-3-8b", "qwen2-72b", "granite-moe-1b-a400m",
+         "llama4-maverick-400b-a17b"]
 
 
 def _configs(opt="sgd", bfp=None, microbatch=1, arch="granite-3-8b",
@@ -157,6 +159,24 @@ def test_trains_and_freezes_backbone():
     assert int(state["step"]) == 8
 
 
+def test_moe_duplex_sgd_steps_match_jax():
+    """3 duplex SGD steps on granite-moe SMOKE: each step's loss, then the
+    branch and optimizer leaves; the backbone, MoE layers and all, stays
+    as it came over."""
+    jside, tside = _configs("sgd", arch="granite-moe-1b-a400m")
+    st_np = _jax_state(jside, seed=7)
+    batch = _batch(jside[1].vocab, seed=7)
+    _, want_state, want_losses = _jax_full_steps(jside, st_np, batch, 3)
+    got_state, ms = _torch_step(tside, bridge.state_from_jax(st_np, "cpu"),
+                                batch, n=3)
+    np.testing.assert_allclose([m["loss"] for m in ms], want_losses,
+                               rtol=1e-5, atol=1e-6)
+    _assert_state_close(got_state, want_state, rtol=1e-5, atol=1e-6)
+    for (p, a), (_, b) in zip(tree_flatten(got_state["backbone"]),
+                              tree_flatten(st_np["backbone"])):
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=p)
+
+
 def test_microbatch_equals_fullbatch():
     base = dict(lr=1e-2, momentum=0.0, weight_decay=0.0, clip_norm=None)
     _, t1 = _configs("sgd", microbatch=1, **base)
@@ -205,7 +225,7 @@ def _jax_full_steps(jside, st_np, batch, n):
     return states, jax.tree_util.tree_map(np.asarray, st), losses
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "qwen2-72b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_full_steps_match_jax(arch):
     """3 full-finetune SGD steps from one bridged init: each step's loss and,
     after them, every backbone and optimizer leaf."""
@@ -222,7 +242,7 @@ def test_full_steps_match_jax(arch):
                         keys=FULL_KEYS)
 
 
-@pytest.mark.parametrize("arch", ["granite-3-8b", "qwen2-72b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_full_adamw_steps_match_jax(arch):
     """3 full-finetune AdamW steps from one bridged init: each step's loss
     end to end; and at each step's JAX state, the port's gradient of the
@@ -285,6 +305,19 @@ def test_full_adamw_steps_match_jax(arch):
                 {"p": want_np[0], "o": want_np[1]})):
             np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-6,
                                        err_msg=p)
+
+
+def test_full_adamw_trains_moe_backbone():
+    """Counterpart of tests/test_train_step.py::test_full_step_trains_backbone:
+    AdamW full mode on granite-moe SMOKE, with the aux loss in the
+    objective, memorises a fixed batch over 6 steps."""
+    jside, tside = _configs("adamw", arch="granite-moe-1b-a400m",
+                            mode="full", lr=3e-3, weight_decay=0.0)
+    state = bridge.state_from_jax(_jax_state(jside, seed=1), "cpu")
+    _, ms = _torch_step(tside, state, _batch(jside[1].vocab), n=6)
+    losses = [m["loss"] for m in ms]
+    assert all(np.isfinite(losses))
+    assert losses[-1] < losses[0], losses
 
 
 def test_full_microbatch_matches_fullbatch_and_jax():
