@@ -59,19 +59,31 @@ Phases, each printing its numbers on lines of their own:
      duplex step with flash on, B=2 x S=4096, 2 steps: finite losses, one
      flash launch a step, the frozen backbone unchanged, and the share of
      (token, pass) assignments its MoE layer dropped (``moe_top1_*``);
-  9. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
+  9. ``gemma2_path`` and ``starcoder2_path``: the duplex step of phase 5 on
+     gemma2-9b (42 layers alternating sliding-window ``local`` and global
+     ``attn``, head dim 256, softcaps 50 and 30, post-norms) and
+     starcoder2-7b (32 layers, GQA 36/4, layernorm, ungated gelu MLP, qkv
+     bias) at full width and depth, B=2 x S=4096, 3 steps: 21 and 32 flash
+     launches a step (the ``attn`` layers; ``local`` layers keep their
+     window on the blockwise path), the flash loss against plain
+     attention, one step profiled, and gemma2's time per layer kind
+     (``gemma2_attention``); between them ``gemma2_full_path``: the FR step
+     of phase 7 on gemma2-9b at full width, depth cut to 4 of 42 layers
+     (two of each kind), B=1 x S=2048, so that both kinds run the
+     blockwise path backward, and the softcapped unembedding too;
+  10. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
      on, B=2 x S=4096: 4 steps straight; then 2 steps saving a checkpoint
      every 2 into a directory that is removed afterwards, whose restored
      state must equal the saved one bit for bit; then a run to 4 steps that
      must resume from step 2 and match the straight run's steps 2-3 and
      final branch (rtol 1e-5, atol 1e-6); save and restore times in s and
      GB/s;
-  10. ``arms``: ``repro_torch.bench.table2_accuracy`` on the card with the
+  11. ``arms``: ``repro_torch.bench.table2_accuracy`` on the card with the
      reference's step counts: each arm's validation loss and accuracy, the
      ordering row, the wall time;
-  11. one JSON line with every kernel's numbers, the card line again, and
+  12. one JSON line with every kernel's numbers, the card line again, and
      the last line {"ok": true, "device": {...}}.
-Each of the paths 4-10 zeroes every kernel's launch count just before it
+Each of the paths 4-11 zeroes every kernel's launch count just before it
 and reads the counts just after.
 Any failure raises and the exit code is not 0.  Without a CUDA device it
 exits with code 2 before printing any result.
@@ -168,10 +180,16 @@ def attention_bound_ms(b, h, kv, sq, skv, d, causal, dtype):
 # (label, b, h, kv, sq, skv, d, causal, softcap, dtype, iters).  Beside the
 # main shape: MQA; rectangular causal; softcap; d=64 with Sq/Skv off the
 # 128-row tiles; granite-moe-1b's attention (d=64, a multi-wave grid);
-# llama4-maverick's (GQA ratio 5, a multi-wave grid); non-causal with
-# Skv < Sq; f32 (the SIMT kernel); and the
-# V-layout probe: q = 0, so every output row is the mean of V's rows, which
-# a wrong MN-major V descriptor cannot give.
+# llama4-maverick's (GQA ratio 5, a multi-wave grid); gemma2-9b's global
+# layers (d=256 with softcap 50, the d=256 kernel, 1,024 CTAs in several
+# waves), and the same without the cap, which reads what the cap costs the
+# kernel; d=256 with Sq/Skv off the tiles; starcoder2-7b's attention (GQA
+# ratio 9, odd, multi-wave); non-causal with Skv < Sq; f32 (the SIMT
+# kernel), at d=256 with softcap too; and the V-layout probes: q = 0, so
+# every output row is the mean of V's rows, which a wrong MN-major V
+# descriptor cannot give.  The rows in VIEW_ROWS take their inputs as
+# attention_layer passes them on the main path: [B,S,H,d] tensors seen as
+# [B,H,S,d], so q's sequence stride is H*d and k/v's KV*d.
 FLASH_CASES = [
     ("main", 2, 32, 8, 4096, 4096, 128, True, None, torch.bfloat16, 10),
     ("mqa", 1, 8, 1, 1024, 1024, 128, True, None, torch.bfloat16, 20),
@@ -184,13 +202,26 @@ FLASH_CASES = [
     ("granite_moe_d64", 2, 16, 8, 4096, 4096, 64, True, None, torch.bfloat16,
      10),
     ("llama4_h40", 2, 40, 8, 4096, 4096, 128, True, None, torch.bfloat16, 10),
+    ("gemma2_d256", 2, 16, 8, 4096, 4096, 256, True, 50.0, torch.bfloat16,
+     10),
+    ("gemma2_d256_nocap", 2, 16, 8, 4096, 4096, 256, True, None,
+     torch.bfloat16, 10),
+    ("ragged_d256_bf16", 2, 8, 4, 200, 328, 256, True, None, torch.bfloat16,
+     20),
+    ("starcoder2_h36", 2, 36, 4, 4096, 4096, 128, True, None, torch.bfloat16,
+     10),
     ("short_kv_noncausal_bf16", 1, 8, 2, 512, 320, 128, False, None,
      torch.bfloat16, 20),
     ("v_probe_bf16", 1, 4, 4, 128, 128, 128, False, None, torch.bfloat16,
      20),
+    ("v_probe_d256_bf16", 1, 4, 4, 128, 128, 256, False, None,
+     torch.bfloat16, 20),
     ("rect_causal_f32", 1, 8, 2, 384, 640, 64, True, None, torch.float32, 20),
     ("softcap_f32", 2, 4, 2, 512, 512, 128, True, 20.0, torch.float32, 20),
+    ("softcap_d256_f32", 1, 8, 2, 200, 328, 256, True, 50.0, torch.float32,
+     10),
 ]
+VIEW_ROWS = ("gemma2_d256", "gemma2_d256_nocap", "starcoder2_h36")
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # relative Frobenius error ||kernel - plain|| / ||plain||, over all rows and
 # over the query rows past Sq/2.  The elementwise criterion is loose where
@@ -204,22 +235,54 @@ def rel_fro(got: torch.Tensor, want: torch.Tensor) -> float:
                  / torch.linalg.vector_norm(want))
 
 
+def library_attention(q, k, v, causal: bool, cap):
+    """One PyTorch call that computes the kernel's function on these
+    inputs, a yardstick only: SDPA where there is no softcap; with one,
+    flex_attention (compiled) with ``cap·tanh(s/cap)`` as its score_mod,
+    which flex applies after the 1/√d scale as the kernel does, and the
+    top-left causal mask as a block mask.  Also returns SDPA, the function
+    without the cap."""
+    import torch.nn.functional as F
+    from torch.nn.attention import flex_attention as fx
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+    if cap is None:
+        return sdpa, sdpa
+    global _FLEX
+    if _FLEX is None:
+        _FLEX = torch.compile(fx.flex_attention, dynamic=False)
+    mask = fx.create_block_mask(lambda b, h, qi, ki: qi >= ki, None, None,
+                                q.shape[2], k.shape[2], device=q.device) \
+        if causal else None
+    flex = _FLEX
+
+    def capped(s, b, h, qi, ki):
+        return cap * torch.tanh(s / cap)
+    return (lambda: flex(q, k, v, score_mod=capped, block_mask=mask,
+                         enable_gqa=True)), sdpa
+
+
+_FLEX = None
+
+
 def check_flash(gen) -> dict:
     """Kernel vs plain version per shape; returns each shape's numbers by
     label."""
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     rows = {}
     for (label, b, h, kv, sq, skv, d, causal, cap, dtype,
          iters) in FLASH_CASES:
-        q = torch.randn((b, h, sq, d), generator=gen, device="cuda",
-                        dtype=dtype)
-        if label == "v_probe_bf16":
+        def draw(heads, s):
+            if label in VIEW_ROWS:
+                return torch.randn((b, s, heads, d), generator=gen,
+                                   device="cuda", dtype=dtype).transpose(1, 2)
+            return torch.randn((b, heads, s, d), generator=gen,
+                               device="cuda", dtype=dtype)
+        q, k, v = draw(h, sq), draw(kv, skv), draw(kv, skv)
+        if label.startswith("v_probe"):
             q.zero_()
-        k = torch.randn((b, kv, skv, d), generator=gen, device="cuda",
-                        dtype=dtype)
-        v = torch.randn((b, kv, skv, d), generator=gen, device="cuda",
-                        dtype=dtype)
         # chunks are the reference's tiling contract only (each length
         # tiles by itself); the kernel uses its own tiles
         kw = dict(causal=causal, softcap=cap, q_chunk=sq, kv_chunk=skv)
@@ -246,11 +309,20 @@ def check_flash(gen) -> dict:
             lambda: fa.flash_attention_plain(q, k, v, causal=causal,
                                              softcap=cap),
             max(2, iters // 5), warmup=1)
-        library_ms = None
-        if cap is None:  # the library call has no softcap
-            sdpa = F.scaled_dot_product_attention  # library yardstick only
-            library_ms = time_ms(lambda: sdpa(q, k, v, is_causal=causal,
-                                              enable_gqa=True), iters)
+        # the library call on the same function; on a softcap row SDPA,
+        # which has no cap, is timed too and kept apart.  The library's
+        # output is held to the bf16 gate, so that its time is the time of
+        # this function.
+        library, sdpa = library_attention(q, k, v, causal, cap)
+        lib_diff = (library().float() - want.float()).abs()
+        library_err = float(lib_diff.max())
+        if not float((lib_diff - TOL[torch.bfloat16]
+                      * (1 + want.float().abs())).max()) <= 0:
+            raise AssertionError(f"flash {label}: the library call differs "
+                                 f"from the plain version by {library_err}")
+        del lib_diff
+        library_ms = time_ms(library, iters)
+        sdpa_ms = library_ms if cap is None else time_ms(sdpa, iters)
         bound_ms, bound_by = attention_bound_ms(b, h, kv, sq, skv, d, causal,
                                                 dtype)
         tflops = attention_flops(b, h, sq, skv, d, causal) / kernel_ms / 1e9
@@ -260,8 +332,12 @@ def check_flash(gen) -> dict:
                "rel_fro_err_tail": rel_tail, "rel_tol": REL_TOL[dtype],
                "kernel_ms": kernel_ms, "tflops": tflops,
                "plain_ms": plain_ms, "library_ms": library_ms,
-               "kernel_over_library": None if library_ms is None
-               else kernel_ms / library_ms,
+               "library": "sdpa" if cap is None else "flex",
+               "library_max_abs_err": library_err,
+               "library_ms_without_softcap": None if cap is None
+               else sdpa_ms,
+               "kernel_over_library": kernel_ms / library_ms,
+               "main_path_views": label in VIEW_ROWS,
                "bound_ms": bound_ms, "bound_by": bound_by}
         print("flash_check " + json.dumps(row), flush=True)
         rows[label] = row
@@ -677,12 +753,20 @@ def routing(params, x, mcfg, policy):
     return moe.route(gates, mcfg.top_k, cap)[2], cap, xg.shape[1]
 
 
+def flash_layers(cfg) -> int:
+    """The layers that run the flash kernel: the ``attn`` ones (``local``
+    layers keep their window on the blockwise path, as the reference's)."""
+    return cfg.n_rep * sum(s.kind == "attn" for s in cfg.pattern) + \
+        sum(s.kind == "attn" for s in cfg.remainder)
+
+
 def run_main_path(arch: str = "granite-3-8b", label: str = "main"):
     """The duplex step through the launcher at full width and depth, B=2,
-    S=4096, 3 steps: granite-3-8b (``main``) or granite-moe-1b-a400m
-    (``moe``).  Returns the path's numbers and its run (entry, configs,
-    final state, batches), which the caller reads further and then
-    drops, so that the next path's peak stands alone."""
+    S=4096, 3 steps: granite-3-8b (``main``), granite-moe-1b-a400m
+    (``moe``), gemma2-9b (``gemma2``) or starcoder2-7b (``starcoder2``).
+    Returns the path's numbers and its run (entry, configs, final state,
+    batches), which the caller reads further and then drops, so that the
+    next path's peak stands alone."""
     from repro_torch.launch import train
 
     argv = ["--arch", arch, "--preset", "full", "--mode", "duplex",
@@ -704,9 +788,10 @@ def run_main_path(arch: str = "granite-3-8b", label: str = "main"):
     for m in report.metrics_history:
         print(f"{label}_step {m['step']}: loss {m['loss']!r} step_time_s "
               f"{m['step_time_s']!r} grad_norm {m['grad_norm']!r}")
-    n_attn = cfg.n_rep * len(cfg.pattern)
-    print(f"{label}_path: arch {arch} layers {cfg.n_layers} steps "
-          f"{report.steps_run} wall_s {wall!r} "
+    n_attn = flash_layers(cfg)
+    print(f"{label}_path: arch {arch} layers {cfg.n_layers} of "
+          f"{entry.full.n_layers} (flash layers {n_attn}) batch 2 seq 4096 "
+          f"steps {report.steps_run} wall_s {wall!r} "
           f"max_memory_allocated_bytes {peak} flash_launches {launches} "
           f"expected {n_attn * MAIN_STEPS} backbone_checksum "
           f"{out['backbone_checksum']} branch_max_abs_change "
@@ -737,7 +822,7 @@ def run_main_path(arch: str = "granite-3-8b", label: str = "main"):
     run = {"entry": entry, "cfg": cfg, "policy": policy,
            "state": report.state, "batches": batches, "step_times": times,
            "steps": [m["step"] for m in report.metrics_history],
-           "n_layers": n_attn}
+           "n_layers": cfg.n_layers}
     return {"label": label, "launches": launches, "peak_bytes": peak,
             "step_times": times}, run
 
@@ -803,6 +888,40 @@ def report_moe_path(run: dict, label: str = "moe") -> None:
           f"moe_layer_ms {layer_ms!r} moe_layers {n} "
           f"route_share_of_step {n * route_ms / 1e3 / step_s!r} "
           f"moe_share_of_step {n * layer_ms / 1e3 / step_s!r}", flush=True)
+
+
+def report_attention_layers(run: dict, label: str) -> None:
+    """Where a local + global model's attention time goes: one layer of each
+    kind of the first superblock, timed alone with CUDA events on the normed
+    embedding of the path's first batch, times its count in the stack, over
+    the step time (``<label>_attention`` line).  ``local`` layers keep their
+    window on the blockwise path, in f32 as the reference's; ``attn``
+    layers run the flash kernel."""
+    from repro_torch.models import layers as L, transformer as tr
+    cfg, policy = run["cfg"], run["policy"]
+    backbone = run["state"]["backbone"]
+    p0 = tr._index(backbone["stack"], 0)
+    tokens = run["batches"][0]["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, device="cuda").expand(b, s)
+    step_s = min(run["step_times"][1:])
+    rows = {}
+    with torch.no_grad():
+        x = tr.embed_tokens(backbone, cfg, tokens, positions, policy)
+        for i, spec in enumerate(cfg.pattern):
+            sub = p0[f"sub{i}"]
+            acfg = tr.attn_cfg_for(cfg, spec)
+            u = tr._norm(cfg, sub["norm"], x)
+            ms = time_ms(lambda: L.attention_layer(
+                sub["attn"], u, acfg, policy=policy, positions=positions), 5)
+            n = cfg.n_rep * sum(sp.kind == spec.kind for sp in cfg.pattern)
+            rows[spec.kind] = {
+                "core": "flash kernel" if acfg.use_flash and
+                acfg.window is None else "blockwise f32",
+                "window": acfg.window, "layers": n, "layer_ms": ms,
+                "share_of_step": n * ms / 1e3 / step_s}
+    print(f"{label}_attention: step_s {step_s!r} {json.dumps(rows)}",
+          flush=True)
 
 
 def profile_step(entry, cfg, tcfg, policy, state, batch, label="profile"):
@@ -879,16 +998,20 @@ def f1_check() -> None:
 
 
 def run_full_path(duplex: dict, arch: str = "granite-3-8b",
-                  n_layers: int | None = 8, label: str = "full") -> dict:
+                  n_layers: int | None = 8, label: str = "full",
+                  batch_size: int = 4, seq: int = 1024) -> dict:
     """The full finetune (FR) through ``train.loop``: TrainConfig(mode=
     "full") as the launcher builds it (SGD momentum 0.9, lr 1e-3), f32
-    params, bf16 compute, flash off, B=4, S=1024 (the full_attention path),
-    random weights from seed 0.  ``full``: granite-3-8b at full width, depth
-    cut to 8 of 40 layers; ``moe_full``: granite-moe-1b-a400m whole, which
-    also checks that the router and the experts of the first layer moved
-    and that the loss carries ``aux_weight·aux``.  ``duplex`` is the
-    numbers of the same model's duplex path, whose peak is printed
-    beside."""
+    params, bf16 compute, flash off, random weights from seed 0.
+    ``full``: granite-3-8b at full width, depth cut to 8 of 40 layers, B=4,
+    S=1024 (the full_attention path); ``moe_full``: granite-moe-1b-a400m
+    whole at the same B and S, which also checks that the router and the
+    experts of the first layer moved and that the loss carries
+    ``aux_weight·aux``; ``gemma2_full``: gemma2-9b at full width, depth cut
+    to 4 of 42 layers (two local, two global), B=1, S=2048, so that every
+    layer takes the blockwise path and its backward, and the softcapped
+    unembedding too.  ``duplex`` is the numbers of the same model's duplex
+    path, whose peak is printed beside."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.models import layers as L, registry
     from repro_torch.train import loop, train_step as ts
@@ -920,8 +1043,8 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
         return step(state, {k: torch.as_tensor(v, device="cuda").long()
                             for k, v in batch.items()})
 
-    data = DataConfig(vocab=cfg.vocab, seq_len=1024, batch_per_host=4,
-                      seed=0)
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq,
+                      batch_per_host=batch_size, seed=0)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -936,8 +1059,12 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
         print(f"{label}_step {m['step']}: loss {m['loss']!r} step_time_s "
               f"{m['step_time_s']!r} grad_norm {m['grad_norm']!r}",
               flush=True)
-    print(f"{label}_path: arch {arch} layers {cfg.n_layers} backbone_params "
-          f"{initial['params']} batch 4 seq 1024 steps {report.steps_run} "
+    kinds = [s.kind for s in cfg.pattern] * cfg.n_rep + \
+        [s.kind for s in cfg.remainder]
+    print(f"{label}_path: arch {arch} layers {cfg.n_layers} of "
+          f"{entry.full.n_layers} kinds {json.dumps(kinds)} backbone_params "
+          f"{initial['params']} batch {batch_size} seq {seq} steps "
+          f"{report.steps_run} "
           f"wall_s {wall!r} max_memory_allocated_bytes {peak} "
           f"duplex_{duplex['label']}_path_peak_bytes "
           f"{duplex['peak_bytes']} "
@@ -951,7 +1078,7 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
     if any(counts.values()):
         raise AssertionError(f"{label} path launched kernels {counts}; with "
                              f"flash off and no BFP op it launches none")
-    batch = cuda_batch(cfg, 1024, 4, 0)
+    batch = cuda_batch(cfg, seq, batch_size, 0)
     if moe:
         moved = {k: v != initial["experts"][k]
                  for k, v in first_experts(report.state["backbone"]).items()}
@@ -1241,6 +1368,13 @@ def main() -> int:
     run_full_path(moe_path, "granite-moe-1b-a400m", None, label="moe_full")
     top1 = run_moe_top1_path()
     flash_top1 = flash_rows["llama4_h40"]
+    gemma2, run = run_main_path("gemma2-9b", label="gemma2")
+    report_attention_layers(run, "gemma2")
+    del run
+    run_full_path(gemma2, "gemma2-9b", 4, label="gemma2_full", batch_size=1,
+                  seq=2048)
+    starcoder2, run = run_main_path("starcoder2-7b", label="starcoder2")
+    del run
     run_resume_path()
     run_arms()
 
@@ -1254,12 +1388,20 @@ def main() -> int:
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
         "launches_by_path": {"main_path": main_path["launches"],
                              "moe_path": moe_path["launches"],
-                             "moe_top1_path": top1["launches"]},
+                             "moe_top1_path": top1["launches"],
+                             "gemma2_path": gemma2["launches"],
+                             "starcoder2_path": starcoder2["launches"]},
         **{name: {k: row[k] for k in (
-            "q", "kv", "max_abs_err", "kernel_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")}
+            "q", "kv", "softcap", "max_abs_err", "kernel_ms", "plain_ms",
+            "bound_ms", "bound_by", "library", "library_ms",
+            "library_ms_without_softcap", "kernel_over_library")}
            for name, row in (("moe_shape", flash_moe),
-                             ("moe_top1_shape", flash_top1))},
+                             ("moe_top1_shape", flash_top1),
+                             ("gemma2_shape", flash_rows["gemma2_d256"]),
+                             ("gemma2_shape_without_softcap",
+                              flash_rows["gemma2_d256_nocap"]),
+                             ("starcoder2_shape",
+                              flash_rows["starcoder2_h36"]))},
     }]
     for name, replaces in BFP_REPLACES.items():
         kernels.append({

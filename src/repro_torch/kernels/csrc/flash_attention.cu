@@ -12,14 +12,17 @@
 // the online softmax state (m, l, acc) kept in f32, and the output written
 // in the input's dtype (f32 or bf16) with the caller's strides.
 //
-// One kernel per dtype behind one entry point, both walking the kv tiles of
-// a query tile up to the causal diagonal, with the kv head as an index (no
-// expanded copy of K/V) and the heaviest query tiles issued first so the
-// causal triangle balances:
-//  * bf16 (the main path): flash_fwd_wgmma_kernel, 128 x 128 tiles, TMA
-//    loads by a producer warpgroup, wgmma products and the softmax in two
-//    consumer warpgroups; see the section below.  TMA needs every pointer
-//    16-byte aligned and every stride a multiple of 8 elements.
+// Head dims 64, 128 and 256.  Kernels behind one entry point, all walking the
+// kv tiles of a query tile up to the causal diagonal, with the kv head as an
+// index (no expanded copy of K/V) and the heaviest query tiles issued first
+// so the causal triangle balances:
+//  * bf16, d = 64 and 128 (the main path): flash_fwd_wgmma_kernel, 128 x 128
+//    tiles, TMA loads by a producer warpgroup, wgmma products and the
+//    softmax in two consumer warpgroups; see the section below.
+//  * bf16, d = 256 (gemma2's global layers): flash_fwd_wgmma_d256_kernel,
+//    128 queries x 64-key tiles, the same two consumers without a producer
+//    warpgroup; see its section.  TMA needs every pointer 16-byte aligned
+//    and every stride a multiple of 8 elements.
 //  * f32: f32 SIMT FMAs, 64 x 64 tiles, 256 threads, K/V/scores staged in
 //    shared memory as f32 -- exact enough for the 2e-5 check.
 //
@@ -348,24 +351,26 @@ struct Turns {
   }
 };
 
-// The online softmax of one 64 x 128 score tile in a consumer's fragments
-// (keys k0 ..; rows row0 and row0 + 8 of this thread, its columns
+// The online softmax of one 64 x (2R) score tile in a consumer's R fragment
+// registers (keys k0 ..; rows row0 and row0 + 8 of this thread, its columns
 // 8j + 2 t4 (+1)): softcap, mask (only on a tile that needs it), row max
 // over the quad, then s = 2^(s c - m c) in place, alpha = the factor that
 // rescales the earlier sum and output, and l = l alpha + this thread's
-// part of the row sum.
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m_r)[2],
+// part of the row sum.  R = 64 (128-key tiles) or 32 (64-key tiles).
+template <int R>
+__device__ __forceinline__ void softmax_tile(float (&s)[R], float (&m_r)[2],
                                              float (&l_r)[2],
                                              float (&alpha)[2],
                                              const TmaParams& p, int k0,
                                              int q0, int row0, int t4) {
+  constexpr int kKeys = 2 * R;
   if (p.cap_scale > 0.f) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = tanhf(s[i] * p.cap_scale);
+    for (int i = 0; i < R; ++i) s[i] = tanhf(s[i] * p.cap_scale);
   }
-  if ((p.causal && k0 + kTK - 1 > q0) || k0 + kTK > p.skv) {
+  if ((p.causal && k0 + kKeys - 1 > q0) || k0 + kKeys > p.skv) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int ki = k0 + 8 * (i / 4) + 2 * t4 + (i % 2);
       const int qi = row0 + 8 * ((i / 2) % 2);
       if (ki >= p.skv || (p.causal && ki > qi)) s[i] = -INFINITY;
@@ -373,7 +378,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m_r)[2],
   }
   float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
-  for (int i = 0; i < 64; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+  for (int i = 0; i < R; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
   float mc[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -386,10 +391,60 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m_r)[2],
     l_r[r] *= alpha[r];
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < R; ++i) {
     const float e = ex2(fmaf(s[i], p.c, -mc[(i / 2) % 2]));
     s[i] = e;
     l_r[(i / 2) % 2] += e;
+  }
+}
+
+// O's two rows of this thread scaled by alpha: fragment elements 4j, 4j+1
+// (row0) and 4j+2, 4j+3 (row0 + 8).
+template <int R>
+__device__ __forceinline__ void rescale_rows(float (&o)[R],
+                                             const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    o[4 * j] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+}
+
+// P as bf16 pairs: key n-tiles 2kk, 2kk+1 make the A fragment of k16 step
+// kk, in the accumulator's own quad layout.
+template <int R>
+__device__ __forceinline__ void pack_p(const float (&s)[R],
+                                       uint32_t (&pa)[R / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+}
+
+// O / l as bf16 pairs to this thread's two rows of the output (l summed over
+// the quad; rows >= Sq skipped).
+template <int R>
+__device__ __forceinline__ void store_o(const float (&o)[R],
+                                        const float (&l_r)[2],
+                                        const TmaParams& p, int b, int h,
+                                        int row0, int t4) {
+  bf16* og = static_cast<bf16*>(p.o) + b * p.ob + h * p.oh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_r[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const int qi = row0 + 8 * r;
+    if (qi >= p.sq) continue;
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(og + qi * p.os + 8 * j + 2 * t4) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
+                                o[4 * j + 2 * r + 1] * inv);
   }
 }
 
@@ -500,24 +555,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     auto release = [&](int t) {
       if (threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * (t % kStages));
     };
-    // P_t as bf16 pairs: key n-tiles 2kk, 2kk+1 make the A fragment of
-    // k16 step kk, in the accumulator's own quad layout
-    auto to_pa = [&]() {
-#pragma unroll
-      for (int kk = 0; kk < kTK / 16; ++kk)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
-    };
-    auto rescale_o = [&]() {
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[4 * j] *= alpha[0];
-        o[4 * j + 1] *= alpha[0];
-        o[4 * j + 2] *= alpha[1];
-        o[4 * j + 3] *= alpha[1];
-      }
-    };
 
     auto wait_k = [&](int t) {
       mbar_wait(full_k + 8 * (t % kStages), (t / kStages) & 1);
@@ -534,8 +571,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_wait<0>();
       fence_acc(s);
       softmax_tile(s, m_r, l_r, alpha, p, t * kTK, q0, row0, lane % 4);
-      rescale_o();
-      to_pa();
+      rescale_rows(o, alpha);
+      pack_p(s, pa);
       wgmma_fence();
       issue_pv(t);
       wgmma_wait<0>();
@@ -543,30 +580,190 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       release(t);
     }
 
-    bf16* og = static_cast<bf16*>(p.o) + b * p.ob + h * p.oh;
-    const int t4 = lane % 4;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float l = l_r[r];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const float inv = 1.f / fmaxf(l, 1e-30f);
-      const int qi = row0 + 8 * r;
-      if (qi >= p.sq) continue;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(og + qi * p.os + 8 * j + 2 * t4) =
-            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
-                                  o[4 * j + 2 * r + 1] * inv);
-    }
+    store_o(o, l_r, p, b, h, row0, lane % 4);
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at head dim 256: flash_fwd_wgmma_d256_kernel.
+//
+// The layout above does not fit at d = 256.  Q (64 KB) and two stages of
+// 128-key K and V tiles (64 KB each) need 321 KB of the 227 KB a block may
+// have; and a consumer's 64 x 256 f32 O fragment (128 registers) beside a
+// 64 x 128 score fragment (64) passes the 168 registers that 384 threads
+// leave a thread.  This kernel keeps the CTA's 128 query rows, the two
+// consumer warpgroups with their turns, the softmax and the epilogue, and
+// changes three things:
+//  * 64-key K/V tiles (32 KB each, four 64-wide boxes of 64 rows): Q plus
+//    two stages of K and V take 192 KB;
+//  * no producer warpgroup: 256 threads, so a thread may hold 255 registers
+//    (O 128, S 32, P 16, the softmax state).  The first thread of consumer
+//    1 issues the TMA loads: its warpgroup takes its turn after consumer
+//    0's, so it is, as a rule, the later of the two to finish with a stage,
+//    and the wait for the other's release is short;
+//  * K and V have their own "empty" barriers: a K stage is released once
+//    both consumers' S = Q K^T has retired, so the next K tile loads while
+//    the softmax and P V of this one run.
+// S = Q K^T is 16 k16 steps of wgmma m64n64k16 (A = Q, B = K, both K-major);
+// O += P V is 4 k16 steps of m64n256k16 with P from registers and V
+// MN-major, its four 64-wide column boxes 8 KB apart (the descriptor's
+// leading byte offset).
+// ---------------------------------------------------------------------------
+
+constexpr int kWK = 64;                    // keys per kv tile at d = 256
+constexpr int kWideThreads = 256;          // two consumer warpgroups
+constexpr int kWideBoxBytes = kWK * 128;   // 64 rows x one 64-wide bf16 box
+
+// Shared memory: Q (four boxes of 128 rows), then kStages x (K, V) (four
+// boxes of 64 rows each), 1024-byte aligned, then the mbarriers: full_q,
+// full_k[kStages], full_v[kStages], empty_k[kStages], empty_v[kStages].
+struct WideLayout {
+  static constexpr int kQTile = kTQ * 256 * 2;     // 64 KB
+  static constexpr int kKVTile = kWK * 256 * 2;    // 32 KB
+  static constexpr int kKV = kQTile;               // stage s: K, then V
+  static constexpr int kBars = kQTile + 2 * kStages * kKVTile;
+  static constexpr int kBytes = 1024 + kBars + 8 * (1 + 4 * kStages);
+};
+static_assert(WideLayout::kBytes <= 232448, "a block has at most 227 KB");
+
+__global__ void __launch_bounds__(kWideThreads, 1)
+flash_fwd_wgmma_d256_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const TmaParams p) {
+  using L = WideLayout;
+  constexpr int D = 256;
+  constexpr int NB = D / 64;        // 64-wide boxes per row of a tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full_q = base + L::kBars;
+  const uint32_t full_k = full_q + 8;
+  const uint32_t full_v = full_k + 8 * kStages;
+  const uint32_t empty_k = full_v + 8 * kStages;
+  const uint32_t empty_v = empty_k + 8 * kStages;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / p.group;
+  const int q0 = qt * kTQ;
+  // keys a causal tile needs: k <= last live query of the tile
+  const int kv_end = p.causal ? min(p.skv, min(p.sq, q0 + kTQ)) : p.skv;
+  const int n_tiles = (kv_end + kWK - 1) / kWK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 2);   // one arrival per consumer warpgroup
+      mbar_init(empty_v + 8 * s, 2);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto stage = [&](int t) {
+    return base + L::kKV + (t % kStages) * 2 * L::kKVTile;
+  };
+  auto load_k = [&](int t) {
+    const uint32_t bar = full_k + 8 * (t % kStages);
+    mbar_expect_tx(bar, L::kKVTile);
+    for (int j = 0; j < NB; ++j)
+      tma_load_4d(stage(t) + j * kWideBoxBytes, &map_k, bar, 64 * j,
+                  t * kWK, kvh, b);
+  };
+  auto load_v = [&](int t) {
+    const uint32_t bar = full_v + 8 * (t % kStages);
+    mbar_expect_tx(bar, L::kKVTile);
+    for (int j = 0; j < NB; ++j)
+      tma_load_4d(stage(t) + L::kKVTile + j * kWideBoxBytes, &map_v, bar,
+                  64 * j, t * kWK, kvh, b);
+  };
+  const bool loader = threadIdx.x == 128;   // consumer 1's first thread
+  if (loader) {
+    mbar_expect_tx(full_q, L::kQTile);
+    for (int j = 0; j < NB; ++j)
+      tma_load_4d(base + j * kBoxBytes, &map_q, full_q, 64 * j, q0, h, b);
+    for (int t = 0; t < min(kStages, n_tiles); ++t) {
+      load_k(t);
+      load_v(t);
+    }
+  }
+  __syncwarp();
+
+  // the warpgroup, warp-uniform as far as the compiler can tell (C7520)
+  const int cw = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  // this thread's rows: row0 (fragment elements 4j, 4j+1) and row0 + 8
+  // (4j+2, 4j+3); its columns 8j + 2 (lane % 4) (+1)
+  const int row0 = q0 + cw * 64 + warp * 16 + lane / 4;
+  const uint32_t qa = base + cw * 64 * 128;
+  float o[D / 2];
+  float s[kWK / 2];
+  uint32_t pa[kWK / 16][4];   // P of the tile, bf16 A fragments
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_r[2] = {-INFINITY, -INFINITY};   // row max, in raw score units
+  float l_r[2] = {0.f, 0.f};               // this thread's partial sums
+  float alpha[2];
+  Turns turns(cw, n_tiles > 0);
+  mbar_wait(full_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kStages, ph = (t / kStages) & 1;
+    const bool refill = loader && t + kStages < n_tiles;
+    const uint32_t kb = stage(t);
+    mbar_wait(full_k + 8 * st, ph);
+    turns.begin();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {      // S = Q K_t^T
+      const uint64_t dq = smem_desc(qa + (kk / 4) * kBoxBytes + (kk % 4) * 32);
+      const uint64_t dk =
+          smem_desc(kb + (kk / 4) * kWideBoxBytes + (kk % 4) * 32);
+      if (kk == 0)
+        wgmma_64<0>(s, dq, dk);
+      else
+        wgmma_64<1>(s, dq, dk);
+    }
+    wgmma_commit();
+    turns.end(t == n_tiles - 1);
+    wgmma_wait<0>();
+    fence_acc(s);
+    if (threadIdx.x % 128 == 0) mbar_arrive(empty_k + 8 * st);
+    if (refill) {          // both consumers are done with K_t
+      mbar_wait(empty_k + 8 * st, ph);
+      load_k(t + kStages);
+    }
+    __syncwarp();
+    softmax_tile(s, m_r, l_r, alpha, p, t * kWK, q0, row0, lane % 4);
+    rescale_rows(o, alpha);
+    pack_p(s, pa);
+    mbar_wait(full_v + 8 * st, ph);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWK / 16; ++kk)      // O += P_t V_t
+      wgmma_256_rs_mn(o, pa[kk],
+                      smem_desc_mn(kb + L::kKVTile + kk * 16 * 128,
+                                   kWideBoxBytes));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+    if (threadIdx.x % 128 == 0) mbar_arrive(empty_v + 8 * st);
+    if (refill) {          // both consumers are done with V_t
+      mbar_wait(empty_v + 8 * st, ph);
+      load_v(t + kStages);
+    }
+    __syncwarp();
+  }
+
+  store_o(o, l_r, p, b, h, row0, lane % 4);
+}
+
 // The 4-D tensor map (d, seq, heads, batch) of a bf16 operand with element
-// strides (batch, head, seq); boxes of 64 x 128 x 1 x 1.
+// strides (batch, head, seq); boxes of 64 x rows x 1 x 1.
 bool operand_map(CUtensorMap* map, const void* ptr, int d, int seq,
                  int heads, int batch, long long sb, long long sh,
-                 long long ss) {
+                 long long ss, int rows) {
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(heads),
@@ -574,32 +771,38 @@ bool operand_map(CUtensorMap* map, const void* ptr, int d, int seq,
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 128, 1, 1};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
   return bf16_map(map, ptr, 4, dims, strides, box);
 }
 
-template <int D>
-cudaError_t launch_wgmma(const Params& p, int batch, int heads,
-                         cudaStream_t stream) {
-  static_assert(kTQ == 128 && kTK == 128, "TMA boxes are 128 rows");
+TmaParams tma_params(const Params& p) {
+  const bool cap = p.softcap > 0.f;
+  return TmaParams{p.o, p.ob, p.oh, p.os, p.group, p.sq, p.skv, p.causal,
+                   kLog2e * (cap ? p.softcap : p.scale),
+                   cap ? p.scale / p.softcap : 0.f};
+}
+
+using TmaKernel = void (*)(const CUtensorMap, const CUtensorMap,
+                           const CUtensorMap, const TmaParams);
+
+// One launch of a TMA kernel over (query tiles of kTQ, heads, batch): Q read
+// in boxes of 64 x kTQ, K and V in boxes of 64 x kv_rows.
+cudaError_t launch_tma(TmaKernel kernel, int threads, int smem, int kv_rows,
+                       const Params& p, int d, int batch, int heads,
+                       cudaStream_t stream) {
   const int kv_heads = heads / p.group;
   CUtensorMap mq, mk, mv;
-  if (!operand_map(&mq, p.q, D, p.sq, heads, batch, p.qb, p.qh, p.qs) ||
-      !operand_map(&mk, p.k, D, p.skv, kv_heads, batch, p.kb, p.kh, p.ks) ||
-      !operand_map(&mv, p.v, D, p.skv, kv_heads, batch, p.vb, p.vh, p.vs))
+  if (!operand_map(&mq, p.q, d, p.sq, heads, batch, p.qb, p.qh, p.qs, kTQ) ||
+      !operand_map(&mk, p.k, d, p.skv, kv_heads, batch, p.kb, p.kh, p.ks,
+                   kv_rows) ||
+      !operand_map(&mv, p.v, d, p.skv, kv_heads, batch, p.vb, p.vh, p.vs,
+                   kv_rows))
     return cudaErrorInvalidValue;
-  const bool cap = p.softcap > 0.f;
-  const TmaParams tp{p.o, p.ob, p.oh, p.os, p.group, p.sq, p.skv, p.causal,
-                     kLog2e * (cap ? p.softcap : p.scale),
-                     cap ? p.scale / p.softcap : 0.f};
-  const int smem = TmaLayout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.sq + kTQ - 1) / kTQ, heads, batch);
-  flash_fwd_wgmma_kernel<D><<<grid, kTmaThreads, smem, stream>>>(mq, mk, mv,
-                                                                  tp);
+  kernel<<<grid, threads, smem, stream>>>(mq, mk, mv, tma_params(p));
   return cudaGetLastError();
 }
 
@@ -632,6 +835,7 @@ cudaError_t dispatch_f32(const Params& p, int d, int batch, int heads,
   switch (d) {
     case 64: return launch<64>(p, batch, heads, stream);
     case 128: return launch<128>(p, batch, heads, stream);
+    case 256: return launch<256>(p, batch, heads, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -641,8 +845,18 @@ cudaError_t dispatch_bf16(const Params& p, int d, int batch, int heads,
                           cudaStream_t stream) {
   if (!tma_aligned(p)) return cudaErrorInvalidValue;
   switch (d) {
-    case 64: return launch_wgmma<64>(p, batch, heads, stream);
-    case 128: return launch_wgmma<128>(p, batch, heads, stream);
+    case 64:
+      return launch_tma(flash_fwd_wgmma_kernel<64>, kTmaThreads,
+                        TmaLayout<64>::kBytes, kTK, p, 64, batch, heads,
+                        stream);
+    case 128:
+      return launch_tma(flash_fwd_wgmma_kernel<128>, kTmaThreads,
+                        TmaLayout<128>::kBytes, kTK, p, 128, batch, heads,
+                        stream);
+    case 256:
+      return launch_tma(flash_fwd_wgmma_d256_kernel, kWideThreads,
+                        WideLayout::kBytes, kWK, p, 256, batch, heads,
+                        stream);
     default: return cudaErrorInvalidValue;
   }
 }

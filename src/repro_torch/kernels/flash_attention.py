@@ -11,7 +11,7 @@ kernels use their own tiles (``csrc/flash_attention.cu``).
 
 Dispatch: a tensor on the CPU takes ``flash_attention_plain``; a CUDA
 tensor launches the kernel (``csrc/flash_attention.cu``, f32 or bf16 I/O,
-head dim 64 or 128) or raises.  The kernel takes element strides, so the
+head dim 64, 128 or 256) or raises.  The kernel takes element strides, so the
 ``[B,S,H,d] → [B,H,S,d]`` transposed views that ``attention_layer`` passes
 go in without a copy; the output is allocated with the same layout as q
 (``torch.empty_like``), so transposing it back is a contiguous tensor.
@@ -24,13 +24,19 @@ Design (bf16, the main path): one CTA per (128-query tile, head, batch); a
 producer warpgroup loads Q once and 128-key K/V tiles into a two-stage ring
 with TMA; two consumer warpgroups of 64 query rows run S = Q·Kᵀ and
 O += P·V on ``wgmma`` (P from registers, V read MN-major) with the online
-softmax on the score fragments between them.  f32 inputs run a SIMT kernel
-(64 x 64 tiles) that meets the 2e-5 check.
+softmax on the score fragments between them.  At head dim 256 (gemma2's
+global layers) that layout needs 321 KB of shared memory and more
+registers than 384 threads leave, so bf16 d=256 runs its own kernel:
+64-key tiles (192 KB with Q), no producer warpgroup (256 threads, up to
+255 registers a thread for the 64 x 256 f32 output fragment), the loads
+issued by one consumer thread.  f32 inputs run a SIMT kernel (64 x 64
+tiles) that meets the 2e-5 check.
 
 Bound at the main path's shapes (B=2, H=32, KV=8, S=4096, d=128, bf16,
 causal): 4·B·H·d·S(S+1)/2 = 275 GFLOP per launch — 0.28 ms at the H100's
 989 TFLOP/s bf16 peak — against 168 MB of q/k/v/o, 0.05 ms at 3.35 TB/s:
-compute-bound.
+compute-bound.  At gemma2's global layers (B=2, H=16, KV=8, S=4096, d=256)
+the FLOPs are the same 275 GFLOP.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ import torch
 from repro_torch.kernels import refuse_autograd
 
 NEG_INF = -1e30
-SUPPORTED_HEAD_DIMS = (64, 128)
+SUPPORTED_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

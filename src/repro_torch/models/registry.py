@@ -1,15 +1,16 @@
 """Architecture registry: --arch <id> → configs + model API.
 
 Counterpart of ``repro/models/registry.py``.  The port covers the dense
-and MoE attention families; the other architectures of the JAX registry raise
+and MoE attention families, local attention included; the other
+architectures of the JAX registry raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (granite_3_8b, granite_moe_1b,
-                                 llama4_maverick, qwen2_72b)
+from repro_torch.configs import (gemma2_9b, granite_3_8b, granite_moe_1b,
+                                 llama4_maverick, qwen2_72b, starcoder2_7b)
 from repro_torch.configs.common import ModelConfig
 from repro_torch.models import transformer
 
@@ -31,19 +32,18 @@ ARCHS: dict[str, ArchEntry] = {
     for name, mod in (("granite-3-8b", granite_3_8b),
                       ("qwen2-72b", qwen2_72b),
                       ("granite-moe-1b-a400m", granite_moe_1b),
-                      ("llama4-maverick-400b-a17b", llama4_maverick))
+                      ("llama4-maverick-400b-a17b", llama4_maverick),
+                      ("gemma2-9b", gemma2_9b),
+                      ("starcoder2-7b", starcoder2_7b))
 }
 
-# Architectures of the JAX registry that the port does not cover yet.
-_KINDS = "ROADMAP §1 'Modules to port' item 2 (The other layer kinds"
+# Architectures of the JAX registry that the port does not cover yet, by
+# the layer kind they miss.
 NOT_PORTED: dict[str, str] = {
-    "mamba2-780m": f"{_KINDS}: SSD)",
-    "recurrentgemma-9b": f"{_KINDS}: RG-LRU, local attention)",
-    "whisper-base": f"{_KINDS}: enc-dec)",
-    "llama-3.2-vision-90b": f"{_KINDS}: cross-attention frontend)",
-    "gemma2-9b": f"{_KINDS}: local attention)",
-    "starcoder2-7b": f"{_KINDS}: its layer kinds are ported; its config "
-                     f"is not copied or tested yet)",
+    "mamba2-780m": transformer.roadmap_item("ssd"),
+    "recurrentgemma-9b": transformer.roadmap_item("lru"),
+    "whisper-base": transformer.roadmap_item("cross"),
+    "llama-3.2-vision-90b": transformer.roadmap_item("cross"),
 }
 
 

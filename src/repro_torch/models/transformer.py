@@ -4,9 +4,10 @@ Counterpart of ``repro/models/transformer.py:33-277``.  The repeating layer
 pattern's params are stacked on a leading ``n_rep`` axis (the JAX package's
 scan layout, ``params["stack"]["sub<i>"]``) and the forward walks it with a
 Python loop; remainder layers run unrolled.  The port covers ``attn``
-layers with dense or MoE channel mixers; other layer kinds raise
-``NotImplementedError``.  Serving (``prefill``/``decode_step``) is not
-ported yet (ROADMAP §1 item 3, 'Serving').
+and ``local`` (sliding-window) layers with dense or MoE channel mixers;
+the other layer kinds raise ``NotImplementedError``.  Serving
+(``prefill``/``decode_step``) is not ported yet (ROADMAP §1 item 3,
+'Serving').
 """
 from __future__ import annotations
 
@@ -18,15 +19,25 @@ import torch.nn.functional as F
 from repro_torch.configs.common import LayerSpec, ModelConfig
 from repro_torch.models import layers as L, moe as moe_mod
 
-_PORTED_KINDS = ("attn",)
+_PORTED_KINDS = ("attn", "local")
 _PORTED_MLPS = ("dense", "moe", "none")
+# the ROADMAP §1 'Modules to port' item that ports each layer kind still
+# missing; the registry names an unported arch's item through it too
+KIND_ITEMS = {"ssd": "2(b) (models/ssm.py: Mamba-2 SSD)",
+              "lru": "2(c) (models/hybrid.py: RG-LRU)",
+              "cross": "2(d) (cross-attention, models/encdec.py)"}
+
+
+def roadmap_item(kind: str) -> str:
+    return ("ROADMAP §1 'Modules to port' item "
+            + KIND_ITEMS.get(kind, "2, 'The other layer kinds'"))
 
 
 def _check_spec(spec: LayerSpec):
     if spec.kind not in _PORTED_KINDS or spec.mlp not in _PORTED_MLPS:
         raise NotImplementedError(
-            f"layer {spec} is not ported to repro_torch yet (ROADMAP §1 "
-            f"'Modules to port' item 2, 'The other layer kinds')")
+            f"layer {spec} is not ported to repro_torch yet "
+            f"({roadmap_item(spec.kind)})")
 
 
 def _norm_init(cfg: ModelConfig, d: int, **kw) -> dict:

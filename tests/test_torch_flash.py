@@ -80,6 +80,29 @@ def test_plain_bf16_io_matches_jax_flash():
                                rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_plain_d256_matches_jax_flash(softcap, causal):
+    """Head dim 256 (gemma2's global layers): GQA 2:1, softcap 50 as gemma2
+    sets it and none.  With the cap, q and k are scaled by 4 so that the
+    scores (std 16) reach it; without it they stay unscaled, as in the
+    tests above, since uncapped scores of that size turn the f32 rounding
+    of a 256-term dot product into weight errors past 2e-5 in either
+    implementation."""
+    import jax.numpy as jnp
+    jflash = _jax_flash()
+    q, k, v = _inputs(10, 1, 4, 2, 64, 64, 256)
+    if softcap is not None:
+        q, k = q * 4, k * 4
+    want = jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                  causal=causal, softcap=softcap, q_chunk=32, kv_chunk=32,
+                  interpret=True)
+    got = tf.flash_attention(*_torch(q, k, v), causal=causal,
+                             softcap=softcap, q_chunk=32, kv_chunk=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("qc,kc", [(16, 32), (32, 16), (64, 64), (128, 128)])
 def test_plain_chunk_sweep_matches_jax_flash(qc, kc):
     import jax.numpy as jnp
@@ -126,9 +149,13 @@ def test_bf16_alignment_rule():
 # non-causal with Skv < Sq — in bf16 (tensor-core kernel) and f32 (SIMT);
 # then the bf16 kernel's 128 x 128 tiling: several query and kv tiles with
 # GQA group 4, Sq and Skv off the 128 grid (causal and not), and d=64 over
-# more kv tiles than the two stages of the K/V ring; last, llama4-maverick's
+# more kv tiles than the two stages of the K/V ring; then llama4-maverick's
 # odd GQA group of 5 (40 heads over 8), on a multi-wave bf16 grid and on the
-# f32 kernel.
+# f32 kernel; then head dim 256 (gemma2's global layers, softcap 50): its
+# own bf16 kernel (64-key tiles) on a multi-wave grid, ragged Sq/Skv (causal
+# and not, MQA, and causal with Sq > Skv), and the f32 kernel at d=256,
+# ragged with softcap and multi-wave; last, starcoder2's odd GQA group of 9
+# (36 heads over 4).
 CUDA_CASES = [
     (2, 32, 8, 512, 512, 128, True, None, torch.bfloat16),
     (1, 4, 1, 192, 192, 64, True, None, torch.bfloat16),
@@ -144,6 +171,13 @@ CUDA_CASES = [
     (1, 4, 2, 640, 640, 64, True, None, torch.bfloat16),
     (2, 40, 8, 1024, 1024, 128, True, None, torch.bfloat16),
     (1, 10, 2, 96, 160, 64, True, None, torch.float32),
+    (2, 16, 8, 1024, 1024, 256, True, 50.0, torch.bfloat16),
+    (2, 4, 2, 200, 328, 256, True, None, torch.bfloat16),
+    (1, 4, 1, 328, 200, 256, False, None, torch.bfloat16),
+    (1, 4, 2, 328, 200, 256, True, 50.0, torch.bfloat16),
+    (1, 8, 2, 96, 160, 256, True, 50.0, torch.float32),
+    (2, 8, 4, 640, 640, 256, True, None, torch.float32),
+    (1, 36, 4, 512, 512, 128, True, None, torch.bfloat16),
 ]
 
 
@@ -181,23 +215,27 @@ def test_cuda_kernel_takes_transposed_views():
     assert got.transpose(1, 2).is_contiguous()
 
 
+# (S, H, KV, d, softcap): a d=128 stack, and gemma2's global layers (d=256,
+# softcap 50) over 256 CTAs, more than one wave of the 132 SMs
 @pytest.mark.cuda
-def test_cuda_bf16_kernel_takes_main_path_views():
+@pytest.mark.parametrize("s,h,kv,d,softcap", [(384, 16, 4, 128, None),
+                                              (1024, 16, 8, 256, 50.0)])
+def test_cuda_bf16_kernel_takes_main_path_views(s, h, kv, d, softcap):
     """Batch 2 of [B,S,H,d] tensors seen as [B,H,S,d], as attention_layer
     passes them: q's sequence stride is H*d, k/v's KV*d."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     rng = np.random.default_rng(9)
-    x = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(
+    x = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
         "cuda", torch.bfloat16)
-         for s in ((2, 384, 16, 128), (2, 384, 4, 128), (2, 384, 4, 128))]
+         for shape in ((2, s, h, d), (2, s, kv, d), (2, s, kv, d))]
     q, k, v = (t.transpose(1, 2) for t in x)          # [B,S,H,d] → [B,H,S,d]
     before = tf.flash_attention.launches
-    got = tf.flash_attention(q, k, v, causal=True, q_chunk=128,
-                             kv_chunk=128)
+    got = tf.flash_attention(q, k, v, causal=True, softcap=softcap,
+                             q_chunk=128, kv_chunk=128)
     assert tf.flash_attention.launches == before + 1
     assert got.stride() == q.stride()
-    want = tf.flash_attention_plain(q, k, v, causal=True)
+    want = tf.flash_attention_plain(q, k, v, causal=True, softcap=softcap)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
 

@@ -2,6 +2,7 @@
 package and without msgpack (the card's machine has none; the checkpointer
 carries its own encoder), and its sources (and chip_smoke.py) name none of
 them, nor a library attention or torch.compile."""
+import ast
 import pkgutil
 import re
 import subprocess
@@ -59,7 +60,7 @@ FORBIDDEN = [
     (r"^\s*import\s+repro\.|^\s*from\s+repro\.|^\s*import\s+repro\s*$"
      r"|^\s*from\s+repro\s+import", "imports the JAX package"),
     (r"^\s*import\s+msgpack\b|^\s*from\s+msgpack\b", "imports msgpack"),
-    (r"scaled_dot_product_attention", "library attention"),
+    (r"scaled_dot_product_attention|flex_attention", "library attention"),
     (r"torch\.compile", "torch.compile"),
 ]
 
@@ -70,7 +71,8 @@ def test_sources_name_no_forbidden_import_or_call(pattern, what):
     rx = re.compile(pattern, re.M)
     hits = []
     for path in _sources():
-        if path.name == "chip_smoke.py" and what == "library attention":
+        if path.name == "chip_smoke.py" and what in ("library attention",
+                                                     "torch.compile"):
             continue    # chip_smoke times the library call as a yardstick
         if rx.search(path.read_text()):
             hits.append(str(path.relative_to(ROOT)))
@@ -78,8 +80,17 @@ def test_sources_name_no_forbidden_import_or_call(pattern, what):
 
 
 def test_chip_smoke_calls_library_attention_only_to_time_it():
+    """chip_smoke names the library attention (SDPA, and flex_attention
+    with the torch.compile it needs) only inside ``library_attention``,
+    the yardstick it times beside the kernel."""
     text = (ROOT / "chip_smoke.py").read_text()
-    calls = [l for l in text.splitlines()
-             if "scaled_dot_product_attention" in l]
-    assert all("library" in l or l.lstrip().startswith("#") for l in calls), \
-        calls
+    fn = next(n for n in ast.parse(text).body
+              if isinstance(n, ast.FunctionDef)
+              and n.name == "library_attention")
+    rx = re.compile(r"scaled_dot_product_attention|flex_attention|"
+                    r"torch\.compile")
+    lines = [i for i, line in enumerate(text.splitlines(), 1)
+             if rx.search(line)]
+    assert lines
+    outside = [i for i in lines if not fn.lineno <= i <= fn.end_lineno]
+    assert not outside, outside

@@ -104,3 +104,74 @@ def test_cuda_duplex_step_matches_cpu():
                               tree_flatten(cpu_state["branch"])):
         torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5,
                                    msg=p)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "starcoder2-7b"])
+def test_local_attention_archs_step_on_cpu(arch):
+    """gemma2 (local + global layers) and starcoder2 through the launcher:
+    duplex smoke steps on the CPU, no kernel launched."""
+    before = tf.flash_attention.launches
+    out = train.main(["--arch", arch, "--preset", "smoke", "--steps", "2",
+                      "--seq", "32", "--batch", "2", "--device", "cpu",
+                      "--log-every", "1"])
+    report = out["report"]
+    assert report.steps_run == 2
+    assert all(math.isfinite(m["loss"]) for m in report.metrics_history)
+    assert out["backbone_checksum"][0] == out["backbone_checksum"][1]
+    assert out["branch_max_abs_change"] > 0
+    assert tf.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("arch,head_dim", [("gemma2-9b", 256),
+                                           ("starcoder2-7b", 128)])
+def test_full_preset_of_local_attention_archs(arch, head_dim, monkeypatch):
+    """``--preset full`` turns flash on for duplex (the global layers, head
+    dim 256 for gemma2) and leaves it off for full mode; asked for the card
+    where there is none, the launcher raises before building anything."""
+    _, cfg, _, policy = train.build(arch, "full")
+    assert cfg.use_flash and cfg.head_dim == head_dim
+    assert head_dim in tf.SUPPORTED_HEAD_DIMS
+    assert policy.compute_dtype == torch.bfloat16
+    assert not train.build(arch, "full", "full")[1].use_flash
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", arch, "--preset", "full", "--steps", "1"])
+
+
+@pytest.mark.cuda
+def test_cuda_gemma2_duplex_step_matches_cpu():
+    """One duplex step of a gemma2-shaped model (local + global layers,
+    softcaps, head dim 256) on the card against the same step on the CPU:
+    the global layers launch the f32 flash kernel at d=256, the local
+    layers run the windowed path.  BFP off, as in the test above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import dataclasses as dc
+
+    from repro_torch.models import layers as L
+    from repro_torch.train import train_step as ts
+    from repro_torch.utils import tree_flatten, tree_map
+
+    entry, cfg, tcfg, policy = train.build("gemma2-9b", "smoke")
+    cfg = dc.replace(cfg, d_model=128, n_heads=2, n_kv=1, head_dim=256,
+                     use_flash=True)
+    tcfg = dc.replace(tcfg, duplex=dc.replace(tcfg.duplex,
+                                              bfp=L.BFPPolicy(False)))
+    state = ts.init_state(torch.Generator().manual_seed(0), entry, cfg, tcfg,
+                          policy)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    step = ts.make_train_step(entry, cfg, tcfg, policy)
+    cpu_state, cpu_m = step(state, batch)
+    before = tf.flash_attention.launches
+    gpu_state, gpu_m = step(tree_map(lambda t: t.cuda(), state),
+                            {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert tf.flash_attention.launches == before + cfg.n_rep
+    torch.testing.assert_close(gpu_m["loss"].cpu(), cpu_m["loss"],
+                               rtol=1e-4, atol=1e-5)
+    for (p, g), (_, c) in zip(tree_flatten(gpu_state["branch"]),
+                              tree_flatten(cpu_state["branch"])):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5,
+                                   msg=p)

@@ -32,7 +32,10 @@ from repro_torch.utils import tree_flatten, tree_unflatten
 JP32 = JL.Policy(compute_dtype=jnp.float32)
 TP32 = TL.Policy(compute_dtype=torch.float32)
 ARCHS = ["granite-3-8b", "qwen2-72b", "granite-moe-1b-a400m",
-         "llama4-maverick-400b-a17b"]
+         "llama4-maverick-400b-a17b", "gemma2-9b", "starcoder2-7b"]
+# the attention family of the slice after MoE: gemma2 (local + global
+# layers, softcaps, post-norms) and starcoder2 (layernorm, ungated gelu MLP)
+LOCAL_ARCHS = ["gemma2-9b", "starcoder2-7b"]
 
 
 def _configs(opt="sgd", bfp=None, microbatch=1, arch="granite-3-8b",
@@ -159,13 +162,12 @@ def test_trains_and_freezes_backbone():
     assert int(state["step"]) == 8
 
 
-def test_moe_duplex_sgd_steps_match_jax():
-    """3 duplex SGD steps on granite-moe SMOKE: each step's loss, then the
-    branch and optimizer leaves; the backbone, MoE layers and all, stays
-    as it came over."""
-    jside, tside = _configs("sgd", arch="granite-moe-1b-a400m")
-    st_np = _jax_state(jside, seed=7)
-    batch = _batch(jside[1].vocab, seed=7)
+def _duplex_sgd_steps_match_jax(arch, seed):
+    """3 duplex SGD steps: each step's loss, then the branch and optimizer
+    leaves; the frozen backbone stays as it came over."""
+    jside, tside = _configs("sgd", arch=arch)
+    st_np = _jax_state(jside, seed=seed)
+    batch = _batch(jside[1].vocab, seed=seed)
     _, want_state, want_losses = _jax_full_steps(jside, st_np, batch, 3)
     got_state, ms = _torch_step(tside, bridge.state_from_jax(st_np, "cpu"),
                                 batch, n=3)
@@ -175,6 +177,60 @@ def test_moe_duplex_sgd_steps_match_jax():
     for (p, a), (_, b) in zip(tree_flatten(got_state["backbone"]),
                               tree_flatten(st_np["backbone"])):
         np.testing.assert_array_equal(a.numpy(), b, err_msg=p)
+
+
+def test_moe_duplex_sgd_steps_match_jax():
+    """granite-moe SMOKE: the backbone, MoE layers and all, stays frozen."""
+    _duplex_sgd_steps_match_jax("granite-moe-1b-a400m", seed=7)
+
+
+@pytest.mark.parametrize("arch", LOCAL_ARCHS)
+def test_duplex_sgd_steps_match_jax(arch):
+    """The port's global layers run the flash path (the plain version on
+    the CPU), its local layers the windowed attention; JAX runs both
+    without flash."""
+    _duplex_sgd_steps_match_jax(arch, seed=8)
+
+
+@pytest.mark.parametrize("arch", LOCAL_ARCHS)
+def test_forward_and_grad_match_jax(arch):
+    """Counterpart of tests/test_arch_smoke.py::test_forward_and_grad: the
+    next-token NLL (+ 0.01·aux) of the whole model on one batch, and its
+    gradient with respect to every backbone leaf, against JAX's."""
+    jcfg, tcfg = jreg.get(arch).smoke, treg.get(arch).smoke
+    params = jax.tree_util.tree_map(np.asarray, jreg.get(arch).module
+                                    .init_params(jax.random.PRNGKey(0), jcfg))
+    tokens = np.random.default_rng(1).integers(0, jcfg.vocab, (2, 16))
+
+    def jloss(p):
+        o = jreg.get(arch).module.forward(p, jcfg, jnp.asarray(tokens),
+                                          policy=JP32)
+        lg = jreg.get(arch).module.lm_logits(p, jcfg, o["hidden"], JP32)
+        lp = jax.nn.log_softmax(lg, axis=-1)
+        tgt = jnp.roll(jnp.asarray(tokens), -1, axis=1)
+        nll = -jnp.take_along_axis(lp, tgt[..., None], -1).mean()
+        return nll + 0.01 * o["aux"]
+
+    want, want_g = jax.value_and_grad(jloss)(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    paths, leaves = zip(*tree_flatten(bridge.to_torch(params, "cpu")))
+    leaves = [t.requires_grad_() for t in leaves]
+    p = tree_unflatten(list(zip(paths, leaves)))
+    tok = torch.from_numpy(tokens).long()
+    module = treg.get(arch).module
+    o = module.forward(p, tcfg, tok, policy=TP32)
+    lp = torch.log_softmax(module.lm_logits(p, tcfg, o["hidden"], TP32), -1)
+    tgt = torch.roll(tok, -1, dims=1)
+    loss = -torch.gather(lp, -1, tgt[..., None]).mean() + 0.01 * o["aux"]
+    got_g = dict(zip(paths, torch.autograd.grad(loss, leaves)))
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5,
+                               atol=1e-6)
+    gmax = 0.0
+    for path, w in tree_flatten(jax.tree_util.tree_map(np.asarray, want_g)):
+        np.testing.assert_allclose(got_g[path].numpy(), w, rtol=1e-5,
+                                   atol=1e-6, err_msg=path)
+        gmax = max(gmax, float(np.abs(w).max()))
+    assert np.isfinite(gmax) and gmax > 0
 
 
 def test_microbatch_equals_fullbatch():

@@ -1,12 +1,16 @@
 """repro_torch.models.transformer against repro.models.transformer at 2e-5
 (the MoE aux loss at rtol 1e-5 / atol 1e-6) on the granite, qwen2,
-granite-moe and llama4 smoke configs.
+granite-moe, llama4, gemma2 and starcoder2 smoke configs.  gemma2
+alternates sliding-window ``local`` layers with global ``attn`` layers
+(softcaps, post-norms, gelu, embedding scale); starcoder2 has layernorm,
+qkv bias and an ungated gelu MLP.
 
 The port runs with ``use_flash`` on and off; both are held against JAX with
 ``use_flash=False``: JAX's transformer cannot run its flash path on a CPU
 (``attn_cfg_for`` does not pass ``flash_interpret``).  The flash layer itself
 is held against JAX's flash path in interpret mode in test_torch_layers.py."""
 import dataclasses as dc
+import re
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +29,7 @@ TP32 = TL.Policy(compute_dtype=torch.float32)
 TOL = dict(rtol=2e-5, atol=2e-5)
 AUX_TOL = dict(rtol=1e-5, atol=1e-6)   # the stack-summed MoE aux loss
 ARCHS = ["granite-3-8b", "qwen2-72b", "granite-moe-1b-a400m",
-         "llama4-maverick-400b-a17b"]
+         "llama4-maverick-400b-a17b", "gemma2-9b", "starcoder2-7b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -80,6 +84,49 @@ def test_collect_all_taps_without_indices(model):
                                **TOL)
 
 
+@pytest.mark.parametrize("causal_skip", [False, True])
+def test_blockwise_local_layers_match_jax(causal_skip):
+    """gemma2 SMOKE with ``blockwise_threshold`` below its 16-token sequence,
+    so both layer kinds take the online-softmax blockwise path inside the
+    stack: the local layers with their 8-token window (which excludes keys
+    at this length), over 4-query and 8-key chunks, with and without the
+    skip of fully masked kv chunks."""
+    kw = dict(blockwise_threshold=4, q_chunk=4, kv_chunk=8,
+              causal_skip=causal_skip)
+    jcfg = dc.replace(jreg.get("gemma2-9b").smoke, **kw)
+    cfg = dc.replace(treg.get("gemma2-9b").smoke, **kw)
+    params = jax.tree_util.tree_map(
+        np.asarray, jtr.init_params(jax.random.PRNGKey(3), jcfg))
+    tokens = np.random.default_rng(4).integers(
+        0, jcfg.vocab, (2, 16)).astype(np.int32)
+    jout = jtr.forward(jax.tree_util.tree_map(jnp.asarray, params), jcfg,
+                       jnp.asarray(tokens), policy=JP32, collect_taps=True)
+    jlogits = jtr.lm_logits(jax.tree_util.tree_map(jnp.asarray, params),
+                            jcfg, jout["hidden"], JP32)
+    tp = bridge.to_torch(params, "cpu")
+    out = ttr.forward(tp, cfg, torch.from_numpy(tokens).long(), policy=TP32,
+                      collect_taps=True)
+    for key in ("hidden", "taps"):
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(jout[key]),
+                                   **TOL, err_msg=key)
+    np.testing.assert_allclose(
+        ttr.lm_logits(tp, cfg, out["hidden"], TP32).numpy(),
+        np.asarray(jlogits), **TOL)
+
+
+def test_window_changes_the_local_layers():
+    """The window bites at the smoke length: widening it past the sequence
+    changes the hidden state, so the parity above holds the window."""
+    cfg = treg.get("gemma2-9b").smoke
+    params = ttr.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (2, 16))).long()
+    h = ttr.forward(params, cfg, tokens, policy=TP32)["hidden"]
+    wide = ttr.forward(params, dc.replace(cfg, window=64), tokens,
+                       policy=TP32)["hidden"]
+    assert not torch.allclose(h, wide, rtol=1e-3, atol=1e-3)
+
+
 @pytest.mark.parametrize("name", ARCHS)
 def test_init_structure_matches_jax(name):
     want = jax.tree_util.tree_map(
@@ -101,14 +148,18 @@ def test_full_configs_are_copies():
 
 
 @pytest.mark.parametrize("name", ["mamba2-780m", "recurrentgemma-9b",
-                                  "gemma2-9b", "whisper-base"])
+                                  "whisper-base", "llama-3.2-vision-90b"])
 def test_unported_archs_raise_naming_the_roadmap(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         treg.get(name)
 
 
-def test_unported_layer_kind_raises():
+@pytest.mark.parametrize("kind,item", [("ssd", "2(b)"), ("lru", "2(c)"),
+                                       ("cross", "2(d)")])
+def test_unported_layer_kind_raises(kind, item):
     cfg = dc.replace(treg.get("granite-3-8b").smoke,
-                     pattern=(ttr.LayerSpec("local", "dense"),), window=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                     pattern=(ttr.LayerSpec(kind, "none"),), ssm_state=16,
+                     lru_width=32)
+    with pytest.raises(NotImplementedError,
+                       match=rf"ROADMAP .* item {re.escape(item)}"):
         ttr.init_params(torch.Generator().manual_seed(0), cfg)
