@@ -34,7 +34,11 @@ Phases, each printing its numbers on lines of their own:
   6. ``f1_check`` (run before the BFP path): the kernel wrappers refuse
      autograd on the card as on the CPU -- flash on bf16 CUDA tensors that
      require grad and ``ops.matmul`` raise under grad mode, and both launch
-     under ``torch.no_grad()``;
+     under ``torch.no_grad()``; then ``ssd_check``: mamba2-780m's SSD in
+     f32 at its head shape (H=48, P=64, N=128, chunk 256), B=1, S=1024:
+     the chunked scan against the recurrent oracle (y and the final
+     state), and one full-width ``ssd_block`` on the card against the same
+     block on the CPU, both at rtol = atol = 1e-4, with their times;
   7. ``full_path``: the full finetune (the paper's FR baseline) on
      granite-3-8b at full width, depth cut to 8 of 40 layers (f32 params,
      gradients and SGD momentum of 40 layers need 98 GB), bf16 compute,
@@ -71,19 +75,35 @@ Phases, each printing its numbers on lines of their own:
      of phase 7 on gemma2-9b at full width, depth cut to 4 of 42 layers
      (two of each kind), B=1 x S=2048, so that both kinds run the
      blockwise path backward, and the softcapped unembedding too;
-  10. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
+  10. ``mamba2_path``: the duplex step of phase 5 on mamba2-780m (48
+     attention-free ``ssd`` layers, d 1536, 48 heads of 64, state 128,
+     chunk 256) at full width and depth, B=2 x S=4096, 3 steps: no kernel
+     launch (no ``attn`` layer, so the plain-attention check is skipped
+     with a line that says so), one step profiled, and the time of one
+     ``ssd_block`` and of its chunked scan with their shares of the step
+     (``mamba2_mixers``); then ``mamba2_full_path``: the FR step of phase 7
+     on mamba2-780m at full width, B=4 x S=1024, depth cut to the deepest
+     count whose peak, reckoned from the measured peaks of 2- and 4-layer
+     cuts, stays under 75 GB (``mamba2_full_reckon``); of that draw it keeps
+     the layers below the first, if any, whose largest exponent in the
+     scan's masked exp passes log(f32 max) at init, where the backward of
+     the reference's ``where`` after the exp is NaN
+     (``mamba2_full_exponents``); the path must move
+     layer 0's ``x_proj``, ``A_log``, ``dt_bias`` and ``conv_x``
+     (``mamba2_full_moved``);
+  11. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
      on, B=2 x S=4096: 4 steps straight; then 2 steps saving a checkpoint
      every 2 into a directory that is removed afterwards, whose restored
      state must equal the saved one bit for bit; then a run to 4 steps that
      must resume from step 2 and match the straight run's steps 2-3 and
      final branch (rtol 1e-5, atol 1e-6); save and restore times in s and
      GB/s;
-  11. ``arms``: ``repro_torch.bench.table2_accuracy`` on the card with the
+  12. ``arms``: ``repro_torch.bench.table2_accuracy`` on the card with the
      reference's step counts: each arm's validation loss and accuracy, the
      ordering row, the wall time;
-  12. one JSON line with every kernel's numbers, the card line again, and
+  13. one JSON line with every kernel's numbers, the card line again, and
      the last line {"ok": true, "device": {...}}.
-Each of the paths 4-11 zeroes every kernel's launch count just before it
+Each of the paths 4-12 zeroes every kernel's launch count just before it
 and reads the counts just after.
 Any failure raises and the exit code is not 0.  Without a CUDA device it
 exits with code 2 before printing any result.
@@ -725,23 +745,29 @@ def run_bfp_path() -> dict:
 
 
 @contextlib.contextmanager
-def first_moe_input(store: list):
-    """Record ``(params, x, MoEConfig)`` of the first MoE layer call inside
-    the block.  The transformer reaches ``moe.moe_apply`` through the
-    module, so wrapping that name sees the layer's normed input."""
-    from repro_torch.models import moe
-    plain = moe.moe_apply
+def watching(module, name: str, see):
+    """Inside the block, every call of ``module.<name>`` first passes its
+    arguments to ``see``.  The callers reach these functions through the
+    module's namespace, so wrapping the name sees their inputs."""
+    plain = getattr(module, name)
 
-    def recording(params, x, cfg, **kw):
-        if not store:
-            store.append((params, x, cfg))
-        return plain(params, x, cfg, **kw)
+    def wrapper(*args, **kw):
+        see(*args, **kw)
+        return plain(*args, **kw)
 
-    moe.moe_apply = recording
+    setattr(module, name, wrapper)
     try:
-        yield store
+        yield
     finally:
-        moe.moe_apply = plain
+        setattr(module, name, plain)
+
+
+def first_call(module, name: str, store: list):
+    """Record the positional arguments of the first call of
+    ``module.<name>`` inside the block: ``(params, x, MoEConfig)`` of
+    ``moe.moe_apply``, ``(x, dt, A, B, C, chunk)`` of ``ssm._ssd_chunked``."""
+    return watching(module, name,
+                    lambda *args, **kw: store or store.append(args))
 
 
 def routing(params, x, mcfg, policy):
@@ -763,7 +789,8 @@ def flash_layers(cfg) -> int:
 def run_main_path(arch: str = "granite-3-8b", label: str = "main"):
     """The duplex step through the launcher at full width and depth, B=2,
     S=4096, 3 steps: granite-3-8b (``main``), granite-moe-1b-a400m
-    (``moe``), gemma2-9b (``gemma2``) or starcoder2-7b (``starcoder2``).
+    (``moe``), gemma2-9b (``gemma2``), starcoder2-7b (``starcoder2``) or
+    mamba2-780m (``mamba2``).
     Returns the path's numbers and its run (entry, configs, final state,
     batches), which the caller reads further and then drops, so that the
     next path's peak stands alone."""
@@ -814,8 +841,12 @@ def run_main_path(arch: str = "granite-3-8b", label: str = "main"):
 
     batches = [cuda_batch(cfg, 4096, 2, m["step"])
                for m in report.metrics_history]
-    check_plain_attention(entry, cfg, tcfg, policy, report.state,
-                          batches[0], label)
+    if n_attn:
+        check_plain_attention(entry, cfg, tcfg, policy, report.state,
+                              batches[0], label)
+    else:
+        print(f"{label}_path_reference: skipped: {arch} has no attn layer, "
+              f"so flash is not on its path", flush=True)
     profile_step(entry, cfg, tcfg, policy, report.state, batches[0],
                  label="profile" if label == "main" else f"{label}_profile")
     times = [m["step_time_s"] for m in report.metrics_history]
@@ -866,7 +897,7 @@ def report_moe_path(run: dict, label: str = "moe") -> None:
     from repro_torch.models import moe
     entry, cfg, policy = run["entry"], run["cfg"], run["policy"]
     backbone, first = run["state"]["backbone"], []
-    with torch.no_grad(), first_moe_input(first):
+    with torch.no_grad(), first_call(moe, "moe_apply", first):
         aux = [float(entry.module.forward(backbone, cfg, b["tokens"],
                                           policy=policy)["aux"])
                for b in run["batches"]]
@@ -921,6 +952,39 @@ def report_attention_layers(run: dict, label: str) -> None:
                 "window": acfg.window, "layers": n, "layer_ms": ms,
                 "share_of_step": n * ms / 1e3 / step_s}
     print(f"{label}_attention: step_s {step_s!r} {json.dumps(rows)}",
+          flush=True)
+
+
+def report_ssd_mixers(run: dict, label: str) -> None:
+    """Where an SSD model's duplex step goes: the first layer's
+    ``ssd_block`` on the normed embedding of the path's first batch, and the
+    chunked scan inside it (``_ssd_chunked``, on the inputs that block
+    gives it), each timed alone with CUDA events, times the layer count,
+    over the step time (``<label>_mixers`` line)."""
+    from repro_torch.models import ssm, transformer as tr
+    cfg, policy = run["cfg"], run["policy"]
+    backbone = run["state"]["backbone"]
+    sub = tr._index(backbone["stack"], 0)["sub0"]
+    scfg = tr._ssd_cfg(cfg)
+    tokens = run["batches"][0]["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, device="cuda").expand(b, s)
+    n = cfg.n_rep * sum(sp.kind == "ssd" for sp in cfg.pattern)
+    step_s = min(run["step_times"][1:])
+    scan = []
+    with torch.no_grad():
+        u = tr._norm(cfg, sub["norm"], tr.embed_tokens(backbone, cfg, tokens,
+                                                       positions, policy))
+        with first_call(ssm, "_ssd_chunked", scan):
+            ssm.ssd_block(sub["ssd"], u, scfg, policy=policy)
+        block_ms = time_ms(lambda: ssm.ssd_block(sub["ssd"], u, scfg,
+                                                 policy=policy), 5)
+        scan_ms = time_ms(lambda: ssm._ssd_chunked(*scan[0]), 5)
+    rows = {name: {"layers": n, "ms": ms, "share_of_step": n * ms / 1e3 /
+                   step_s}
+            for name, ms in (("ssd_block", block_ms),
+                             ("ssd_chunked_scan", scan_ms))}
+    print(f"{label}_mixers: step_s {step_s!r} {json.dumps(rows)}",
           flush=True)
 
 
@@ -997,9 +1061,172 @@ def f1_check() -> None:
               f"launches_under_no_grad {launched}", flush=True)
 
 
+# SSD on the card: the chunked scan against the recurrent oracle, and the
+# block on the card against the block on the CPU (the reference tests'
+# bound, tests/test_special_layers.py:26-31)
+SSD_TOL = 1e-4
+FR_PEAK_LIMIT = 75e9    # bytes; the FR depth is cut to stay under it
+LOG_F32_MAX = math.log(torch.finfo(torch.float32).max)  # exp is inf past it
+
+
+def ssd_gate(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """|got - want| <= tol (1 + |want|), everywhere finite; returns the
+    max |diff|."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"ssd_check {label}: non-finite values")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if not float((diff - SSD_TOL * (1 + want.float().abs())).max()) <= 0:
+        raise AssertionError(f"ssd_check {label}: |got - want| exceeds "
+                             f"{SSD_TOL} (1 + |want|); max |diff| {err}")
+    return err
+
+
+def ssd_check() -> dict:
+    """mamba2-780m's SSD on the card, in f32, at its head shape (H=48,
+    P=64, N=128, G=1, chunk 256), B=1, S=1024, from a seeded generator:
+    the port's ``_ssd_chunked`` against ``ssd_reference`` (y and the final
+    state); then one full-width ``ssd_block`` (f32 policy) on the card
+    against the same block on the CPU, with the same params and input.
+    Times by CUDA events (the CPU block by the host clock)."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L, registry, ssm, \
+        transformer as tr
+    from repro_torch.utils import tree_map
+    cfg = tr._ssd_cfg(registry.get("mamba2-780m").full)
+    b, s = 1, 1024
+    h, p, g, n = cfg.n_heads, cfg.headdim, cfg.n_groups, cfg.d_state
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    x, dt = randn(b, s, h, p), F.softplus(randn(b, s, h) - 1.0)
+    A = -torch.exp(randn(h) * 0.3)
+    B, C = randn(b, s, g, n) * 0.5, randn(b, s, g, n) * 0.5
+    y, hf = ssm._ssd_chunked(x, dt, A, B, C, cfg.chunk)
+    yr, hr = ssm.ssd_reference(x, dt, A, B, C)
+    row = {"x": [b, s, h, p], "B": [b, s, g, n], "chunk": cfg.chunk,
+           "tol": SSD_TOL, "scan_y_max_abs_err": ssd_gate("scan y", y, yr),
+           "scan_h_max_abs_err": ssd_gate("scan h_final", hf, hr),
+           "chunked_ms": time_ms(
+               lambda: ssm._ssd_chunked(x, dt, A, B, C, cfg.chunk), 10),
+           "reference_ms": time_ms(
+               lambda: ssm.ssd_reference(x, dt, A, B, C), 2, warmup=1)}
+    cpu_gen = torch.Generator().manual_seed(4)
+    params = ssm.ssd_init(cpu_gen, cfg)
+    xin = torch.randn((b, s, cfg.d_model), generator=cpu_gen)
+    pol = L.Policy(compute_dtype=torch.float32)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want, _ = ssm.ssd_block(params, xin, cfg, policy=pol)
+        cpu_s = time.perf_counter() - t0
+        pc, xc = tree_map(lambda t: t.cuda(), params), xin.cuda()
+        got, _ = ssm.ssd_block(pc, xc, cfg, policy=pol)
+        row["block_max_abs_err"] = ssd_gate("block cuda vs cpu", got.cpu(),
+                                            want)
+        row["block_ms"] = time_ms(
+            lambda: ssm.ssd_block(pc, xc, cfg, policy=pol), 10)
+    row.update({"block_d_model": cfg.d_model, "block_cpu_s": cpu_s})
+    print("ssd_check " + json.dumps(row), flush=True)
+    del x, dt, A, B, C, y, hf, yr, hr, pc, xc, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def masked_exponents(entry, cfg, policy, backbone, tokens) -> list:
+    """Each SSD layer's largest exponent in the scan's masked exp, in a
+    forward of ``tokens``: the largest dAcs_i - dAcs_j with i < j (above the
+    diagonal, the entries the mask drops after the exp) over batch, chunks
+    and heads, i.e. a chunk's sum of dt·|A| over all its steps but the
+    first."""
+    import torch.nn.functional as F
+    from repro_torch.models import ssm
+    out = []
+
+    def see(x, dt, A, B, C, chunk, h0=None):
+        b, s, h = dt.shape
+        q = min(chunk, s)
+        dA = F.pad(dt * A, (0, 0, 0, -s % q)).reshape(b, -1, q, h)
+        out.append(float(-dA[:, :, 1:].sum(dim=2).min()))
+
+    with torch.no_grad(), watching(ssm, "_ssd_chunked", see):
+        entry.module.forward(backbone, cfg, tokens, policy=policy)
+    return out
+
+
+def first_layers(state: dict, n: int) -> dict:
+    """``state`` with every layer-stacked leaf (``.../stack/...``: the
+    backbone's and the optimizer's) cut to its first ``n`` layers."""
+    from repro_torch.utils import tree_flatten, tree_unflatten
+    return tree_unflatten([
+        (p, t[:n].clone() if "stack" in p.split("/") else t)
+        for p, t in tree_flatten(state)])
+
+
+def reckon_full_depth(arch: str, label: str) -> tuple:
+    """The FR depth of an SSD model, as (layers drawn at init, layers kept).
+    Drawn: the deepest cut whose peak, reckoned as a line through two
+    shallow cuts' measured peaks (init and two steps each, at the path's B
+    and S), stays under FR_PEAK_LIMIT (``<label>_reckon`` line).  Kept: at
+    that cut's init (``run_full_path``'s seed) and first batch, each layer's
+    largest masked exponent is read (``<label>_exponents`` line); past
+    log(f32 max) the exp above the diagonal is inf, and the reference's
+    ``where`` after the exp makes the backward NaN there (a zero cotangent
+    times an infinite derivative), in JAX as here.  The same draw is kept up
+    to the first layer that passes it; the layers kept see the same inputs,
+    so their exponents stay as read."""
+    from repro_torch.models import layers as L, registry
+    from repro_torch.train import train_step as ts
+    entry = registry.get(arch)
+    policy = L.Policy(compute_dtype=torch.bfloat16)
+    tcfg = ts.TrainConfig(mode="full")
+    batch_size, seq = 4, 1024           # run_full_path's B and S
+    batch = cuda_batch(entry.full, seq, batch_size, 0)
+    peaks = {}
+    for n in (2, 4):
+        cfg = dc.replace(entry.full, n_layers=n).validate()
+        step = ts.make_train_step(entry, cfg, tcfg, policy)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        st = ts.init_state(torch.Generator(device="cuda").manual_seed(0),
+                           entry, cfg, tcfg, policy, device="cuda")
+        for _ in range(2):
+            st, m = step(st, batch)
+        float(m["loss"])
+        peaks[n] = torch.cuda.max_memory_allocated()
+        del st, m
+    (n1, p1), (n2, p2) = sorted(peaks.items())
+    per_layer = (p2 - p1) / (n2 - n1)
+    fixed = p1 - n1 * per_layer
+    depth = min(entry.full.n_layers,
+                int((FR_PEAK_LIMIT - fixed) // per_layer))
+    print(f"{label}_reckon: batch {batch_size} seq {seq} peaks_bytes "
+          f"{json.dumps(peaks)} per_layer_bytes {per_layer!r} fixed_bytes "
+          f"{fixed!r} limit_bytes {FR_PEAK_LIMIT!r} depth {depth} of "
+          f"{entry.full.n_layers} reckoned_peak_bytes "
+          f"{fixed + depth * per_layer!r}", flush=True)
+    cfg = dc.replace(entry.full, n_layers=depth).validate()
+    st = ts.init_state(torch.Generator(device="cuda").manual_seed(0),
+                       entry, cfg, tcfg, policy, device="cuda")
+    exps = masked_exponents(entry, cfg, policy, st["backbone"],
+                            batch["tokens"])
+    del st
+    torch.cuda.empty_cache()
+    over = [i for i, e in enumerate(exps) if e > LOG_F32_MAX]
+    kept = over[0] if over else depth
+    print(f"{label}_exponents: depth {depth} log_f32_max {LOG_F32_MAX!r} "
+          f"max_masked_exponent_by_layer {json.dumps(exps)} overflow_layers "
+          f"{over} kept {kept}", flush=True)
+    if not kept:
+        raise AssertionError(f"{label}: layer 0's masked exponent overflows "
+                             f"f32; no depth is finite")
+    return depth, kept
+
+
 def run_full_path(duplex: dict, arch: str = "granite-3-8b",
                   n_layers: int | None = 8, label: str = "full",
-                  batch_size: int = 4, seq: int = 1024) -> dict:
+                  batch_size: int = 4, seq: int = 1024,
+                  drawn: int | None = None) -> dict:
     """The full finetune (FR) through ``train.loop``: TrainConfig(mode=
     "full") as the launcher builds it (SGD momentum 0.9, lr 1e-3), f32
     params, bf16 compute, flash off, random weights from seed 0.
@@ -1010,10 +1237,13 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
     ``aux_weight·aux``; ``gemma2_full``: gemma2-9b at full width, depth cut
     to 4 of 42 layers (two local, two global), B=1, S=2048, so that every
     layer takes the blockwise path and its backward, and the softcapped
-    unembedding too.  ``duplex`` is the numbers of the same model's duplex
+    unembedding too; ``mamba2_full``: mamba2-780m at full width, B=4,
+    S=1024, the first ``n_layers`` of a ``drawn``-layer init, as
+    ``reckon_full_depth`` gives them, which also checks that layer 0's SSD
+    leaves moved.  ``duplex`` is the numbers of the same model's duplex
     path, whose peak is printed beside."""
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.models import layers as L, registry
+    from repro_torch.models import layers as L, registry, transformer as tr
     from repro_torch.train import loop, train_step as ts
     from repro_torch.utils import count_params, tree_checksum
     entry = registry.get(arch)
@@ -1022,21 +1252,32 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
     policy = L.Policy(compute_dtype=torch.bfloat16)
     tcfg = ts.TrainConfig(mode="full")
     step = ts.make_train_step(entry, cfg, tcfg, policy)
-    moe = cfg.family == "moe"
+    moe, ssm = cfg.family == "moe", cfg.family == "ssm"
     initial = {}
 
-    def first_experts(backbone):
-        p = backbone["stack"]["sub0"]["moe"]
-        return {"router": tree_checksum(p["router"]["w"]),
-                "wi": tree_checksum(p["wi"])}
+    def watched(backbone):
+        """Leaves the FR gradient must reach: the MoE router and experts
+        (stacked over the layers), or layer 0's SSD input projection,
+        decay, step bias and conv."""
+        sub = backbone["stack"]["sub0"]
+        if moe:
+            return {"router": tree_checksum(sub["moe"]["router"]["w"]),
+                    "wi": tree_checksum(sub["moe"]["wi"])}
+        if ssm:
+            return {k: tree_checksum(tr._index({k: sub["ssd"][k]}, 0))
+                    for k in ("x_proj", "A_log", "dt_bias", "conv_x")}
+        return {}
 
     def init_fn():
-        st = ts.init_state(torch.Generator(device="cuda").manual_seed(0),
-                           entry, cfg, tcfg, policy, device="cuda")
+        st = ts.init_state(
+            torch.Generator(device="cuda").manual_seed(0), entry,
+            cfg if drawn is None else dc.replace(cfg, n_layers=drawn),
+            tcfg, policy, device="cuda")
+        if drawn is not None:
+            st = first_layers(st, cfg.n_rep)
         initial["checksum"] = tree_checksum(st["backbone"])
         initial["params"] = count_params(st["backbone"])
-        if moe:
-            initial["experts"] = first_experts(st["backbone"])
+        initial["watched"] = watched(st["backbone"])
         return st
 
     def step_fn(state, batch):
@@ -1079,9 +1320,15 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
         raise AssertionError(f"{label} path launched kernels {counts}; with "
                              f"flash off and no BFP op it launches none")
     batch = cuda_batch(cfg, seq, batch_size, 0)
+    moved = {k: v != initial["watched"][k]
+             for k, v in watched(report.state["backbone"]).items()}
+    if ssm:
+        print(f"{label}_moved: stack/sub0/ssd layer 0 changed "
+              f"{json.dumps(moved)}", flush=True)
+        if not all(moved.values()):
+            raise AssertionError(f"{label} path: the gradient did not reach "
+                                 f"layer 0's SSD leaves: {moved}")
     if moe:
-        moved = {k: v != initial["experts"][k]
-                 for k, v in first_experts(report.state["backbone"]).items()}
         # the step's objective (metrics["loss"] is the cross-entropy alone)
         with torch.no_grad():
             total, ms = ts.make_loss_fn(entry, cfg, tcfg, policy)(
@@ -1121,7 +1368,7 @@ def run_moe_top1_path() -> dict:
     attention loss on the final state and the first batch."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.cells import duplex_tcfg
-    from repro_torch.models import layers as L, registry
+    from repro_torch.models import layers as L, moe, registry
     from repro_torch.train import loop, train_step as ts
     from repro_torch.utils import count_params, tree_checksum
     arch, steps = "llama4-maverick-400b-a17b", 2
@@ -1159,7 +1406,7 @@ def run_moe_top1_path() -> dict:
     after = tree_checksum(backbone)
     batch = cuda_batch(cfg, 4096, 2, report.metrics_history[0]["step"])
     first = []     # the backbone is frozen: step 0's MoE input again
-    with torch.no_grad(), first_moe_input(first):
+    with torch.no_grad(), first_call(moe, "moe_apply", first):
         entry.module.forward(backbone, cfg, batch["tokens"], policy=policy)
         keep, cap, g = routing(*first[0], policy)
     dropped = 1.0 - float(keep.float().mean())
@@ -1358,6 +1605,7 @@ def main() -> int:
     check_bfp(gen)
     check_bfp_stages(gen)
     f1_check()
+    ssd_check()
     bfp = run_bfp_path()     # before the step, and freed: its peak stands
     main_path, run = run_main_path()
     del run          # each path frees its state: its peak stands alone
@@ -1375,6 +1623,12 @@ def main() -> int:
                   seq=2048)
     starcoder2, run = run_main_path("starcoder2-7b", label="starcoder2")
     del run
+    mamba2, run = run_main_path("mamba2-780m", label="mamba2")
+    report_ssd_mixers(run, "mamba2")
+    del run
+    drawn, kept = reckon_full_depth("mamba2-780m", "mamba2_full")
+    run_full_path(mamba2, "mamba2-780m", kept, label="mamba2_full",
+                  drawn=drawn)
     run_resume_path()
     run_arms()
 
@@ -1390,7 +1644,8 @@ def main() -> int:
                              "moe_path": moe_path["launches"],
                              "moe_top1_path": top1["launches"],
                              "gemma2_path": gemma2["launches"],
-                             "starcoder2_path": starcoder2["launches"]},
+                             "starcoder2_path": starcoder2["launches"],
+                             "mamba2_path": mamba2["launches"]},
         **{name: {k: row[k] for k in (
             "q", "kv", "softcap", "max_abs_err", "kernel_ms", "plain_ms",
             "bound_ms", "bound_by", "library", "library_ms",

@@ -4,10 +4,10 @@ Counterpart of ``repro/models/transformer.py:33-277``.  The repeating layer
 pattern's params are stacked on a leading ``n_rep`` axis (the JAX package's
 scan layout, ``params["stack"]["sub<i>"]``) and the forward walks it with a
 Python loop; remainder layers run unrolled.  The port covers ``attn``
-and ``local`` (sliding-window) layers with dense or MoE channel mixers;
-the other layer kinds raise ``NotImplementedError``.  Serving
-(``prefill``/``decode_step``) is not ported yet (ROADMAP §1 item 3,
-'Serving').
+and ``local`` (sliding-window) layers with dense or MoE channel mixers, and
+``ssd`` (Mamba-2) layers; the other layer kinds raise
+``NotImplementedError``.  Serving (``prefill``/``decode_step``) is not
+ported yet (ROADMAP §1 item 3, 'Serving').
 """
 from __future__ import annotations
 
@@ -17,14 +17,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.common import LayerSpec, ModelConfig
-from repro_torch.models import layers as L, moe as moe_mod
+from repro_torch.models import layers as L, moe as moe_mod, ssm
 
-_PORTED_KINDS = ("attn", "local")
+_PORTED_KINDS = ("attn", "local", "ssd")
 _PORTED_MLPS = ("dense", "moe", "none")
 # the ROADMAP §1 'Modules to port' item that ports each layer kind still
 # missing; the registry names an unported arch's item through it too
-KIND_ITEMS = {"ssd": "2(b) (models/ssm.py: Mamba-2 SSD)",
-              "lru": "2(c) (models/hybrid.py: RG-LRU)",
+KIND_ITEMS = {"lru": "2(c) (models/hybrid.py: RG-LRU)",
               "cross": "2(d) (cross-attention, models/encdec.py)"}
 
 
@@ -74,6 +73,12 @@ def attn_cfg_for(cfg: ModelConfig, spec: LayerSpec) -> L.AttnConfig:
     )
 
 
+def _ssd_cfg(cfg: ModelConfig) -> ssm.SSDConfig:
+    return ssm.SSDConfig(
+        d_model=cfg.d_model, d_state=cfg.ssm_state, headdim=cfg.ssm_headdim,
+        expand=cfg.ssm_expand, conv_width=cfg.conv_width, chunk=cfg.ssm_chunk)
+
+
 def _moe_cfg(cfg: ModelConfig) -> moe_mod.MoEConfig:
     return moe_mod.MoEConfig(
         d_model=cfg.d_model, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
@@ -97,10 +102,13 @@ def sinusoidal_embed(positions: torch.Tensor, d: int) -> torch.Tensor:
 def _sub_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
               **kw) -> dict:
     _check_spec(spec)
-    p: dict = {"norm": _norm_init(cfg, cfg.d_model, **kw),
-               "attn": L.attn_init(gen, attn_cfg_for(cfg, spec), **kw)}
-    if cfg.post_norm:
-        p["post_norm"] = _norm_init(cfg, cfg.d_model, **kw)
+    p: dict = {"norm": _norm_init(cfg, cfg.d_model, **kw)}
+    if spec.kind == "ssd":
+        p["ssd"] = ssm.ssd_init(gen, _ssd_cfg(cfg), **kw)
+    else:
+        p["attn"] = L.attn_init(gen, attn_cfg_for(cfg, spec), **kw)
+        if cfg.post_norm:
+            p["post_norm"] = _norm_init(cfg, cfg.d_model, **kw)
     if spec.mlp == "dense":
         p["mlp_norm"] = _norm_init(cfg, cfg.d_model, **kw)
         p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff,
@@ -135,10 +143,14 @@ def _sub_apply(p, h, spec, cfg, *, policy, bfp, positions):
     """Full-sequence sublayer (train / scoring). Returns (h, aux)."""
     _check_spec(spec)
     u = _norm(cfg, p["norm"], h)
-    y = L.attention_layer(p["attn"], u, attn_cfg_for(cfg, spec),
-                          policy=policy, bfp=bfp, positions=positions)
-    if cfg.post_norm:
-        y = _norm(cfg, p["post_norm"], y)
+    if spec.kind == "ssd":
+        y, _ = ssm.ssd_block(p["ssd"], u, _ssd_cfg(cfg), policy=policy,
+                             bfp=bfp)
+    else:
+        y = L.attention_layer(p["attn"], u, attn_cfg_for(cfg, spec),
+                              policy=policy, bfp=bfp, positions=positions)
+        if cfg.post_norm:
+            y = _norm(cfg, p["post_norm"], y)
     return _apply_mlp(p, h + y, spec, cfg, policy, bfp)
 
 

@@ -30,7 +30,8 @@ def test_every_module_imports_with_jax_and_repro_masked():
     for m in ("optim.schedule", "ckpt.checkpoint", "ckpt.msgpack_lite",
               "bench.common", "bench.table2_accuracy",
               "examples.train_duplex_lm", "models.moe",
-              "configs.granite_moe_1b", "configs.llama4_maverick"):
+              "configs.granite_moe_1b", "configs.llama4_maverick",
+              "models.ssm", "configs.mamba2_780m"):
         assert f"repro_torch.{m}" in mods
     masked = ("jax", "repro", "msgpack")
     code = (

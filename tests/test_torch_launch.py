@@ -5,7 +5,8 @@ import math
 import pytest
 import torch
 
-from repro_torch.kernels import flash_attention as tf
+from repro_torch.kernels import bfp_matmul as bm, bfp_quant as bq, \
+    flash_attention as tf
 from repro_torch.launch import train
 
 
@@ -120,6 +121,36 @@ def test_local_attention_archs_step_on_cpu(arch):
     assert out["backbone_checksum"][0] == out["backbone_checksum"][1]
     assert out["branch_max_abs_change"] > 0
     assert tf.flash_attention.launches == before
+
+
+@pytest.mark.parametrize("mode", ["duplex", "full"])
+def test_mamba2_steps_on_cpu_launch_no_kernel(mode):
+    """mamba2 (attention-free) through the launcher on the CPU, in both
+    modes: finite losses, the backbone frozen in duplex and trained in
+    full mode, and no kernel launched (its step reaches none)."""
+    counters = (tf.flash_attention, bm.bfp_matmul, bq.bfp_quantize,
+                bq.bfp_matmul_packed)
+    before = [f.launches for f in counters]
+    out = train.main(["--arch", "mamba2-780m", "--preset", "smoke",
+                      "--mode", mode, "--steps", "2", "--seq", "20",
+                      "--batch", "2", "--device", "cpu", "--log-every", "1"])
+    report = out["report"]
+    assert report.steps_run == 2
+    assert all(math.isfinite(m["loss"]) for m in report.metrics_history)
+    bb_before, bb_after = out["backbone_checksum"]
+    assert (bb_before == bb_after) == (mode == "duplex")
+    assert [f.launches for f in counters] == before
+
+
+def test_full_preset_of_mamba2():
+    """``--preset full``: bf16 compute; flash is switched on in duplex mode
+    but mamba2 has no ``attn`` layer, so nothing reaches it."""
+    _, cfg, tcfg, policy = train.build("mamba2-780m", "full")
+    assert (cfg.n_layers, cfg.d_model, cfg.ssm_state, cfg.ssm_chunk) == \
+        (48, 1536, 128, 256)
+    assert all(s.kind == "ssd" for s in cfg.pattern + cfg.remainder)
+    assert policy.compute_dtype == torch.bfloat16
+    assert tcfg.backbone_dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("arch,head_dim", [("gemma2-9b", 256),

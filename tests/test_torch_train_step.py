@@ -32,10 +32,12 @@ from repro_torch.utils import tree_flatten, tree_unflatten
 JP32 = JL.Policy(compute_dtype=jnp.float32)
 TP32 = TL.Policy(compute_dtype=torch.float32)
 ARCHS = ["granite-3-8b", "qwen2-72b", "granite-moe-1b-a400m",
-         "llama4-maverick-400b-a17b", "gemma2-9b", "starcoder2-7b"]
-# the attention family of the slice after MoE: gemma2 (local + global
-# layers, softcaps, post-norms) and starcoder2 (layernorm, ungated gelu MLP)
-LOCAL_ARCHS = ["gemma2-9b", "starcoder2-7b"]
+         "llama4-maverick-400b-a17b", "gemma2-9b", "starcoder2-7b",
+         "mamba2-780m"]
+# the archs of the slices after MoE: gemma2 (local + global layers,
+# softcaps, post-norms), starcoder2 (layernorm, ungated gelu MLP) and the
+# attention-free mamba2 (ssd layers)
+LATER_ARCHS = ["gemma2-9b", "starcoder2-7b", "mamba2-780m"]
 
 
 def _configs(opt="sgd", bfp=None, microbatch=1, arch="granite-3-8b",
@@ -162,9 +164,15 @@ def test_trains_and_freezes_backbone():
     assert int(state["step"]) == 8
 
 
-def _duplex_sgd_steps_match_jax(arch, seed):
+@pytest.mark.parametrize("arch,seed", [("granite-moe-1b-a400m", 7),
+                                       ("gemma2-9b", 8), ("starcoder2-7b", 8),
+                                       ("mamba2-780m", 8)])
+def test_duplex_sgd_steps_match_jax(arch, seed):
     """3 duplex SGD steps: each step's loss, then the branch and optimizer
-    leaves; the frozen backbone stays as it came over."""
+    leaves; the frozen backbone (MoE, ssd layers and all) stays as it came
+    over.  The port's global layers run the flash path (the plain version
+    on the CPU), its local layers the windowed attention; JAX runs both
+    without flash."""
     jside, tside = _configs("sgd", arch=arch)
     st_np = _jax_state(jside, seed=seed)
     batch = _batch(jside[1].vocab, seed=seed)
@@ -179,20 +187,24 @@ def _duplex_sgd_steps_match_jax(arch, seed):
         np.testing.assert_array_equal(a.numpy(), b, err_msg=p)
 
 
-def test_moe_duplex_sgd_steps_match_jax():
-    """granite-moe SMOKE: the backbone, MoE layers and all, stays frozen."""
-    _duplex_sgd_steps_match_jax("granite-moe-1b-a400m", seed=7)
+def test_duplex_adamw_on_ssm_backbone_matches_jax():
+    """Counterpart of tests/test_train_step.py::test_duplex_on_ssm_backbone:
+    the technique applies to attention-free backbones too.  6 AdamW duplex
+    steps on mamba2 SMOKE from one bridged init, each loss equal to JAX's,
+    and the last below the first."""
+    jside, tside = _configs("adamw", arch="mamba2-780m", lr=3e-3,
+                            weight_decay=0.0)
+    st_np = _jax_state(jside, seed=3)
+    batch = _batch(jside[1].vocab, seed=3)
+    _, _, want_losses = _jax_full_steps(jside, st_np, batch, 6)
+    _, ms = _torch_step(tside, bridge.state_from_jax(st_np, "cpu"), batch,
+                        n=6)
+    losses = [m["loss"] for m in ms]
+    np.testing.assert_allclose(losses, want_losses, rtol=1e-5, atol=1e-6)
+    assert losses[-1] < losses[0], losses
 
 
-@pytest.mark.parametrize("arch", LOCAL_ARCHS)
-def test_duplex_sgd_steps_match_jax(arch):
-    """The port's global layers run the flash path (the plain version on
-    the CPU), its local layers the windowed attention; JAX runs both
-    without flash."""
-    _duplex_sgd_steps_match_jax(arch, seed=8)
-
-
-@pytest.mark.parametrize("arch", LOCAL_ARCHS)
+@pytest.mark.parametrize("arch", LATER_ARCHS)
 def test_forward_and_grad_match_jax(arch):
     """Counterpart of tests/test_arch_smoke.py::test_forward_and_grad: the
     next-token NLL (+ 0.01·aux) of the whole model on one batch, and its
@@ -267,6 +279,30 @@ def test_full_state_bridges_leaf_for_leaf(opt):
     for (p, got), (_, want) in zip(tree_flatten(bridged),
                                    tree_flatten(st_np)):
         np.testing.assert_array_equal(got.numpy(), want, err_msg=p)
+
+
+@pytest.mark.parametrize("mode", ["duplex", "full"])
+def test_mamba2_state_bridges_leaf_for_leaf(mode):
+    """The bridge needs no change for ssd layers: a JAX mamba2 state (duplex
+    with a bf16 backbone, as the launcher stores it, ``dt_bias``, ``A_log``
+    and ``D`` included; full in f32) crosses over value for value, with the
+    structure and dtypes of the port's own init."""
+    (je, jc, jt), (te, tc, tt) = _configs("sgd", arch="mamba2-780m",
+                                          mode=mode)
+    if mode == "duplex":
+        jt = dc.replace(jt, backbone_dtype=jnp.bfloat16)
+        tt = dc.replace(tt, backbone_dtype=torch.bfloat16)
+    st_np = _jax_state((je, jc, jt))
+    bridged = bridge.state_from_jax(st_np, "cpu")
+    own = tts.init_state(torch.Generator().manual_seed(0), te, tc, tt, TP32)
+    sig = lambda s: [(p, tuple(x.shape), x.dtype) for p, x in tree_flatten(s)]
+    assert sig(bridged) == sig(own)
+    ssd = own["backbone"]["stack"]["sub0"]["ssd"]
+    assert ssd["dt_bias"].dtype == tt.backbone_dtype
+    for (p, got), (_, want) in zip(tree_flatten(bridge.to_numpy(bridged)),
+                                   tree_flatten(st_np)):
+        np.testing.assert_array_equal(got, np.asarray(want, got.dtype),
+                                      err_msg=p)
 
 
 def _jax_full_steps(jside, st_np, batch, n):

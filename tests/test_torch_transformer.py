@@ -1,9 +1,10 @@
 """repro_torch.models.transformer against repro.models.transformer at 2e-5
 (the MoE aux loss at rtol 1e-5 / atol 1e-6) on the granite, qwen2,
-granite-moe, llama4, gemma2 and starcoder2 smoke configs.  gemma2
+granite-moe, llama4, gemma2, starcoder2 and mamba2 smoke configs.  gemma2
 alternates sliding-window ``local`` layers with global ``attn`` layers
 (softcaps, post-norms, gelu, embedding scale); starcoder2 has layernorm,
-qkv bias and an ungated gelu MLP.
+qkv bias and an ungated gelu MLP; mamba2 is attention-free (``ssd`` layers
+with no channel mixer).
 
 The port runs with ``use_flash`` on and off; both are held against JAX with
 ``use_flash=False``: JAX's transformer cannot run its flash path on a CPU
@@ -29,7 +30,8 @@ TP32 = TL.Policy(compute_dtype=torch.float32)
 TOL = dict(rtol=2e-5, atol=2e-5)
 AUX_TOL = dict(rtol=1e-5, atol=1e-6)   # the stack-summed MoE aux loss
 ARCHS = ["granite-3-8b", "qwen2-72b", "granite-moe-1b-a400m",
-         "llama4-maverick-400b-a17b", "gemma2-9b", "starcoder2-7b"]
+         "llama4-maverick-400b-a17b", "gemma2-9b", "starcoder2-7b",
+         "mamba2-780m"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -147,15 +149,14 @@ def test_full_configs_are_copies():
             assert j == t, name
 
 
-@pytest.mark.parametrize("name", ["mamba2-780m", "recurrentgemma-9b",
-                                  "whisper-base", "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "whisper-base",
+                                  "llama-3.2-vision-90b"])
 def test_unported_archs_raise_naming_the_roadmap(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         treg.get(name)
 
 
-@pytest.mark.parametrize("kind,item", [("ssd", "2(b)"), ("lru", "2(c)"),
-                                       ("cross", "2(d)")])
+@pytest.mark.parametrize("kind,item", [("lru", "2(c)"), ("cross", "2(d)")])
 def test_unported_layer_kind_raises(kind, item):
     cfg = dc.replace(treg.get("granite-3-8b").smoke,
                      pattern=(ttr.LayerSpec(kind, "none"),), ssm_state=16,
@@ -163,3 +164,25 @@ def test_unported_layer_kind_raises(kind, item):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP .* item {re.escape(item)}"):
         ttr.init_params(torch.Generator().manual_seed(0), cfg)
+
+
+def test_ssd_pattern_on_granite_widths_runs():
+    """The ``ssd`` kind is ported: a pattern of ssd layers with dense MLPs
+    on granite's smoke widths initialises and runs forward as JAX's does."""
+    kw = dict(pattern=(ttr.LayerSpec("ssd", "dense"),), ssm_state=16,
+              ssm_headdim=8, ssm_chunk=8)
+    jcfg = dc.replace(jreg.get("granite-3-8b").smoke, **kw)
+    cfg = dc.replace(treg.get("granite-3-8b").smoke, **kw)
+    params = jax.tree_util.tree_map(
+        np.asarray, jtr.init_params(jax.random.PRNGKey(2), jcfg))
+    own = ttr.init_params(torch.Generator().manual_seed(0), cfg)
+    assert [(p, tuple(x.shape)) for p, x in tree_flatten(own)] == \
+        [(p, x.shape) for p, x in tree_flatten(params)]
+    assert "attn" not in own["stack"]["sub0"]
+    tokens = np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 12)).astype(np.int32)
+    want = jtr.forward(jax.tree_util.tree_map(jnp.asarray, params), jcfg,
+                       jnp.asarray(tokens), policy=JP32)["hidden"]
+    got = ttr.forward(bridge.to_torch(params, "cpu"), cfg,
+                      torch.from_numpy(tokens).long(), policy=TP32)["hidden"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
