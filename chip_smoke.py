@@ -91,19 +91,45 @@ Phases, each printing its numbers on lines of their own:
      (``mamba2_full_exponents``); the path must move
      layer 0's ``x_proj``, ``A_log``, ``dt_bias`` and ``conv_x``
      (``mamba2_full_moved``);
-  11. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
+  11. ``whisper_path``: the duplex step of phase 5 on whisper-base at full
+     width and depth (6 encoder and 12 decoder layers, d 512, 8 heads of
+     64; the decoder alternates causal ``attn`` layers with ``cross``
+     layers over the encoder's output) with the launcher's stub frames
+     [2, 1500, 512] in bf16, B=2 x S=4096, 3 steps: 6 flash launches a step
+     (the decoder's ``attn`` layers; the encoder keeps flash off and the
+     cross layers never take it: both run the blockwise f32 path), the
+     flash loss against plain attention with the same frames, one step
+     profiled, and one encoder layer's, one cross layer's and one decoder
+     ``attn`` layer's attention time and share of the step
+     (``whisper_attention``); then ``whisper_full_path``: the FR step of
+     phase 7 on whisper-base whole, B=4 x S=1024, with frames, which must
+     move layer 0's encoder ``attn/wq`` and decoder cross layer's
+     ``attn/wk`` and ``mlp/wi`` (``whisper_full_moved``); then
+     ``vision_path``: llama-3.2-vision-90b at full width, depth cut to one
+     superblock, 5 of 100 layers (4 ``attn`` + 1 ``cross``, 5.33 G params,
+     10.66 GB in bf16), the duplex step with flash on and the launcher's
+     stub ``cross_kv`` [2, 1600, 8192] in bf16, B=2 x S=4096, 2 steps: 4
+     flash launches a step, the flash loss against plain attention, and a
+     line saying why its FR step is not run (f32 params, gradients and
+     momentum of one superblock alone are 63.9 GB); then
+     ``vision_causality``: on that final state, token 4000 of the first
+     batch changed, the largest change of the hidden state at positions
+     0-3999 with the stub frontend (must be 0) and without one (printed:
+     the reference's cross layer then attends to its own input,
+     non-causally);
+  12. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
      on, B=2 x S=4096: 4 steps straight; then 2 steps saving a checkpoint
      every 2 into a directory that is removed afterwards, whose restored
      state must equal the saved one bit for bit; then a run to 4 steps that
      must resume from step 2 and match the straight run's steps 2-3 and
      final branch (rtol 1e-5, atol 1e-6); save and restore times in s and
      GB/s;
-  12. ``arms``: ``repro_torch.bench.table2_accuracy`` on the card with the
+  13. ``arms``: ``repro_torch.bench.table2_accuracy`` on the card with the
      reference's step counts: each arm's validation loss and accuracy, the
      ordering row, the wall time;
-  13. one JSON line with every kernel's numbers, the card line again, and
+  14. one JSON line with every kernel's numbers, the card line again, and
      the last line {"ok": true, "device": {...}}.
-Each of the paths 4-12 zeroes every kernel's launch count just before it
+Each of the paths 4-13 zeroes every kernel's launch count just before it
 and reads the counts just after.
 Any failure raises and the exit code is not 0.  Without a CUDA device it
 exits with code 2 before printing any result.
@@ -178,6 +204,11 @@ def tree_nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
+def frontend_shapes(fe) -> str:
+    """A stub frontend's shapes as JSON (null for none)."""
+    return json.dumps(fe and {k: list(v.shape) for k, v in fe.items()})
+
+
 def attention_flops(b, h, sq, skv, d, causal):
     """The (query, key) pairs these inputs need (the causal triangle,
     top-left aligned) at 4·d FLOPs each."""
@@ -205,9 +236,11 @@ def attention_bound_ms(b, h, kv, sq, skv, d, causal, dtype):
 # waves), and the same without the cap, which reads what the cap costs the
 # kernel; d=256 with Sq/Skv off the tiles; starcoder2-7b's attention (GQA
 # ratio 9, odd, multi-wave); non-causal with Skv < Sq; f32 (the SIMT
-# kernel), at d=256 with softcap too; and the V-layout probes: q = 0, so
+# kernel), at d=256 with softcap too; the V-layout probes: q = 0, so
 # every output row is the mean of V's rows, which a wrong MN-major V
-# descriptor cannot give.  The rows in VIEW_ROWS take their inputs as
+# descriptor cannot give; whisper-base's decoder self-attention (MHA,
+# GQA ratio 1, d=64) and llama-3.2-vision-90b's (64 heads, GQA ratio 8,
+# the most heads of any path).  The rows in VIEW_ROWS take their inputs as
 # attention_layer passes them on the main path: [B,S,H,d] tensors seen as
 # [B,H,S,d], so q's sequence stride is H*d and k/v's KV*d.
 FLASH_CASES = [
@@ -230,6 +263,10 @@ FLASH_CASES = [
      20),
     ("starcoder2_h36", 2, 36, 4, 4096, 4096, 128, True, None, torch.bfloat16,
      10),
+    ("whisper_mha_d64", 2, 8, 8, 4096, 4096, 64, True, None, torch.bfloat16,
+     10),
+    ("vision_h64", 2, 64, 8, 4096, 4096, 128, True, None, torch.bfloat16,
+     10),
     ("short_kv_noncausal_bf16", 1, 8, 2, 512, 320, 128, False, None,
      torch.bfloat16, 20),
     ("v_probe_bf16", 1, 4, 4, 128, 128, 128, False, None, torch.bfloat16,
@@ -241,7 +278,8 @@ FLASH_CASES = [
     ("softcap_d256_f32", 1, 8, 2, 200, 328, 256, True, 50.0, torch.float32,
      10),
 ]
-VIEW_ROWS = ("gemma2_d256", "gemma2_d256_nocap", "starcoder2_h36")
+VIEW_ROWS = ("gemma2_d256", "gemma2_d256_nocap", "starcoder2_h36",
+             "whisper_mha_d64", "vision_h64")
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # relative Frobenius error ||kernel - plain|| / ||plain||, over all rows and
 # over the query rows past Sq/2.  The elementwise criterion is loose where
@@ -780,8 +818,10 @@ def routing(params, x, mcfg, policy):
 
 
 def flash_layers(cfg) -> int:
-    """The layers that run the flash kernel: the ``attn`` ones (``local``
-    layers keep their window on the blockwise path, as the reference's)."""
+    """The layers that run the flash kernel: the ``attn`` ones of ``cfg``'s
+    own stack (``local`` layers keep their window on the blockwise path and
+    ``cross`` layers are never flash, as the reference's; an encoder,
+    ``cfg.encoder``, keeps ``use_flash`` off)."""
     return cfg.n_rep * sum(s.kind == "attn" for s in cfg.pattern) + \
         sum(s.kind == "attn" for s in cfg.remainder)
 
@@ -789,8 +829,9 @@ def flash_layers(cfg) -> int:
 def run_main_path(arch: str = "granite-3-8b", label: str = "main"):
     """The duplex step through the launcher at full width and depth, B=2,
     S=4096, 3 steps: granite-3-8b (``main``), granite-moe-1b-a400m
-    (``moe``), gemma2-9b (``gemma2``), starcoder2-7b (``starcoder2``) or
-    mamba2-780m (``mamba2``).
+    (``moe``), gemma2-9b (``gemma2``), starcoder2-7b (``starcoder2``),
+    mamba2-780m (``mamba2``) or whisper-base (``whisper``: 6 encoder and 12
+    decoder layers, the launcher's stub frames [2, 1500, 512] in bf16).
     Returns the path's numbers and its run (entry, configs, final state,
     batches), which the caller reads further and then drops, so that the
     next path's peak stands alone."""
@@ -816,8 +857,12 @@ def run_main_path(arch: str = "granite-3-8b", label: str = "main"):
         print(f"{label}_step {m['step']}: loss {m['loss']!r} step_time_s "
               f"{m['step_time_s']!r} grad_norm {m['grad_norm']!r}")
     n_attn = flash_layers(cfg)
+    fe = out["frontend"]
     print(f"{label}_path: arch {arch} layers {cfg.n_layers} of "
-          f"{entry.full.n_layers} (flash layers {n_attn}) batch 2 seq 4096 "
+          f"{entry.full.n_layers} encoder_layers "
+          f"{cfg.encoder.n_layers if cfg.encoder else 0} frontend "
+          f"{frontend_shapes(fe)} "
+          f"(flash layers {n_attn}) batch 2 seq 4096 "
           f"steps {report.steps_run} wall_s {wall!r} "
           f"max_memory_allocated_bytes {peak} flash_launches {launches} "
           f"expected {n_attn * MAIN_STEPS} backbone_checksum "
@@ -839,7 +884,7 @@ def run_main_path(arch: str = "granite-3-8b", label: str = "main"):
     if not out["branch_max_abs_change"] > 0:
         raise AssertionError("branch params did not move")
 
-    batches = [cuda_batch(cfg, 4096, 2, m["step"])
+    batches = [cuda_batch(cfg, 4096, 2, m["step"], fe)
                for m in report.metrics_history]
     if n_attn:
         check_plain_attention(entry, cfg, tcfg, policy, report.state,
@@ -858,14 +903,18 @@ def run_main_path(arch: str = "granite-3-8b", label: str = "main"):
             "step_times": times}, run
 
 
-def cuda_batch(cfg, seq: int, batch: int, step: int) -> dict:
+def cuda_batch(cfg, seq: int, batch: int, step: int,
+               frontend: dict | None = None) -> dict:
     """Step ``step``'s batch of the synthetic data the launcher and the loop
-    read (seed 0), on the card."""
+    read (seed 0), on the card, with the run's stub ``frontend`` if any."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                   batch_per_host=batch, seed=0))
-    return {k: torch.as_tensor(v, device="cuda").long()
-            for k, v in data.batch(step).items()}
+    out = {k: torch.as_tensor(v, device="cuda").long()
+           for k, v in data.batch(step).items()}
+    if frontend is not None:
+        out["frontend"] = frontend
+    return out
 
 
 def check_plain_attention(entry, cfg, tcfg, policy, state, batch,
@@ -922,35 +971,65 @@ def report_moe_path(run: dict, label: str = "moe") -> None:
 
 
 def report_attention_layers(run: dict, label: str) -> None:
-    """Where a local + global model's attention time goes: one layer of each
-    kind of the first superblock, timed alone with CUDA events on the normed
-    embedding of the path's first batch, times its count in the stack, over
-    the step time (``<label>_attention`` line).  ``local`` layers keep their
-    window on the blockwise path, in f32 as the reference's; ``attn``
-    layers run the flash kernel."""
-    from repro_torch.models import layers as L, transformer as tr
+    """Where a model's attention time goes: the first layer of each
+    attention kind of each stack's first superblock, timed alone with CUDA
+    events on the normed input the path's first batch gives it, times its
+    count in the stack, over the step time (``<label>_attention`` line).
+    gemma2: ``local`` layers keep their window on the blockwise path, in f32
+    as the reference's, and ``attn`` layers run the flash kernel.  whisper:
+    the encoder's self-attention over the frames (non-causal, blockwise
+    f32), the decoder's ``cross`` layer (the tokens over the encoder's
+    output, blockwise f32) and its ``attn`` layer (causal, flash)."""
+    from repro_torch.models import encdec, layers as L, transformer as tr
     cfg, policy = run["cfg"], run["policy"]
     backbone = run["state"]["backbone"]
-    p0 = tr._index(backbone["stack"], 0)
-    tokens = run["batches"][0]["tokens"]
+    batch = run["batches"][0]
+    tokens = batch["tokens"]
     b, s = tokens.shape
     positions = torch.arange(s, device="cuda").expand(b, s)
     step_s = min(run["step_times"][1:])
     rows = {}
-    with torch.no_grad():
-        x = tr.embed_tokens(backbone, cfg, tokens, positions, policy)
-        for i, spec in enumerate(cfg.pattern):
-            sub = p0[f"sub{i}"]
-            acfg = tr.attn_cfg_for(cfg, spec)
-            u = tr._norm(cfg, sub["norm"], x)
+
+    def stack(c, params, x, pos, kv=None, prefix=""):
+        p0 = tr._index(params["stack"], 0)
+        for i, spec in enumerate(c.pattern):
+            if spec.kind not in ("attn", "local", "cross"):
+                continue
+            sub, acfg = p0[f"sub{i}"], tr.attn_cfg_for(c, spec)
+            u = tr._norm(c, sub["norm"], x)
+            kv_x = kv if spec.kind == "cross" else None
             ms = time_ms(lambda: L.attention_layer(
-                sub["attn"], u, acfg, policy=policy, positions=positions), 5)
-            n = cfg.n_rep * sum(sp.kind == spec.kind for sp in cfg.pattern)
-            rows[spec.kind] = {
-                "core": "flash kernel" if acfg.use_flash and
-                acfg.window is None else "blockwise f32",
-                "window": acfg.window, "layers": n, "layer_ms": ms,
+                sub["attn"], u, acfg, policy=policy, kv_x=kv_x,
+                positions=pos), 5)
+            keys = (u if kv_x is None else kv_x).shape[1]
+            core = ("flash kernel" if acfg.use_flash and acfg.window is None
+                    else "blockwise f32"
+                    if max(u.shape[1], keys) > acfg.blockwise_threshold
+                    else "full f32")
+            n = c.n_rep * sum(sp.kind == spec.kind for sp in c.pattern)
+            rows[prefix + spec.kind] = {
+                "core": core, "window": acfg.window, "queries": u.shape[1],
+                "keys": keys, "causal": acfg.causal and kv_x is None,
+                "layers": n, "layer_ms": ms,
                 "share_of_step": n * ms / 1e3 / step_s}
+
+    with torch.no_grad():
+        if cfg.encoder is None:
+            stack(cfg, backbone, tr.embed_tokens(backbone, cfg, tokens,
+                                                 positions, policy),
+                  positions)
+        else:
+            ecfg, frames = cfg.encoder, batch["frontend"]["frames"]
+            fpos = torch.arange(frames.shape[1], device="cuda").expand(
+                b, frames.shape[1])
+            h = frames.to(policy.compute_dtype)
+            h = h + tr.sinusoidal_embed(fpos, ecfg.d_model).to(h.dtype)
+            stack(ecfg, backbone["encoder"], h, fpos, prefix="encoder_")
+            stack(cfg, backbone["decoder"],
+                  tr.embed_tokens(backbone["decoder"], cfg, tokens,
+                                  positions, policy),
+                  positions, encdec.encode(backbone, cfg, frames,
+                                           policy=policy), "decoder_")
     print(f"{label}_attention: step_s {step_s!r} {json.dumps(rows)}",
           flush=True)
 
@@ -1240,9 +1319,14 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
     unembedding too; ``mamba2_full``: mamba2-780m at full width, B=4,
     S=1024, the first ``n_layers`` of a ``drawn``-layer init, as
     ``reckon_full_depth`` gives them, which also checks that layer 0's SSD
-    leaves moved.  ``duplex`` is the numbers of the same model's duplex
-    path, whose peak is printed beside."""
+    leaves moved; ``whisper_full``: whisper-base whole, B=4, S=1024, with
+    the launcher's stub frames, which also checks that layer 0's encoder
+    query projection, decoder cross-layer key projection (which reads only
+    the encoder's output) and that layer's MLP input moved.  ``duplex`` is
+    the numbers of the same model's duplex path, whose peak is printed
+    beside."""
     from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import loop_step, stub_frontend
     from repro_torch.models import layers as L, registry, transformer as tr
     from repro_torch.train import loop, train_step as ts
     from repro_torch.utils import count_params, tree_checksum
@@ -1253,12 +1337,24 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
     tcfg = ts.TrainConfig(mode="full")
     step = ts.make_train_step(entry, cfg, tcfg, policy)
     moe, ssm = cfg.family == "moe", cfg.family == "ssm"
+    encdec = cfg.encoder is not None
+    fe = stub_frontend(entry, cfg, batch_size, policy.compute_dtype, "cuda")
     initial = {}
 
     def watched(backbone):
         """Leaves the FR gradient must reach: the MoE router and experts
-        (stacked over the layers), or layer 0's SSD input projection,
-        decay, step bias and conv."""
+        (stacked over the layers), layer 0's SSD input projection, decay,
+        step bias and conv, or layer 0's encoder ``attn/wq`` and decoder
+        cross layer's ``attn/wk`` and ``mlp/wi``."""
+        if encdec:
+            enc = tr._index(backbone["encoder"]["stack"], 0)["sub0"]
+            i = [s.kind for s in cfg.pattern].index("cross")
+            cross = tr._index(backbone["decoder"]["stack"], 0)[f"sub{i}"]
+            return {"encoder/attn/wq": tree_checksum(enc["attn"]["wq"]),
+                    f"decoder/sub{i}/attn/wk": tree_checksum(
+                        cross["attn"]["wk"]),
+                    f"decoder/sub{i}/mlp/wi": tree_checksum(
+                        cross["mlp"]["wi"])}
         sub = backbone["stack"]["sub0"]
         if moe:
             return {"router": tree_checksum(sub["moe"]["router"]["w"]),
@@ -1280,10 +1376,6 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
         initial["watched"] = watched(st["backbone"])
         return st
 
-    def step_fn(state, batch):
-        return step(state, {k: torch.as_tensor(v, device="cuda").long()
-                            for k, v in batch.items()})
-
     data = DataConfig(vocab=cfg.vocab, seq_len=seq,
                       batch_per_host=batch_size, seed=0)
     torch.cuda.empty_cache()
@@ -1291,7 +1383,8 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
     zero_counts()
     t0 = time.perf_counter()
     report = loop.run(loop.LoopConfig(total_steps=MAIN_STEPS, log_every=1),
-                      data, step_fn, init_fn, log_fn=lambda s: None)
+                      data, loop_step(step, "cuda", fe), init_fn,
+                      log_fn=lambda s: None)
     wall = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -1303,7 +1396,10 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
     kinds = [s.kind for s in cfg.pattern] * cfg.n_rep + \
         [s.kind for s in cfg.remainder]
     print(f"{label}_path: arch {arch} layers {cfg.n_layers} of "
-          f"{entry.full.n_layers} kinds {json.dumps(kinds)} backbone_params "
+          f"{entry.full.n_layers} kinds {json.dumps(kinds)} encoder_layers "
+          f"{cfg.encoder.n_layers if encdec else 0} frontend "
+          f"{frontend_shapes(fe)} "
+          f"backbone_params "
           f"{initial['params']} batch {batch_size} seq {seq} steps "
           f"{report.steps_run} "
           f"wall_s {wall!r} max_memory_allocated_bytes {peak} "
@@ -1319,15 +1415,16 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
     if any(counts.values()):
         raise AssertionError(f"{label} path launched kernels {counts}; with "
                              f"flash off and no BFP op it launches none")
-    batch = cuda_batch(cfg, seq, batch_size, 0)
+    batch = cuda_batch(cfg, seq, batch_size, 0, fe)
     moved = {k: v != initial["watched"][k]
              for k, v in watched(report.state["backbone"]).items()}
-    if ssm:
-        print(f"{label}_moved: stack/sub0/ssd layer 0 changed "
-              f"{json.dumps(moved)}", flush=True)
+    if ssm or encdec:
+        where = "stack/sub0/ssd layer 0" if ssm else "layer 0"
+        print(f"{label}_moved: {where} changed {json.dumps(moved)}",
+              flush=True)
         if not all(moved.values()):
             raise AssertionError(f"{label} path: the gradient did not reach "
-                                 f"layer 0's SSD leaves: {moved}")
+                                 f"layer 0's leaves: {moved}")
     if moe:
         # the step's objective (metrics["loss"] is the cross-entropy alone)
         with torch.no_grad():
@@ -1357,26 +1454,28 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
     return {"peak_bytes": peak, "step_times": times}
 
 
-def run_moe_top1_path() -> dict:
-    """llama4-maverick-400b-a17b at full width (128 experts top-1 with a
-    shared expert, d 5120, 40 heads, kv 8, head dim 128, vocab 202,048),
-    depth cut to 1 of 48 layers (one layer's experts are 16.1 B params,
-    32.2 GB in bf16): the duplex step, flash on, B=2, S=4096, 2 steps,
-    through ``train.loop``; then the share of (token, pass)
-    assignments that the first step's MoE layer dropped, from the port's
-    routing of that layer's input, and the flash loss against the plain
-    attention loss on the final state and the first batch."""
+def run_cut_path(arch: str, n_layers: int, label: str,
+                 steps: int = 2) -> tuple:
+    """A model at full width with its depth cut to ``n_layers``: the duplex
+    step, flash on, B=2, S=4096, ``steps`` steps, through ``train.loop``,
+    every batch with the launcher's stub frontend if the arch has one; then
+    the flash loss against the plain attention loss on the final state and
+    the first batch.  Gates: finite losses, the backbone unchanged, the
+    branch moved, one flash launch per ``attn`` layer and step and no other
+    kernel.  Returns the path's numbers and its run (entry, configs, final
+    state, first batch), which the caller reads further and then drops."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.cells import duplex_tcfg
-    from repro_torch.models import layers as L, moe, registry
+    from repro_torch.launch.train import loop_step, stub_frontend
+    from repro_torch.models import layers as L, registry
     from repro_torch.train import loop, train_step as ts
-    from repro_torch.utils import count_params, tree_checksum
-    arch, steps = "llama4-maverick-400b-a17b", 2
+    from repro_torch.utils import count_params, tree_checksum, tree_leaves
     entry = registry.get(arch)
-    cfg = dc.replace(entry.full, n_layers=1, use_flash=True).validate()
+    cfg = dc.replace(entry.full, n_layers=n_layers, use_flash=True).validate()
     policy = L.Policy(compute_dtype=torch.bfloat16)
     tcfg = duplex_tcfg(cfg)
     step = ts.make_train_step(entry, cfg, tcfg, policy)
+    fe = stub_frontend(entry, cfg, 2, policy.compute_dtype, "cuda")
     initial = {}
 
     def init_fn():
@@ -1385,11 +1484,8 @@ def run_moe_top1_path() -> dict:
         initial["checksum"] = tree_checksum(st["backbone"])
         initial["params"] = count_params(st["backbone"])
         initial["bytes"] = tree_nbytes(st["backbone"])
+        initial["branch"] = [t.clone() for t in tree_leaves(st["branch"])]
         return st
-
-    def step_fn(state, batch):
-        return step(state, {k: torch.as_tensor(v, device="cuda").long()
-                            for k, v in batch.items()})
 
     data = DataConfig(vocab=cfg.vocab, seq_len=4096, batch_per_host=2,
                       seed=0)
@@ -1398,48 +1494,129 @@ def run_moe_top1_path() -> dict:
     zero_counts()
     t0 = time.perf_counter()
     report = loop.run(loop.LoopConfig(total_steps=steps, log_every=1),
-                      data, step_fn, init_fn, log_fn=lambda s: None)
+                      data, loop_step(step, "cuda", fe), init_fn,
+                      log_fn=lambda s: None)
     wall = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    backbone = report.state["backbone"]
-    after = tree_checksum(backbone)
-    batch = cuda_batch(cfg, 4096, 2, report.metrics_history[0]["step"])
-    first = []     # the backbone is frozen: step 0's MoE input again
-    with torch.no_grad(), first_call(moe, "moe_apply", first):
-        entry.module.forward(backbone, cfg, batch["tokens"], policy=policy)
-        keep, cap, g = routing(*first[0], policy)
-    dropped = 1.0 - float(keep.float().mean())
+    after = tree_checksum(report.state["backbone"])
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        initial.pop("branch"), tree_leaves(report.state["branch"])))
+    n_attn = flash_layers(cfg)
     for m in report.metrics_history:
-        print(f"moe_top1_step {m['step']}: loss {m['loss']!r} step_time_s "
+        print(f"{label}_step {m['step']}: loss {m['loss']!r} step_time_s "
               f"{m['step_time_s']!r} grad_norm {m['grad_norm']!r}",
               flush=True)
-    print(f"moe_top1_path: arch {arch} layers {cfg.n_layers} of "
-          f"{entry.full.n_layers} backbone_params {initial['params']} "
-          f"backbone_bytes {initial['bytes']} batch 2 seq 4096 "
-          f"steps {report.steps_run} wall_s {wall!r} "
-          f"max_memory_allocated_bytes {peak} group {g} capacity {cap} "
-          f"dropped_share {dropped!r} backbone_checksum "
-          f"{initial['checksum']} -> {after} launches {json.dumps(counts)}",
-          flush=True)
+    kinds = [s.kind for s in cfg.pattern] * cfg.n_rep + \
+        [s.kind for s in cfg.remainder]
+    print(f"{label}_path: arch {arch} layers {cfg.n_layers} of "
+          f"{entry.full.n_layers} kinds {json.dumps(kinds)} frontend "
+          f"{frontend_shapes(fe)} backbone_params {initial['params']} "
+          f"backbone_bytes {initial['bytes']} batch 2 seq 4096 steps "
+          f"{report.steps_run} wall_s {wall!r} max_memory_allocated_bytes "
+          f"{peak} flash_launches {counts['flash_attention']} expected "
+          f"{n_attn * steps} backbone_checksum {initial['checksum']} -> "
+          f"{after} branch_max_abs_change {moved!r} launches "
+          f"{json.dumps(counts)}", flush=True)
     losses = [m["loss"] for m in report.metrics_history]
     if len(losses) != steps or not all(map(math.isfinite, losses)):
-        raise AssertionError(f"moe_top1 path losses not finite: {losses}")
+        raise AssertionError(f"{label} path losses not finite: {losses}")
     if after != initial["checksum"]:
-        raise AssertionError("moe_top1 path: the backbone changed")
-    if counts["flash_attention"] != cfg.n_layers * steps or \
+        raise AssertionError(f"{label} path: the backbone changed")
+    if not moved > 0:
+        raise AssertionError(f"{label} path: the branch did not move")
+    if counts["flash_attention"] != n_attn * steps or \
             sum(counts.values()) != counts["flash_attention"]:
-        raise AssertionError(f"moe_top1 path launched {counts}; expected "
-                             f"{cfg.n_layers * steps} flash launches and no "
+        raise AssertionError(f"{label} path launched {counts}; expected "
+                             f"{n_attn * steps} flash launches and no "
                              f"other kernel")
+    batch = cuda_batch(cfg, 4096, 2, report.metrics_history[0]["step"], fe)
+    check_plain_attention(entry, cfg, tcfg, policy, report.state, batch,
+                          label)
+    run = {"entry": entry, "cfg": cfg, "policy": policy,
+           "state": report.state, "batch": batch,
+           "params": initial["params"]}
+    return {"launches": counts["flash_attention"], "peak_bytes": peak}, run
+
+
+def run_moe_top1_path() -> dict:
+    """llama4-maverick-400b-a17b at full width (128 experts top-1 with a
+    shared expert, d 5120, 40 heads, kv 8, head dim 128, vocab 202,048),
+    depth cut to 1 of 48 layers (one layer's experts are 16.1 B params,
+    32.2 GB in bf16), through ``run_cut_path``; then the share of (token,
+    pass) assignments that the first step's MoE layer dropped, from the
+    port's routing of that layer's input (``moe_top1_route`` line)."""
+    from repro_torch.models import moe
+    numbers, run = run_cut_path("llama4-maverick-400b-a17b", 1, "moe_top1")
+    first = []     # the backbone is frozen: step 0's MoE input again
+    with torch.no_grad(), first_call(moe, "moe_apply", first):
+        run["entry"].module.forward(run["state"]["backbone"], run["cfg"],
+                                    run["batch"]["tokens"],
+                                    policy=run["policy"])
+        keep, cap, g = routing(*first[0], run["policy"])
+    dropped = 1.0 - float(keep.float().mean())
+    print(f"moe_top1_route: layer 0 group {g} capacity {cap} dropped_share "
+          f"{dropped!r}", flush=True)
     if not 0.0 <= dropped < 1.0:
         raise AssertionError(f"moe_top1 path: dropped share {dropped}")
-    del first, keep
-    check_plain_attention(entry, cfg, tcfg, policy, report.state, batch,
-                          "moe_top1")
-    del report, backbone, batch
+    del first, keep, run
     torch.cuda.empty_cache()
-    return {"launches": counts["flash_attention"], "peak_bytes": peak}
+    return numbers
+
+
+VISION_LAYERS = 5       # one superblock of llama-3.2-vision: 4 attn + cross
+
+
+def run_vision_path() -> tuple:
+    """llama-3.2-vision-90b at full width (d 8192, 64 heads, kv 8, head dim
+    128, d_ff 28,672, vocab 128,256), depth cut to one superblock, 5 of 100
+    layers (4 ``attn`` + 1 ``cross``; 100 layers are 86.6 G params), through
+    ``run_cut_path`` with the launcher's stub ``cross_kv`` [2, 1600, 8192]
+    in bf16.  Returns the path's numbers and its run, which
+    ``vision_causality`` reads."""
+    numbers, run = run_cut_path("llama-3.2-vision-90b", VISION_LAYERS,
+                                "vision")
+    params = run["params"]
+    print(f"vision_full_path: not run: one superblock at full width is "
+          f"{params} params, so FR's f32 params, gradients and SGD momentum "
+          f"alone take {12 * params} bytes of the card's 80 GB before any "
+          f"activation; its full-mode steps are held against JAX on the CPU "
+          f"(tests/test_torch_encdec.py)", flush=True)
+    return numbers, run
+
+
+def vision_causality(run: dict, position: int = 4000) -> None:
+    """On the vision path's final state: change token ``position`` of the
+    first batch and read the largest change of the backbone's hidden state
+    at the positions before it, with the run's stub frontend (gated: 0,
+    since the cross layer reads the stub) and without a frontend (printed,
+    not gated: the cross layer then attends to its own input, non-causally,
+    as the reference's does)."""
+    entry, cfg, policy = run["entry"], run["cfg"], run["policy"]
+    backbone, batch = run["state"]["backbone"], run["batch"]
+    tokens = batch["tokens"]
+    late = tokens.clone()
+    late[:, position] = (late[:, position] + 1) % cfg.vocab
+
+    def change(frontend):
+        kw = {} if frontend is None else {"frontend": frontend}
+        with torch.no_grad():
+            a, b = (entry.module.forward(backbone, cfg, t, policy=policy,
+                                         **kw)["hidden"][:, :position]
+                    for t in (tokens, late))
+            return float((a.float() - b.float()).abs().max())
+
+    with_fe, without = change(batch["frontend"]), change(None)
+    print(f"vision_causality: changed token {position} of "
+          f"{tokens.shape[1]}; max |change| of the hidden state at positions "
+          f"0-{position - 1}: with_frontend {with_fe!r} "
+          f"without_frontend {without!r} (the reference's cross layer "
+          f"without a frontend attends to its own input, non-causally)",
+          flush=True)
+    if with_fe != 0.0:
+        raise AssertionError(f"vision_causality: with the stub frontend a "
+                             f"late token moved earlier hidden states by "
+                             f"{with_fe}")
 
 
 def run_resume_path() -> dict:
@@ -1449,6 +1626,7 @@ def run_resume_path() -> dict:
     from repro_torch.configs.granite_3_8b import FULL
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.cells import duplex_tcfg
+    from repro_torch.launch.train import loop_step
     from repro_torch.models import layers as L, registry
     from repro_torch.train import loop, train_step as ts
     from repro_torch.utils import tree_flatten
@@ -1463,15 +1641,11 @@ def run_resume_path() -> dict:
         return ts.init_state(torch.Generator(device="cuda").manual_seed(0),
                              entry, cfg, tcfg, policy, device="cuda")
 
-    def step_fn(state, batch):
-        return step(state, {k: torch.as_tensor(v, device="cuda").long()
-                            for k, v in batch.items()})
-
     def run(total, ckpt=None):
         return loop.run(loop.LoopConfig(total_steps=total, ckpt_every=2,
                                         ckpt=ckpt, log_every=1),
-                        data, step_fn, init_fn, log_fn=lambda s: None,
-                        device="cuda")
+                        data, loop_step(step, "cuda"), init_fn,
+                        log_fn=lambda s: None, device="cuda")
 
     zero_counts()
     straight = run(4)
@@ -1629,6 +1803,13 @@ def main() -> int:
     drawn, kept = reckon_full_depth("mamba2-780m", "mamba2_full")
     run_full_path(mamba2, "mamba2-780m", kept, label="mamba2_full",
                   drawn=drawn)
+    whisper, run = run_main_path("whisper-base", label="whisper")
+    report_attention_layers(run, "whisper")
+    del run
+    run_full_path(whisper, "whisper-base", None, label="whisper_full")
+    vision, run = run_vision_path()
+    vision_causality(run)
+    del run
     run_resume_path()
     run_arms()
 
@@ -1645,7 +1826,9 @@ def main() -> int:
                              "moe_top1_path": top1["launches"],
                              "gemma2_path": gemma2["launches"],
                              "starcoder2_path": starcoder2["launches"],
-                             "mamba2_path": mamba2["launches"]},
+                             "mamba2_path": mamba2["launches"],
+                             "whisper_path": whisper["launches"],
+                             "vision_path": vision["launches"]},
         **{name: {k: row[k] for k in (
             "q", "kv", "softcap", "max_abs_err", "kernel_ms", "plain_ms",
             "bound_ms", "bound_by", "library", "library_ms",
@@ -1656,7 +1839,10 @@ def main() -> int:
                              ("gemma2_shape_without_softcap",
                               flash_rows["gemma2_d256_nocap"]),
                              ("starcoder2_shape",
-                              flash_rows["starcoder2_h36"]))},
+                              flash_rows["starcoder2_h36"]),
+                             ("whisper_shape",
+                              flash_rows["whisper_mha_d64"]),
+                             ("vision_shape", flash_rows["vision_h64"]))},
     }]
     for name, replaces in BFP_REPLACES.items():
         kernels.append({

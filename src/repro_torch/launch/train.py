@@ -11,7 +11,14 @@ bf16 compute; in duplex mode the backbone is stored in bf16 and its
 attention runs the hand-written flash kernel (``use_flash=True``).  Full
 mode keeps f32 params and flash off, as the reference does: the kernel has
 no backward.  ``--preset smoke`` is the tiny f32 config.  Weights are
-random, drawn from seed 0 with a ``torch.Generator`` on the device.  With
+random, drawn from seed 0 with a ``torch.Generator`` on the device.  An
+arch with a stubbed frontend (whisper-base's audio frames,
+llama-3.2-vision-90b's image patch embeddings) is fed one stub per run, of
+``ArchEntry.frontend_shape``'s shape, ``randn * 0.1`` from its own
+generator on the device (seed 1), in bf16 under ``--preset full`` and f32
+under ``smoke``; every step's batch carries it.  Flash is switched on for
+the decoder stack only: whisper's encoder keeps the reference's
+``use_flash=False``.  With
 ``--ckpt-dir`` the loop saves every ``--ckpt-every`` steps and resumes from
 the latest checkpoint there.  There is no mesh: one card.
 """
@@ -52,9 +59,36 @@ def build(arch: str, preset: str, mode: str = "duplex"):
     return entry, cfg, tcfg, policy
 
 
+def stub_frontend(entry, cfg, batch: int, dtype: torch.dtype,
+                  device) -> dict | None:
+    """The run's stub frontend, shaped as the reference's ``input_specs``
+    (``frontend_shape``), drawn ``randn * 0.1`` from seed 1 on ``device``;
+    None for an arch without one."""
+    shapes = entry.frontend_shape(cfg, batch)
+    if shapes is None:
+        return None
+    gen = torch.Generator(device=device).manual_seed(1)
+    return {k: (torch.randn(v, generator=gen, device=device) * 0.1).to(dtype)
+            for k, v in sorted(shapes.items())}
+
+
+def loop_step(step, device, frontend: dict | None = None):
+    """``train.loop``'s step function: ``step`` on the data's batch, every
+    key cast to long on ``device``, with the run's stub ``frontend`` added
+    after the cast when there is one."""
+    def step_fn(state, batch):
+        batch = {k: torch.as_tensor(v, device=device).long()
+                 for k, v in batch.items()}
+        if frontend is not None:
+            batch["frontend"] = frontend
+        return step(state, batch)
+    return step_fn
+
+
 def main(argv=None) -> dict:
     """Parse ``argv``, train, and return ``{"report": LoopReport,
-    "backbone_checksum": (before, after), "branch_max_abs_change": x}``.
+    "backbone_checksum": (before, after), "branch_max_abs_change": x,
+    "frontend": the stub frontend or None}``.
     ``before`` and the branch's change are None when the run resumed from a
     checkpoint, and the change is None in full mode (no branch)."""
     ap = argparse.ArgumentParser()
@@ -78,6 +112,8 @@ def main(argv=None) -> dict:
                            "run on the CPU")
     entry, cfg, tcfg, policy = build(args.arch, args.preset, args.mode)
     step = ts.make_train_step(entry, cfg, tcfg, policy)
+    frontend = stub_frontend(entry, cfg, args.batch, policy.compute_dtype,
+                             device)
     initial = {}
 
     def init_fn():
@@ -88,10 +124,6 @@ def main(argv=None) -> dict:
             initial["branch"] = tree_map(torch.clone, st["branch"])
         return st
 
-    def step_fn(state, batch):
-        return step(state, {k: torch.as_tensor(v, device=device).long()
-                            for k, v in batch.items()})
-
     report = loop.run(
         loop.LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                         ckpt=(CheckpointConfig(args.ckpt_dir)
@@ -99,7 +131,7 @@ def main(argv=None) -> dict:
                         log_every=args.log_every, step_deadline_s=60.0),
         DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                    batch_per_host=args.batch, seed=0),
-        step_fn, init_fn, device=device)
+        loop_step(step, device, frontend), init_fn, device=device)
     final = report.state
     bb = (initial.get("backbone"), tree_checksum(final["backbone"]))
     moved = None
@@ -112,7 +144,7 @@ def main(argv=None) -> dict:
           f"{report.wall_s:.1f}s; backbone checksum {bb[0]} -> {bb[1]}; "
           f"branch max |change| {moved}")
     return {"report": report, "backbone_checksum": bb,
-            "branch_max_abs_change": moved}
+            "branch_max_abs_change": moved, "frontend": frontend}
 
 
 if __name__ == "__main__":

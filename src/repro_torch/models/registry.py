@@ -1,20 +1,24 @@
 """Architecture registry: --arch <id> → configs + model API.
 
-Counterpart of ``repro/models/registry.py``.  The port covers the dense
-and MoE attention families, local attention included, and the
-attention-free Mamba-2 (mamba2-780m); the other architectures of the JAX
-registry raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+Counterpart of ``repro/models/registry.py``.  Every entry exposes the same
+training API (``init_params``/``forward``/``lm_logits``) whatever its
+family: whisper-base dispatches to the enc-dec composition
+(``models/encdec.py``), everything else to the generic stack.  The port
+covers the dense, MoE, local-attention, Mamba-2, audio (whisper-base) and
+vision-language (llama-3.2-vision-90b) archs; recurrentgemma-9b raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 from repro_torch.configs import (gemma2_9b, granite_3_8b, granite_moe_1b,
-                                 llama4_maverick, mamba2_780m, qwen2_72b,
-                                 starcoder2_7b)
+                                 llama32_vision_90b, llama4_maverick,
+                                 mamba2_780m, qwen2_72b, starcoder2_7b,
+                                 whisper_base)
 from repro_torch.configs.common import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,30 +26,39 @@ class ArchEntry:
     name: str
     full: ModelConfig
     smoke: ModelConfig
-    module: object                      # transformer
+    module: object                      # transformer | encdec
 
     def config(self, preset: str = "full") -> ModelConfig:
         return self.full if preset == "full" else self.smoke
 
+    # frontend stubs -------------------------------------------------------
+    def frontend_shape(self, cfg: ModelConfig, batch: int) -> Optional[dict]:
+        if cfg.family == "audio":
+            return {"frames": (batch, cfg.n_frontend_tokens, cfg.frontend_dim)}
+        if cfg.family == "vlm":
+            return {"cross_kv": (batch, cfg.n_frontend_tokens,
+                                 cfg.frontend_dim)}
+        return None
+
 
 ARCHS: dict[str, ArchEntry] = {
-    name: ArchEntry(name=name, full=mod.FULL, smoke=mod.SMOKE,
-                    module=transformer)
-    for name, mod in (("granite-3-8b", granite_3_8b),
-                      ("qwen2-72b", qwen2_72b),
-                      ("granite-moe-1b-a400m", granite_moe_1b),
-                      ("llama4-maverick-400b-a17b", llama4_maverick),
-                      ("gemma2-9b", gemma2_9b),
-                      ("starcoder2-7b", starcoder2_7b),
-                      ("mamba2-780m", mamba2_780m))
+    name: ArchEntry(name=name, full=mod.FULL, smoke=mod.SMOKE, module=api)
+    for name, mod, api in (
+        ("granite-3-8b", granite_3_8b, transformer),
+        ("qwen2-72b", qwen2_72b, transformer),
+        ("granite-moe-1b-a400m", granite_moe_1b, transformer),
+        ("llama4-maverick-400b-a17b", llama4_maverick, transformer),
+        ("gemma2-9b", gemma2_9b, transformer),
+        ("starcoder2-7b", starcoder2_7b, transformer),
+        ("mamba2-780m", mamba2_780m, transformer),
+        ("whisper-base", whisper_base, encdec),
+        ("llama-3.2-vision-90b", llama32_vision_90b, transformer))
 }
 
 # Architectures of the JAX registry that the port does not cover yet, by
 # the layer kind they miss.
 NOT_PORTED: dict[str, str] = {
     "recurrentgemma-9b": transformer.roadmap_item("lru"),
-    "whisper-base": transformer.roadmap_item("cross"),
-    "llama-3.2-vision-90b": transformer.roadmap_item("cross"),
 }
 
 

@@ -3,11 +3,15 @@
 Counterpart of ``repro/models/transformer.py:33-277``.  The repeating layer
 pattern's params are stacked on a leading ``n_rep`` axis (the JAX package's
 scan layout, ``params["stack"]["sub<i>"]``) and the forward walks it with a
-Python loop; remainder layers run unrolled.  The port covers ``attn``
-and ``local`` (sliding-window) layers with dense or MoE channel mixers, and
-``ssd`` (Mamba-2) layers; the other layer kinds raise
-``NotImplementedError``.  Serving (``prefill``/``decode_step``) is not
-ported yet (ROADMAP §1 item 3, 'Serving').
+Python loop; remainder layers run unrolled.  The port covers ``attn``,
+``local`` (sliding-window) and ``cross`` layers with dense or MoE channel
+mixers, and ``ssd`` (Mamba-2) layers; the ``lru`` kind raises
+``NotImplementedError``.  A ``cross`` layer attends to
+``frontend["cross_kv"]`` (stub image embeddings, or the encoder's output in
+``models/encdec.py``) without rope and without a causal mask; given no
+frontend it attends to its own input, non-causally, as the reference's
+does.  Serving (``prefill``/``decode_step``) is not ported yet (ROADMAP §1
+item 3, 'Serving').
 """
 from __future__ import annotations
 
@@ -19,12 +23,11 @@ import torch.nn.functional as F
 from repro_torch.configs.common import LayerSpec, ModelConfig
 from repro_torch.models import layers as L, moe as moe_mod, ssm
 
-_PORTED_KINDS = ("attn", "local", "ssd")
+_PORTED_KINDS = ("attn", "local", "cross", "ssd")
 _PORTED_MLPS = ("dense", "moe", "none")
 # the ROADMAP §1 'Modules to port' item that ports each layer kind still
 # missing; the registry names an unported arch's item through it too
-KIND_ITEMS = {"lru": "2(c) (models/hybrid.py: RG-LRU)",
-              "cross": "2(d) (cross-attention, models/encdec.py)"}
+KIND_ITEMS = {"lru": "2(c) (models/hybrid.py: RG-LRU)"}
 
 
 def roadmap_item(kind: str) -> str:
@@ -139,7 +142,7 @@ def _apply_mlp(p, h, spec, cfg, policy, bfp):
     return h + y, aux
 
 
-def _sub_apply(p, h, spec, cfg, *, policy, bfp, positions):
+def _sub_apply(p, h, spec, cfg, *, policy, bfp, cross_kv, positions):
     """Full-sequence sublayer (train / scoring). Returns (h, aux)."""
     _check_spec(spec)
     u = _norm(cfg, p["norm"], h)
@@ -147,8 +150,10 @@ def _sub_apply(p, h, spec, cfg, *, policy, bfp, positions):
         y, _ = ssm.ssd_block(p["ssd"], u, _ssd_cfg(cfg), policy=policy,
                              bfp=bfp)
     else:
+        kv = cross_kv if spec.kind == "cross" else None
         y = L.attention_layer(p["attn"], u, attn_cfg_for(cfg, spec),
-                              policy=policy, bfp=bfp, positions=positions)
+                              policy=policy, bfp=bfp, kv_x=kv,
+                              positions=positions)
         if cfg.post_norm:
             y = _norm(cfg, p["post_norm"], y)
     return _apply_mlp(p, h + y, spec, cfg, policy, bfp)
@@ -195,11 +200,17 @@ def _index(tree, i):
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            frontend: dict | None = None,
             policy: L.Policy = L.Policy(), bfp: L.BFPPolicy = L.NO_BFP,
             collect_taps: bool = False, tap_indices=None,
-            tap_pool: int = 1) -> dict:
+            tap_pool: int = 1,
+            inputs_embeds: torch.Tensor | None = None) -> dict:
     """Full-sequence forward. Returns {hidden, taps, aux, emb}; ``aux`` is
     the f32 sum of the MoE layers' load-balancing losses (0 without MoE).
+
+    ``frontend["cross_kv"]`` ([B, T, D], as given) is what the ``cross``
+    layers attend to.  ``inputs_embeds`` ([B, S, D]) replaces the token
+    embedding, and sets the batch and the length (the encoder's frames).
 
     With ``tap_indices`` (+ ``tap_pool``) only the selected superblocks'
     hidden states are kept, pooled as the loop passes them:
@@ -207,11 +218,13 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     Without indices, ``collect_taps`` stacks every superblock's output.
     """
     from repro_torch.core.duplex import pool_seq   # local import, no cycle
-    b, s = tokens.shape[:2]
+    b, s = (tokens if inputs_embeds is None else inputs_embeds).shape[:2]
     dev = tokens.device
     positions = torch.arange(s, device=dev).expand(b, s)
-    h = embed_tokens(params, cfg, tokens, positions, policy)
+    h = (embed_tokens(params, cfg, tokens, positions, policy)
+         if inputs_embeds is None else inputs_embeds)
     emb = h
+    cross_kv = None if frontend is None else frontend.get("cross_kv")
     aux = torch.zeros((), dtype=torch.float32, device=dev)   # dense: adds 0
     taps = None
     if cfg.n_rep:
@@ -222,7 +235,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             p_rep = _index(params["stack"], step_i)
             for i, spec in enumerate(cfg.pattern):
                 h, a = _sub_apply(p_rep[f"sub{i}"], h, spec, cfg,
-                                  policy=policy, bfp=bfp, positions=positions)
+                                  policy=policy, bfp=bfp, cross_kv=cross_kv,
+                                  positions=positions)
                 if a is not None:
                     aux = aux + a
             if step_i in wanted:
@@ -235,7 +249,8 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             taps = torch.stack(every)                     # [n_rep,B,S,D]
     for i, spec in enumerate(cfg.remainder):
         h, a = _sub_apply(params["rem"][f"sub{i}"], h, spec, cfg,
-                          policy=policy, bfp=bfp, positions=positions)
+                          policy=policy, bfp=bfp, cross_kv=cross_kv,
+                          positions=positions)
         if a is not None:
             aux = aux + a
     h = _norm(cfg, params["final_norm"], h)

@@ -85,15 +85,14 @@ def make_loss_fn(entry, cfg: ModelConfig, tcfg: TrainConfig,
     backbone, batch)``, full ``(backbone, None, batch)``."""
     module = entry.module
 
-    def check_batch(batch):
-        if "frontend" in batch:
-            raise NotImplementedError("frontend stubs are not ported yet")
+    def frontend_kw(batch):
+        fe = batch.get("frontend")
+        return {} if fe is None else {"frontend": fe}
 
     if tcfg.mode != "duplex":
         def full_loss_fn(backbone, _unused, batch):
-            check_batch(batch)
             out = module.forward(backbone, cfg, batch["tokens"],
-                                 policy=policy)
+                                 policy=policy, **frontend_kw(batch))
             logits = module.lm_logits(backbone, cfg, out["hidden"], policy)
             loss, metrics = lm_cross_entropy(logits, batch["labels"],
                                              batch.get("mask"),
@@ -105,12 +104,11 @@ def make_loss_fn(entry, cfg: ModelConfig, tcfg: TrainConfig,
     idx = tap_indices(cfg.n_rep, tcfg.duplex.n_blocks)
 
     def loss_fn(branch, backbone, batch):
-        check_batch(batch)
         with torch.no_grad():
             out = module.forward(backbone, cfg, batch["tokens"],
                                  collect_taps=True, tap_indices=idx,
                                  tap_pool=tcfg.duplex.pool_factor,
-                                 policy=policy)
+                                 policy=policy, **frontend_kw(batch))
         corr = dx.duplex_apply(branch, tcfg.duplex, out["emb"], out["taps"],
                                policy=policy, taps_pooled=True)
         hidden = out["hidden"].detach() + corr
@@ -125,9 +123,12 @@ def make_train_step(entry, cfg: ModelConfig, tcfg: TrainConfig,
                     policy: L.Policy = L.Policy()):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
-    batch: {"tokens" [B,S] int, "labels" [B,S] int, optional "mask"}, as
-    tensors on the state's device.  The step returns a new state dict; the
-    given state's tensors are not modified.
+    batch: {"tokens" [B,S] int, "labels" [B,S] int, optional "mask",
+    optional "frontend" dict of stub embeddings ({"frames"} for an audio
+    arch, {"cross_kv"} for a vision-language one, each [B, T, D])}, as
+    tensors on the state's device.  With ``microbatch`` k every tensor,
+    the frontend's included, is split along its batch axis.  The step
+    returns a new state dict; the given state's tensors are not modified.
     """
     loss_fn = make_loss_fn(entry, cfg, tcfg, policy)
     trainable = "branch" if tcfg.mode == "duplex" else "backbone"
@@ -137,7 +138,9 @@ def make_train_step(entry, cfg: ModelConfig, tcfg: TrainConfig,
         leaves = [p.detach().requires_grad_() for p in leaves]
         loss, metrics = loss_fn(tree_unflatten(list(zip(paths, leaves))),
                                 frozen, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not read (whisper's encoder embedding) gets
+        # zeros, as under jax.grad
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return metrics, tree_unflatten(list(zip(paths, grads)))
 
@@ -145,8 +148,10 @@ def make_train_step(entry, cfg: ModelConfig, tcfg: TrainConfig,
         frozen = state["backbone"] if tcfg.mode == "duplex" else None
         if tcfg.microbatch > 1:
             k = tcfg.microbatch
-            mbs = [{n: x.reshape((k, x.shape[0] // k) + x.shape[1:])[j]
-                    for n, x in batch.items()} for j in range(k)]
+            split = tree_map(
+                lambda x: x.reshape((k, x.shape[0] // k) + x.shape[1:]),
+                batch)
+            mbs = [tree_map(lambda x: x[j], split) for j in range(k)]
             gsum, ms = None, []
             for mb in mbs:
                 metrics, g = grad_fn(state[trainable], frozen, mb)

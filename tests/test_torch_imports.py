@@ -31,7 +31,8 @@ def test_every_module_imports_with_jax_and_repro_masked():
               "bench.common", "bench.table2_accuracy",
               "examples.train_duplex_lm", "models.moe",
               "configs.granite_moe_1b", "configs.llama4_maverick",
-              "models.ssm", "configs.mamba2_780m"):
+              "models.ssm", "configs.mamba2_780m", "models.encdec",
+              "configs.whisper_base", "configs.llama32_vision_90b"):
         assert f"repro_torch.{m}" in mods
     masked = ("jax", "repro", "msgpack")
     code = (

@@ -206,3 +206,132 @@ def test_cuda_gemma2_duplex_step_matches_cpu():
                               tree_flatten(cpu_state["branch"])):
         torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5,
                                    msg=p)
+
+
+@pytest.mark.parametrize("mode", ["duplex", "full"])
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-90b"])
+def test_frontend_archs_step_on_cpu(arch, mode, monkeypatch):
+    """whisper (audio frames through the encoder) and llama-3.2-vision
+    (image patch embeddings for its cross layers) through the launcher on
+    the CPU, in both modes: every forward of the step is fed the run's one
+    stub frontend, of ``frontend_shape``'s shape, in f32 under ``smoke``;
+    finite losses, the backbone frozen in duplex and trained in full mode,
+    and no kernel launched."""
+    from repro_torch.models import registry
+
+    entry = registry.get(arch)
+    seen = []
+    plain = entry.module.forward
+
+    def forward(*args, **kw):
+        seen.append(kw.get("frontend"))
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(entry.module, "forward", forward)
+    counters = (tf.flash_attention, bm.bfp_matmul, bq.bfp_quantize,
+                bq.bfp_matmul_packed)
+    before = [f.launches for f in counters]
+    out = train.main(["--arch", arch, "--preset", "smoke", "--mode", mode,
+                      "--steps", "2", "--seq", "16", "--batch", "2",
+                      "--device", "cpu", "--log-every", "1"])
+    report = out["report"]
+    assert report.steps_run == 2
+    assert all(math.isfinite(m["loss"]) for m in report.metrics_history)
+    bb_before, bb_after = out["backbone_checksum"]
+    assert (bb_before == bb_after) == (mode == "duplex")
+    assert [f.launches for f in counters] == before
+    fe = out["frontend"]
+    shapes = entry.frontend_shape(entry.smoke, 2)
+    assert {k: tuple(v.shape) for k, v in fe.items()} == shapes
+    assert all(v.dtype == torch.float32 for v in fe.values())
+    assert len(seen) == 2 and all(s is fe for s in seen)
+
+
+def test_loop_step_casts_every_data_key_and_adds_the_frontend():
+    """The loop's step function casts every key the data gives (a ``mask``
+    too, which the loss reads) to long on the device, and adds the stub
+    frontend after that cast, as given: a float frontend is not cast."""
+    import numpy as np
+
+    seen = []
+    fe = {"frames": torch.randn(2, 3, 4)}
+    step_fn = train.loop_step(lambda st, b: seen.append(b) or (st, {}),
+                              "cpu", fe)
+    rng = np.random.default_rng(0)
+    data = {"tokens": rng.integers(0, 9, (2, 5), dtype=np.int32),
+            "labels": rng.integers(0, 9, (2, 5), dtype=np.int32),
+            "mask": np.ones((2, 5), np.float32)}
+    step_fn(None, data)
+    (batch,) = seen
+    assert sorted(batch) == ["frontend", "labels", "mask", "tokens"]
+    for k, v in data.items():
+        assert batch[k].dtype == torch.int64
+        assert torch.equal(batch[k], torch.as_tensor(v).long())
+    assert batch["frontend"] is fe
+    seen.clear()
+    train.loop_step(lambda st, b: seen.append(b) or (st, {}), "cpu")(
+        None, data)
+    assert "frontend" not in seen[0]
+
+
+def test_full_preset_of_whisper_keeps_the_encoder_off_flash():
+    """``--preset full`` turns flash on for the decoder's ``attn`` layers
+    (MHA, head dim 64) only: the encoder keeps the reference's
+    ``use_flash=False`` (its 1500 frames do not tile by the 512-query
+    chunk of the flash contract), and the cross layers never take flash.
+    The stub frames are bf16, [B, 1500, 512]."""
+    from repro_torch.models import transformer as tr
+
+    entry, cfg, tcfg, policy = train.build("whisper-base", "full")
+    assert cfg.use_flash and not cfg.encoder.use_flash
+    assert [tr.attn_cfg_for(cfg, s).use_flash for s in cfg.pattern] == \
+        [True, False]
+    assert (cfg.n_heads, cfg.n_kv, cfg.head_dim) == (8, 8, 64)
+    assert tcfg.duplex.n_blocks == 6 and tcfg.duplex.d_branch == 256
+    fe = train.stub_frontend(entry, cfg, 2, policy.compute_dtype, "cpu")
+    assert tuple(fe["frames"].shape) == (2, 1500, 512)
+    assert fe["frames"].dtype == torch.bfloat16
+    assert not train.build("whisper-base", "full", "full")[1].use_flash
+
+
+@pytest.mark.cuda
+def test_cuda_whisper_duplex_step_matches_cpu():
+    """One duplex step of whisper SMOKE with stub frames on the card against
+    the same step on the CPU: the decoder's ``attn`` layers launch the f32
+    flash kernel (head dim 64), the encoder and the cross layers run the
+    plain attention path.  BFP off, as in the tests above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import dataclasses as dc
+
+    from repro_torch.models import layers as L
+    from repro_torch.train import train_step as ts
+    from repro_torch.utils import tree_flatten, tree_map
+
+    entry, cfg, tcfg, policy = train.build("whisper-base", "smoke")
+    cfg = dc.replace(cfg, d_model=128, n_heads=2, n_kv=2, head_dim=64,
+                     frontend_dim=128, use_flash=True,
+                     encoder=dc.replace(cfg.encoder, d_model=128, n_heads=2,
+                                        n_kv=2, head_dim=64))
+    tcfg = dc.replace(tcfg, duplex=dc.replace(tcfg.duplex,
+                                              bfp=L.BFPPolicy(False)))
+    state = ts.init_state(torch.Generator().manual_seed(0), entry, cfg, tcfg,
+                          policy)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1),
+             "frontend": train.stub_frontend(entry, cfg, 2, torch.float32,
+                                             "cpu")}
+    step = ts.make_train_step(entry, cfg, tcfg, policy)
+    cpu_state, cpu_m = step(state, batch)
+    before = tf.flash_attention.launches
+    gpu_state, gpu_m = step(tree_map(lambda t: t.cuda(), state),
+                            tree_map(lambda t: t.cuda(), batch))
+    torch.cuda.synchronize()
+    assert tf.flash_attention.launches == before + cfg.n_rep
+    torch.testing.assert_close(gpu_m["loss"].cpu(), cpu_m["loss"],
+                               rtol=1e-4, atol=1e-5)
+    for (p, g), (_, c) in zip(tree_flatten(gpu_state["branch"]),
+                              tree_flatten(cpu_state["branch"])):
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5,
+                                   msg=p)

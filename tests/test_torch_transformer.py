@@ -1,6 +1,8 @@
 """repro_torch.models.transformer against repro.models.transformer at 2e-5
 (the MoE aux loss at rtol 1e-5 / atol 1e-6) on the granite, qwen2,
-granite-moe, llama4, gemma2, starcoder2 and mamba2 smoke configs.  gemma2
+granite-moe, llama4, gemma2, starcoder2 and mamba2 smoke configs (the
+frontend archs, whisper-base and llama-3.2-vision-90b, are held in
+test_torch_encdec.py; their init structure and configs here).  gemma2
 alternates sliding-window ``local`` layers with global ``attn`` layers
 (softcaps, post-norms, gelu, embedding scale); starcoder2 has layernorm,
 qkv bias and an ungated gelu MLP; mamba2 is attention-free (``ssd`` layers
@@ -32,6 +34,9 @@ AUX_TOL = dict(rtol=1e-5, atol=1e-6)   # the stack-summed MoE aux loss
 ARCHS = ["granite-3-8b", "qwen2-72b", "granite-moe-1b-a400m",
          "llama4-maverick-400b-a17b", "gemma2-9b", "starcoder2-7b",
          "mamba2-780m"]
+# with the frontend archs, whose forward takes a stub frontend
+# (test_torch_encdec.py holds it); whisper's params are enc-dec
+ALL_ARCHS = ARCHS + ["whisper-base", "llama-3.2-vision-90b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -129,34 +134,35 @@ def test_window_changes_the_local_layers():
     assert not torch.allclose(h, wide, rtol=1e-3, atol=1e-3)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ALL_ARCHS)
 def test_init_structure_matches_jax(name):
     want = jax.tree_util.tree_map(
-        np.asarray, jtr.init_params(jax.random.PRNGKey(0),
-                                    jreg.get(name).smoke))
-    got = ttr.init_params(torch.Generator().manual_seed(0),
-                          treg.get(name).smoke, dtype=torch.bfloat16)
+        np.asarray, jreg.get(name).module.init_params(jax.random.PRNGKey(0),
+                                                      jreg.get(name).smoke))
+    got = treg.get(name).module.init_params(
+        torch.Generator().manual_seed(0), treg.get(name).smoke,
+        dtype=torch.bfloat16)
     assert [(p, tuple(x.shape)) for p, x in tree_flatten(got)] == \
         [(p, x.shape) for p, x in tree_flatten(want)]
     assert all(x.dtype == torch.bfloat16 for _, x in tree_flatten(got))
 
 
 def test_full_configs_are_copies():
-    for name in ARCHS:
+    """Every field, whisper's ``encoder`` config included."""
+    for name in ALL_ARCHS:
         for preset in ("full", "smoke"):
             j = dc.asdict(jreg.get(name).config(preset))
             t = dc.asdict(treg.get(name).config(preset))
             assert j == t, name
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-9b", "whisper-base",
-                                  "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("name", ["recurrentgemma-9b"])
 def test_unported_archs_raise_naming_the_roadmap(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         treg.get(name)
 
 
-@pytest.mark.parametrize("kind,item", [("lru", "2(c)"), ("cross", "2(d)")])
+@pytest.mark.parametrize("kind,item", [("lru", "2(c)")])
 def test_unported_layer_kind_raises(kind, item):
     cfg = dc.replace(treg.get("granite-3-8b").smoke,
                      pattern=(ttr.LayerSpec(kind, "none"),), ssm_state=16,
@@ -185,4 +191,33 @@ def test_ssd_pattern_on_granite_widths_runs():
                        jnp.asarray(tokens), policy=JP32)["hidden"]
     got = ttr.forward(bridge.to_torch(params, "cpu"), cfg,
                       torch.from_numpy(tokens).long(), policy=TP32)["hidden"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_cross_pattern_on_granite_widths_runs():
+    """The ``cross`` kind is ported: a pattern of (attn, cross) layers with
+    dense MLPs on granite's smoke widths initialises and runs forward with
+    a ``cross_kv`` frontend (7 positions, GQA 4/2) as JAX's does; the cross
+    layer's params are an attention sublayer's."""
+    kw = dict(pattern=(ttr.LayerSpec("attn", "dense"),
+                       ttr.LayerSpec("cross", "dense")))
+    jcfg = dc.replace(jreg.get("granite-3-8b").smoke, **kw)
+    cfg = dc.replace(treg.get("granite-3-8b").smoke, **kw)
+    params = jax.tree_util.tree_map(
+        np.asarray, jtr.init_params(jax.random.PRNGKey(2), jcfg))
+    own = ttr.init_params(torch.Generator().manual_seed(0), cfg)
+    assert [(p, tuple(x.shape)) for p, x in tree_flatten(own)] == \
+        [(p, x.shape) for p, x in tree_flatten(params)]
+    assert set(own["stack"]["sub1"]) == set(own["stack"]["sub0"])
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+    cross_kv = (rng.standard_normal((2, 7, cfg.d_model)) * 0.1).astype(
+        np.float32)
+    want = jtr.forward(jax.tree_util.tree_map(jnp.asarray, params), jcfg,
+                       jnp.asarray(tokens), policy=JP32,
+                       frontend={"cross_kv": jnp.asarray(cross_kv)})["hidden"]
+    got = ttr.forward(bridge.to_torch(params, "cpu"), cfg,
+                      torch.from_numpy(tokens).long(), policy=TP32,
+                      frontend={"cross_kv": torch.from_numpy(cross_kv)}
+                      )["hidden"]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
