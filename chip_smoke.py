@@ -117,20 +117,37 @@ Phases, each printing its numbers on lines of their own:
      0-3999 with the stub frontend (must be 0) and without one (printed:
      the reference's cross layer then attends to its own input,
      non-causally);
-  12. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
+  12. serving, ROADMAP §1 item 3(a), on granite-3-8b: ``decode_check``,
+     one ``attn`` layer at full width (d 4096, 32 heads, kv 8, head dim
+     128), f32, B=4, ``attention_decode`` over a 2088-slot cache holding
+     2047 tokens on the card against the CPU (output and v at 1e-4, the
+     written k slot at 1e-3 beside rope's angle difference there);
+     ``serve_check``, the whole model at full width and depth in bf16,
+     B=4: ``prefill`` of 2047 tokens and one ``decode_step``, their logits
+     against ``forward`` + ``lm_logits`` at positions 2046 and 2047
+     (relative Frobenius 2e-2; argmax agreement printed), then a greedy
+     step under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
+     raises); ``serve_path``, the serving launcher
+     ``repro_torch.launch.serve`` at B=4 with 2048-token prompts and 32
+     generated tokens: prefill seconds, each decode step by CUDA events,
+     tok/s, the peaks beside the params' and the cache's bytes, a step's
+     byte bound (their sum over 3.35 TB/s), no kernel launched, every cache
+     ``len`` at 2079, the params unchanged, and one decode step profiled
+     (``serve_profile`` lines);
+  13. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
      on, B=2 x S=4096: 4 steps straight; then 2 steps saving a checkpoint
      every 2 into a directory that is removed afterwards, whose restored
      state must equal the saved one bit for bit; then a run to 4 steps that
      must resume from step 2 and match the straight run's steps 2-3 and
      final branch (rtol 1e-5, atol 1e-6); save and restore times in s and
      GB/s;
-  13. ``arms``: ``repro_torch.bench.table2_accuracy`` on the card with the
+  14. ``arms``: ``repro_torch.bench.table2_accuracy`` on the card with the
      reference's step counts: each arm's validation loss and accuracy, the
      ordering row, the wall time;
-  14. one JSON line with every kernel's numbers, the card line again, and
+  15. one JSON line with every kernel's numbers, the card line again, and
      the last line {"ok": true, "device": {...}}.
-Each of the paths 4-13 zeroes every kernel's launch count just before it
-and reads the counts just after.
+Each of the paths 4-14 (in 12, ``serve_path``) zeroes every kernel's launch
+count just before it and reads the counts just after.
 Any failure raises and the exit code is not 0.  Without a CUDA device it
 exits with code 2 before printing any result.
 """
@@ -140,6 +157,7 @@ import contextlib
 import dataclasses as dc
 import json
 import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1068,19 +1086,24 @@ def report_ssd_mixers(run: dict, label: str) -> None:
 
 
 def profile_step(entry, cfg, tcfg, policy, state, batch, label="profile"):
-    """One more step under torch.profiler: device time by kernel and the
-    device's busy share of the step's wall time, on ``<label>_step`` and
-    ``<label>_kernel`` lines."""
-    from torch.profiler import ProfilerActivity, profile
+    """One more step under torch.profiler (``profile_call``)."""
     from repro_torch.train import train_step as ts
     step = ts.make_train_step(entry, cfg, tcfg, policy)
-    step(state, batch)
+    profile_call(lambda: float(step(state, batch)[1]["loss"]), label)
+
+
+def profile_call(fn, label: str) -> dict:
+    """``fn()`` once, then once more under torch.profiler: device time by
+    kernel and the device's busy share of the call's wall time, on
+    ``<label>_step`` and ``<label>_kernel`` lines.  Returns the wall time,
+    the busy time and the share."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, m = step(state, batch)
-        float(m["loss"])
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = []      # device-side events only: op rows repeat their kernels
@@ -1097,6 +1120,8 @@ def profile_step(entry, cfg, tcfg, policy, state, batch, label="profile"):
     for dev, key, count in rows[:12]:
         print(f"{label}_kernel: {dev / 1e3:.3f} ms x{count} "
               f"{dev / busy_us:.3f} {key[:100]}")
+    return {"wall_s": wall, "busy_s": busy_us / 1e6,
+            "busy_share": busy_us / 1e6 / wall}
 
 
 def f1_check() -> None:
@@ -1148,16 +1173,17 @@ FR_PEAK_LIMIT = 75e9    # bytes; the FR depth is cut to stay under it
 LOG_F32_MAX = math.log(torch.finfo(torch.float32).max)  # exp is inf past it
 
 
-def ssd_gate(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def close_gate(phase: str, label: str, got: torch.Tensor,
+               want: torch.Tensor, tol: float) -> float:
     """|got - want| <= tol (1 + |want|), everywhere finite; returns the
     max |diff|."""
     if not torch.isfinite(got).all():
-        raise AssertionError(f"ssd_check {label}: non-finite values")
+        raise AssertionError(f"{phase} {label}: non-finite values")
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
-    if not float((diff - SSD_TOL * (1 + want.float().abs())).max()) <= 0:
-        raise AssertionError(f"ssd_check {label}: |got - want| exceeds "
-                             f"{SSD_TOL} (1 + |want|); max |diff| {err}")
+    if not float((diff - tol * (1 + want.float().abs())).max()) <= 0:
+        raise AssertionError(f"{phase} {label}: |got - want| exceeds "
+                             f"{tol} (1 + |want|); max |diff| {err}")
     return err
 
 
@@ -1185,8 +1211,11 @@ def ssd_check() -> dict:
     y, hf = ssm._ssd_chunked(x, dt, A, B, C, cfg.chunk)
     yr, hr = ssm.ssd_reference(x, dt, A, B, C)
     row = {"x": [b, s, h, p], "B": [b, s, g, n], "chunk": cfg.chunk,
-           "tol": SSD_TOL, "scan_y_max_abs_err": ssd_gate("scan y", y, yr),
-           "scan_h_max_abs_err": ssd_gate("scan h_final", hf, hr),
+           "tol": SSD_TOL,
+           "scan_y_max_abs_err": close_gate("ssd_check", "scan y", y, yr,
+                                            SSD_TOL),
+           "scan_h_max_abs_err": close_gate("ssd_check", "scan h_final", hf,
+                                            hr, SSD_TOL),
            "chunked_ms": time_ms(
                lambda: ssm._ssd_chunked(x, dt, A, B, C, cfg.chunk), 10),
            "reference_ms": time_ms(
@@ -1201,8 +1230,8 @@ def ssd_check() -> dict:
         cpu_s = time.perf_counter() - t0
         pc, xc = tree_map(lambda t: t.cuda(), params), xin.cuda()
         got, _ = ssm.ssd_block(pc, xc, cfg, policy=pol)
-        row["block_max_abs_err"] = ssd_gate("block cuda vs cpu", got.cpu(),
-                                            want)
+        row["block_max_abs_err"] = close_gate(
+            "ssd_check", "block cuda vs cpu", got.cpu(), want, SSD_TOL)
         row["block_ms"] = time_ms(
             lambda: ssm.ssd_block(pc, xc, cfg, policy=pol), 10)
     row.update({"block_d_model": cfg.d_model, "block_cpu_s": cpu_s})
@@ -1619,6 +1648,236 @@ def vision_causality(run: dict, position: int = 4000) -> None:
                              f"{with_fe}")
 
 
+# Serving (granite-3-8b, B=4): a 2048-token prompt and 32 generated tokens
+# give max_len 2048 + 32 + 8 = 2088, as the launcher reckons it.
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 2048, 32
+SERVE_MAX_LEN = SERVE_PROMPT + SERVE_GEN + 8
+DECODE_TOL = 1e-4
+# k is cached after rope, whose angle at position 2047 is 2047 x a
+# frequency that the card's exp and the CPU's may round one ulp apart
+# (about 1.2e-4 rad); the written k slot is held to this bound instead
+ROPE_K_TOL = 1e-3
+SERVE_REL_TOL = 2e-2
+
+
+def decode_check() -> dict:
+    """One granite-3-8b ``attn`` layer at full width (d 4096, 32 heads, kv
+    8, head dim 128), f32, B=4: a cache of 2088 slots holding 2047 tokens
+    (k and v drawn from a seeded generator), then ``attention_decode`` of one
+    token on the card and on the CPU with the same params and inputs; the
+    output and v after the step at 1e-4, the k slot written at position
+    2047 at ``ROPE_K_TOL`` beside the largest angle difference the two
+    devices' rope frequencies give there, every other k slot equal, and
+    ``len`` 2048 on both.  The card's step is timed by CUDA events, each
+    call on the same slot (a fresh ``len``)."""
+    from repro_torch.models import layers as L, registry, transformer as tr
+    from repro_torch.utils import tree_map
+    cfg = registry.get("granite-3-8b").full
+    acfg = tr.attn_cfg_for(cfg, cfg.pattern[0])
+    b, held = SERVE_BATCH, SERVE_PROMPT - 1
+    gen = torch.Generator().manual_seed(5)
+    params = L.attn_init(gen, acfg)
+    x = torch.randn((b, 1, cfg.d_model), generator=gen)
+    cache = L.attn_cache_init(acfg, b, SERVE_MAX_LEN, torch.float32,
+                              device="cpu")
+    for leaf in ("k", "v"):
+        cache[leaf][:, :held] = torch.randn(
+            (b, held, acfg.n_kv, acfg.head_dim), generator=gen)
+    cache["len"].fill_(held)
+    card = tree_map(lambda t: t.to("cuda", copy=True),
+                    {"p": params, "x": x, "c": cache})
+    half = acfg.head_dim // 2      # the exponents of rope's frequencies
+    expo = -math.log(acfg.rope_theta) * torch.arange(
+        half, dtype=torch.float32) / half
+    pol = L.Policy(compute_dtype=torch.float32)
+    with torch.inference_mode():
+        got, gc = L.attention_decode(card["p"], card["x"], card["c"], acfg,
+                                     policy=pol)
+        t0 = time.perf_counter()
+        want, wc = L.attention_decode(params, x, cache, acfg, policy=pol)
+        cpu_s = time.perf_counter() - t0
+        k_got, k_want = gc["k"].cpu(), wc["k"]
+        row = {"x": list(x.shape), "cache": list(cache["k"].shape),
+               "held": held, "tol": DECODE_TOL, "k_tol": ROPE_K_TOL,
+               "out_max_abs_err": close_gate("decode_check", "out",
+                                             got.cpu(), want, DECODE_TOL),
+               "v_max_abs_err": close_gate("decode_check", "v", gc["v"].cpu(),
+                                           wc["v"], DECODE_TOL),
+               "k_written_max_abs_err": close_gate(
+                   "decode_check", "k written", k_got[:, held],
+                   k_want[:, held], ROPE_K_TOL),
+               "rope_angle_max_diff_at_held": held * float(
+                   (torch.exp(expo.cuda()).cpu() - torch.exp(expo)).abs()
+                   .max()),
+               "len": [int(gc["len"]), int(wc["len"])]}
+        k_got[:, held] = k_want[:, held]
+        if not torch.equal(k_got, k_want):
+            raise AssertionError("decode_check: a k slot other than the "
+                                 "written one differs")
+        if row["len"] != [held + 1, held + 1]:
+            raise AssertionError(f"decode_check: len {row['len']}, expected "
+                                 f"{held + 1}")
+        at = torch.full((), held, dtype=torch.int32, device="cuda")
+        row["card_ms"] = time_ms(lambda: L.attention_decode(
+            card["p"], card["x"], {"k": gc["k"], "v": gc["v"],
+                                   "len": at.clone()}, acfg, policy=pol), 10)
+    row["cpu_s"] = cpu_s
+    print("decode_check " + json.dumps(row), flush=True)
+    del card, gc, got
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_check() -> dict:
+    """granite-3-8b FULL (40 layers) on the card, bf16 params, compute and
+    cache, B=4: ``prefill`` of tokens[:, :2047] (max_len 2088) and one
+    ``decode_step`` on token 2047, their logits against ``forward`` +
+    ``lm_logits`` over all 2048 tokens at positions 2046 and 2047 (flash
+    off, so both sides take the same blockwise attention), each by relative
+    Frobenius error at 2e-2, with the share of rows whose argmax agrees
+    (printed, not gated); then one more greedy step through
+    ``make_decode_step`` under ``torch.cuda.set_sync_debug_mode("error")``:
+    any host sync in the step raises."""
+    from repro_torch.models import layers as L, registry
+    from repro_torch.train import serve_step as ss
+    entry = registry.get("granite-3-8b")
+    cfg, b, n = entry.full, SERVE_BATCH, SERVE_PROMPT
+    policy = L.Policy(compute_dtype=torch.bfloat16)
+    params = entry.module.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg,
+        dtype=torch.bfloat16, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (b, n), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(2))
+    with torch.inference_mode():
+        pre = entry.module.prefill(params, cfg, tokens[:, :n - 1],
+                                   max_len=SERVE_MAX_LEN, policy=policy,
+                                   cache_dtype=torch.bfloat16,
+                                   logits_mode="last")
+        step, cache = entry.module.decode_step(params, cfg, tokens[:, n - 1:],
+                                               pre["cache"], policy=policy)
+        hidden = entry.module.forward(params, cfg, tokens,
+                                      policy=policy)["hidden"]
+        full = entry.module.lm_logits(params, cfg, hidden[:, -2:], policy)
+    v, row = cfg.vocab, {"tol": SERVE_REL_TOL}
+    for name, got, want in (("prefill_2046", pre["logits"][:, -1, :v],
+                             full[:, 0, :v]),
+                            ("decode_2047", step[:, 0, :v], full[:, 1, :v])):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"serve_check {name}: non-finite logits")
+        row[name] = {"rel_fro": rel_fro(got, want), "argmax_agree": float(
+            (got.argmax(-1) == want.argmax(-1)).float().mean())}
+        if not row[name]["rel_fro"] <= SERVE_REL_TOL:
+            raise AssertionError(f"serve_check {name}: relative Frobenius "
+                                 f"{row[name]['rel_fro']} > {SERVE_REL_TOL}")
+    decode = ss.make_decode_step(entry, cfg, policy=policy)
+    tok = step[:, -1].argmax(-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        live = False          # the mode is on: a host read raises
+        try:
+            tok.sum().item()
+        except RuntimeError:
+            live = True
+        nxt, cache = decode(params, cache, tok)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not live:
+        raise AssertionError("serve_check: the sync debug mode let a "
+                             "Tensor.item pass")
+    row["sync_free_step"] = {"tokens": list(nxt.shape),
+                             "len": int(cache["stack"]["sub0"]["len"][0])}
+    print("serve_check " + json.dumps(row), flush=True)
+    del params, pre, step, cache, hidden, full
+    torch.cuda.empty_cache()
+    return row
+
+
+def serve_path() -> dict:
+    """The serving launcher, ``repro_torch.launch.serve``, on granite-3-8b
+    FULL (40 layers, bf16 params and cache), B=4, a 2048-token prompt, 32
+    generated tokens: prefill seconds, each decode step by CUDA events (the
+    first apart from the rest), tok/s, the peaks while the params are drawn
+    (each leaf is drawn in f32, then cast) and while serving (from the
+    launcher's ``make_prefill_step`` call on) beside the params' and the
+    cache's bytes, and a decode step's byte bound, (param + cache bytes) /
+    3.35 TB/s; then one more decode step profiled.  Gates: finite prefill
+    logits, every generated token in the vocabulary, no kernel launched,
+    every ``len`` at 2048 + 31, the params unchanged."""
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L, registry
+    from repro_torch.train import serve_step as ss
+    from repro_torch.utils import tree_flatten
+    argv = ["--arch", "granite-3-8b", "--preset", "full", "--batch",
+            str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT), "--gen",
+            str(SERVE_GEN)]
+    init_peak = []
+
+    def params_drawn(*args, **kw):
+        init_peak.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with watching(ss, "make_prefill_step", params_drawn):
+        out = serve.main(argv)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    entry = registry.get("granite-3-8b")
+    cfg = entry.full
+    lens = sorted({int(x) for p, t in tree_flatten(out["cache"])
+                   if p.endswith("len") for x in t.reshape(-1)})
+    param_bytes, cache_bytes = tree_nbytes(out["params"]), \
+        tree_nbytes(out["cache"])
+    steps = out["decode_step_ms"]
+    rest = sorted(steps[1:])
+    row = {"arch": "granite-3-8b", "layers": cfg.n_layers,
+           "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+           "max_len": SERVE_MAX_LEN, "wall_s": wall,
+           "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
+           "first_step_ms": steps[0],
+           "step_ms_median": statistics.median(rest),
+           "step_ms_min": rest[0], "step_ms_max": rest[-1],
+           "tok_per_s": out["tok_per_s"],
+           "init_max_memory_allocated_bytes": init_peak[0],
+           "serve_max_memory_allocated_bytes": peak,
+           "param_bytes": param_bytes,
+           "cache_bytes": cache_bytes,
+           "step_bound_ms": (param_bytes + cache_bytes) / PEAK_BYTES * 1e3,
+           "lens": lens, "launches": counts,
+           "backbone_checksum": list(out["backbone_checksum"])}
+    if not torch.isfinite(out["prefill_logits"][:, :cfg.vocab]).all():
+        raise AssertionError("serve_path: non-finite prefill logits")
+    tokens = out["tokens"]
+    if tokens.shape != (SERVE_BATCH, SERVE_GEN) or \
+            not 0 <= int(tokens.min()) <= int(tokens.max()) < cfg.vocab:
+        raise AssertionError(f"serve_path: tokens {tuple(tokens.shape)} in "
+                             f"[{int(tokens.min())}, {int(tokens.max())}]")
+    if any(counts.values()):
+        raise AssertionError(f"serve_path launched {counts}; serving reaches "
+                             f"no kernel, as the reference's")
+    if lens != [SERVE_PROMPT + SERVE_GEN - 1]:
+        raise AssertionError(f"serve_path: cache lens {lens}, expected "
+                             f"{SERVE_PROMPT + SERVE_GEN - 1}")
+    before, after = out["backbone_checksum"]
+    if before != after:
+        raise AssertionError(f"serve_path: params changed {before} -> "
+                             f"{after}")
+    print("serve_path " + json.dumps(row), flush=True)
+    decode = ss.make_decode_step(
+        entry, cfg, policy=L.Policy(compute_dtype=torch.bfloat16))
+    tok = tokens[:, -1:]
+    row["profile"] = profile_call(
+        lambda: decode(out["params"], out["cache"], tok), "serve_profile")
+    del out, decode
+    torch.cuda.empty_cache()
+    return {**row, "launches": counts["flash_attention"]}
+
+
 def run_resume_path() -> dict:
     """Checkpoint and resume of the duplex step at full width, depth cut to
     4 layers (bf16 backbone of 1.0 B params, flash on), B=2, S=4096."""
@@ -1810,6 +2069,9 @@ def main() -> int:
     vision, run = run_vision_path()
     vision_causality(run)
     del run
+    decode_check()
+    serve_check()
+    serve = serve_path()
     run_resume_path()
     run_arms()
 
@@ -1828,7 +2090,8 @@ def main() -> int:
                              "starcoder2_path": starcoder2["launches"],
                              "mamba2_path": mamba2["launches"],
                              "whisper_path": whisper["launches"],
-                             "vision_path": vision["launches"]},
+                             "vision_path": vision["launches"],
+                             "serve_path": serve["launches"]},
         **{name: {k: row[k] for k in (
             "q", "kv", "softcap", "max_abs_err", "kernel_ms", "plain_ms",
             "bound_ms", "bound_by", "library", "library_ms",

@@ -5,8 +5,8 @@ is a stub: the caller provides precomputed frame embeddings
 ``frontend["frames"]`` [B, n_frames, d_model].  The encoder is a
 bidirectional stack; the decoder is a causal stack whose pattern
 interleaves self-attention and cross-attention to the encoder output.
-Serving (``prefill``, ``init_cache``, ``decode_step``) is not ported yet
-(ROADMAP §1 item 3, 'Serving').
+Serving (``prefill``, ``init_cache``, ``decode_step``) is not ported yet:
+each raises ``NotImplementedError`` naming ROADMAP §1 item 3(d).
 """
 from __future__ import annotations
 
@@ -63,3 +63,22 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
 def lm_logits(params, cfg: ModelConfig, hidden: torch.Tensor,
               policy: L.Policy = L.Policy()) -> torch.Tensor:
     return T.lm_logits(params["decoder"], cfg, hidden, policy)
+
+
+_SERVING = ("encoder-decoder serving is not ported to repro_torch yet "
+            "(ROADMAP §1 'Modules to port' item 3(d) (cross caches and "
+            "encoder-decoder serving))")
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, **kw) -> dict:
+    raise NotImplementedError(_SERVING)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, *, device) -> dict:
+    raise NotImplementedError(_SERVING)
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
+                **kw) -> tuple:
+    raise NotImplementedError(_SERVING)

@@ -1,8 +1,8 @@
 """Shared model primitives: dense (optionally 2D-BFP), norms, embeddings,
-RoPE, MLPs, and the full-sequence attention cores.
+RoPE, MLPs, and the attention cores (full / blockwise / decode-with-cache).
 
-Counterpart of ``repro/models/layers.py`` (decode and cache functions are
-not ported yet).  Conventions are the JAX package's:
+Counterpart of ``repro/models/layers.py``.  Conventions are the JAX
+package's:
 
 * activations are ``[B, S, D]``; attention heads ``[B, S, H, hd]``;
 * dense weights are ``(d_in, d_out)``; params are plain dicts of f32 master
@@ -263,8 +263,30 @@ def blockwise_attention(q, k, v, *, causal: bool, softcap=None,
     return out.to(q.dtype)
 
 
+def decode_attention(q, k_cache, v_cache, cur_len, *, softcap=None,
+                     window: int | None = None):
+    """Single-token decode over a [B,Smax,KV,hd] cache. q: [B,1,H,hd].
+
+    ``cur_len`` (a 0-d tensor) is the number of valid slots: keys at
+    ``kpos >= cur_len`` (and, with a window, ``kpos <= cur_len - 1 -
+    window``) are masked to -1e30 and the f32 softmax runs over all Smax
+    slots, as the reference's does."""
+    b, sq, h, hd = q.shape
+    smax, nkv = k_cache.shape[1], k_cache.shape[2]
+    kc = expand_kv(k_cache, h // nkv)
+    vc = expand_kv(v_cache, h // nkv)
+    scores = _softcap(_gqa_scores(q, kc) / math.sqrt(hd), softcap)
+    kpos = torch.arange(smax, device=q.device)
+    mask = kpos < cur_len                                 # [Smax]
+    if window is not None:
+        mask &= kpos > (cur_len - 1 - window)
+    scores = scores.masked_fill(~mask, NEG_INF)           # [B,H,1,Smax]
+    w = torch.softmax(scores, dim=-1)
+    return _gqa_out(w, vc).to(q.dtype)
+
+
 # --------------------------------------------------------------------------
-# attention layer (proj + rope + core + out-proj), GQA
+# attention layer (proj + rope + core + out-proj), GQA with KV cache
 # --------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -346,6 +368,40 @@ def attention_layer(p, x, cfg: AttnConfig, *, policy=Policy(), bfp=NO_BFP,
                            window=cfg.window)
     o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
     return dense(p["wo"], o, policy=policy, bfp=bfp)
+
+
+def attention_decode(p, x, cache: dict, cfg: AttnConfig, *,
+                     policy=Policy()):
+    """One-token decode step; cache = {"k","v": [B,Smax,KV,hd], "len": 0-d
+    int32}.  k (after rope) and v are written at slot ``len`` into the
+    caller's tensors, in place (the reference donates its cache), and
+    ``len`` is advanced in place: the same dict comes back.  ``len`` stays
+    on the device: no step reads it on the host."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"a decode step takes one token, got {s}")
+    cur = cache["len"]
+    q, k, v = _project_qkv(p, x, x, cfg, policy, NO_BFP,
+                           cur.view(1, 1).expand(b, 1))
+    idx = cur.long().view(1)
+    cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+    o = decode_attention(q, cache["k"], cache["v"], cur + 1,
+                         softcap=cfg.softcap, window=cfg.window)
+    cache["len"].add_(1)
+    o = o.reshape(b, 1, cfg.n_heads * cfg.head_dim)
+    return dense(p["wo"], o, policy=policy), cache
+
+
+def attn_cache_init(cfg: AttnConfig, batch: int, max_len: int,
+                    dtype=torch.bfloat16, *, lead: tuple = (),
+                    device) -> dict:
+    """Zero cache: k, v ``[*lead, B, max_len, KV, hd]``, len ``[*lead]``
+    int32; ``lead`` prepends the stack's ``n_rep`` axis."""
+    shape = (*lead, batch, max_len, cfg.n_kv, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "len": torch.zeros(lead, dtype=torch.int32, device=device)}
 
 
 # --------------------------------------------------------------------------

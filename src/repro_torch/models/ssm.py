@@ -214,15 +214,17 @@ def ssd_block(params, x: torch.Tensor, cfg: SSDConfig, *,
     return out, new_state
 
 
-def ssd_state_init(cfg: SSDConfig, batch: int, dtype=torch.float32) -> dict:
+def ssd_state_init(cfg: SSDConfig, batch: int, dtype=torch.float32,
+                   device=None) -> dict:
     gn = cfg.n_groups * cfg.d_state
     k = cfg.conv_width - 1
     return {
         "h": torch.zeros((batch, cfg.n_heads, cfg.headdim, cfg.d_state),
-                         dtype=torch.float32),
-        "conv_x": torch.zeros((batch, k, cfg.d_inner), dtype=dtype),
-        "conv_b": torch.zeros((batch, k, gn), dtype=dtype),
-        "conv_c": torch.zeros((batch, k, gn), dtype=dtype),
+                         dtype=torch.float32, device=device),
+        "conv_x": torch.zeros((batch, k, cfg.d_inner), dtype=dtype,
+                              device=device),
+        "conv_b": torch.zeros((batch, k, gn), dtype=dtype, device=device),
+        "conv_c": torch.zeros((batch, k, gn), dtype=dtype, device=device),
     }
 
 

@@ -1,17 +1,21 @@
-"""Generic pattern-driven transformer stack (training / scoring forward).
+"""Generic pattern-driven transformer stack: the training / scoring
+forward, and serving (``prefill`` + ``decode_step`` with a KV cache).
 
-Counterpart of ``repro/models/transformer.py:33-277``.  The repeating layer
+Counterpart of ``repro/models/transformer.py``.  The repeating layer
 pattern's params are stacked on a leading ``n_rep`` axis (the JAX package's
 scan layout, ``params["stack"]["sub<i>"]``) and the forward walks it with a
-Python loop; remainder layers run unrolled.  The port covers ``attn``,
+Python loop; remainder layers run unrolled.  The forward covers ``attn``,
 ``local`` (sliding-window) and ``cross`` layers with dense or MoE channel
 mixers, and ``ssd`` (Mamba-2) layers; the ``lru`` kind raises
 ``NotImplementedError``.  A ``cross`` layer attends to
 ``frontend["cross_kv"]`` (stub image embeddings, or the encoder's output in
 ``models/encdec.py``) without rope and without a causal mask; given no
 frontend it attends to its own input, non-causally, as the reference's
-does.  Serving (``prefill``/``decode_step``) is not ported yet (ROADMAP §1
-item 3, 'Serving').
+does.  Serving covers ``attn`` layers with any channel mixer; every other
+kind raises ``NotImplementedError`` naming the ROADMAP item that ports its
+cache (``SERVE_ITEMS``).  The cache tree is the reference's leaf for leaf,
+``{"stack": {"sub<i>": {"k", "v": [n_rep, B, max_len, KV, hd], "len":
+[n_rep] int32}}, "rem": {...}}``, and a decode step updates it in place.
 """
 from __future__ import annotations
 
@@ -30,6 +34,13 @@ _PORTED_MLPS = ("dense", "moe", "none")
 KIND_ITEMS = {"lru": "2(c) (models/hybrid.py: RG-LRU)"}
 
 
+# the ROADMAP §1 item that ports each trained kind's serving cache; an
+# ``lru`` layer already fails ``_check_spec`` (its decode comes with 2(c))
+SERVE_ITEMS = {"local": "3(b) (ring buffers for local layers)",
+               "ssd": "3(c) (SSD state decode and the step counter)",
+               "cross": "3(d) (cross caches and encoder-decoder serving)"}
+
+
 def roadmap_item(kind: str) -> str:
     return ("ROADMAP §1 'Modules to port' item "
             + KIND_ITEMS.get(kind, "2, 'The other layer kinds'"))
@@ -40,6 +51,17 @@ def _check_spec(spec: LayerSpec):
         raise NotImplementedError(
             f"layer {spec} is not ported to repro_torch yet "
             f"({roadmap_item(spec.kind)})")
+
+
+def _check_serving(cfg: ModelConfig):
+    """Serving covers ``attn`` layers only; raise for any other kind."""
+    for spec in cfg.pattern + cfg.remainder:
+        _check_spec(spec)
+        if spec.kind != "attn":
+            raise NotImplementedError(
+                f"serving layer {spec} is not ported to repro_torch yet "
+                f"(ROADMAP §1 'Modules to port' item "
+                f"{SERVE_ITEMS[spec.kind]})")
 
 
 def _norm_init(cfg: ModelConfig, d: int, **kw) -> dict:
@@ -261,3 +283,128 @@ def lm_logits(params, cfg: ModelConfig, hidden: torch.Tensor,
               policy: L.Policy = L.Policy()) -> torch.Tensor:
     return L.unembed_logits(params["embed"], hidden, cfg.vocab, policy,
                             softcap=cfg.softcap_final)
+
+
+# --------------------------------------------------------------------------
+# serving: prefill + decode with caches (``attn`` layers)
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, *, device) -> dict:
+    """Shape-complete zero cache (also the decode dry-run entry point; on
+    the ``meta`` device it allocates nothing)."""
+    _check_serving(cfg)
+    cache: dict = {"stack": {}, "rem": {}}
+    for i, spec in enumerate(cfg.pattern):
+        cache["stack"][f"sub{i}"] = L.attn_cache_init(
+            attn_cfg_for(cfg, spec), batch, max_len, dtype,
+            lead=(cfg.n_rep,), device=device)
+    for i, spec in enumerate(cfg.remainder):
+        cache["rem"][f"sub{i}"] = L.attn_cache_init(
+            attn_cfg_for(cfg, spec), batch, max_len, dtype, device=device)
+    return cache
+
+
+def _layers(params, cache, cfg: ModelConfig):
+    """``(params, cache, spec)`` of every sublayer in order; the stacked
+    ones are views of their ``n_rep`` slice, so writes land in the
+    stack."""
+    for r in range(cfg.n_rep):
+        p_rep, c_rep = _index(params["stack"], r), _index(cache["stack"], r)
+        for i, spec in enumerate(cfg.pattern):
+            yield p_rep[f"sub{i}"], c_rep[f"sub{i}"], spec
+    for i, spec in enumerate(cfg.remainder):
+        yield params["rem"][f"sub{i}"], cache["rem"][f"sub{i}"], spec
+
+
+def _sub_prefill(p, h, spec, cfg, cache, *, policy, positions):
+    """Sublayer forward that writes its k (after rope) and v into slots
+    ``[0, S)`` of its cache and sets ``len`` to S.  Blockwise above
+    ``blockwise_threshold``, full below, never flash (as the reference's).
+    Returns h."""
+    acfg = attn_cfg_for(cfg, spec)
+    b, s, _ = h.shape
+    u = _norm(cfg, p["norm"], h)
+    q, k, v = L._project_qkv(p["attn"], u, u, acfg, policy, L.NO_BFP,
+                             positions)
+    if s > acfg.blockwise_threshold:
+        o = L.blockwise_attention(q, k, v, causal=acfg.causal,
+                                  softcap=acfg.softcap, window=acfg.window,
+                                  q_chunk=acfg.q_chunk,
+                                  kv_chunk=acfg.kv_chunk,
+                                  causal_skip=acfg.causal_skip)
+    else:
+        o = L.full_attention(q, k, v, causal=acfg.causal,
+                             softcap=acfg.softcap, window=acfg.window)
+    y = L.dense(p["attn"]["wo"], o.reshape(b, s, acfg.n_heads * acfg.head_dim),
+                policy=policy)
+    if cfg.post_norm:
+        y = _norm(cfg, p["post_norm"], y)
+    cache["k"][:, :s] = k.to(cache["k"].dtype)
+    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    cache["len"].fill_(s)
+    h, _ = _apply_mlp(p, h + y, spec, cfg, policy, L.NO_BFP)
+    return h
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            frontend: dict | None = None, max_len: int,
+            policy: L.Policy = L.Policy(), cache_dtype=torch.bfloat16,
+            logits_mode: str = "all") -> dict:
+    """Process a prompt, return ``{logits, cache, hidden}`` (cache ready for
+    decode).  The cache is allocated once, on the tokens' device, and each
+    layer writes its slice of it.  ``logits_mode="last"`` unembeds only the
+    final position.  ``frontend`` is the reference's argument for ``cross``
+    layers, whose serving is not ported: a config with one raises first."""
+    _check_serving(cfg)
+    b, s = tokens.shape
+    if s > max_len:
+        raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+    dev = tokens.device
+    positions = torch.arange(s, device=dev).expand(b, s)
+    h = embed_tokens(params, cfg, tokens, positions, policy)
+    cache = init_cache(cfg, b, max_len, cache_dtype, device=dev)
+    for p, c, spec in _layers(params, cache, cfg):
+        h = _sub_prefill(p, h, spec, cfg, c, policy=policy,
+                         positions=positions)
+    h = _norm(cfg, params["final_norm"], h)
+    h_out = h[:, -1:] if logits_mode == "last" else h
+    return {"logits": lm_logits(params, cfg, h_out, policy), "cache": cache,
+            "hidden": h}
+
+
+def _sub_decode(p, h, spec, cfg, cache, *, policy):
+    """One-token sublayer step; updates ``cache`` in place.  Returns h."""
+    u = _norm(cfg, p["norm"], h)
+    y, _ = L.attention_decode(p["attn"], u, cache, attn_cfg_for(cfg, spec),
+                              policy=policy)
+    if cfg.post_norm:
+        y = _norm(cfg, p["post_norm"], y)
+    h, _ = _apply_mlp(p, h + y, spec, cfg, policy, L.NO_BFP)
+    return h
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
+                *, policy: L.Policy = L.Policy()) -> tuple:
+    """One decode step: tokens [B,1] + cache → (logits [B,1,V], cache).
+
+    The cache is updated in place (the reference donates it) and returned.
+    The position is the first attention cache's ``len`` (all sublayers
+    advance in lockstep), read on the device: the step issues no host
+    sync."""
+    _check_serving(cfg)
+    b = tokens.shape[0]
+    positions = _first_len(cfg, cache).view(1, 1).expand(b, 1)
+    h = embed_tokens(params, cfg, tokens, positions, policy)
+    for p, c, spec in _layers(params, cache, cfg):
+        h = _sub_decode(p, h, spec, cfg, c, policy=policy)
+    h = _norm(cfg, params["final_norm"], h)
+    return lm_logits(params, cfg, h, policy), cache
+
+
+def _first_len(cfg: ModelConfig, cache: dict) -> torch.Tensor:
+    """A copy of the first attention cache's ``len`` (0-d, on the device):
+    the layers advance theirs in place as the step runs."""
+    if cfg.n_rep:
+        return cache["stack"]["sub0"]["len"][0].clone()
+    return cache["rem"]["sub0"]["len"].clone()

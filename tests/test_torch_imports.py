@@ -32,7 +32,8 @@ def test_every_module_imports_with_jax_and_repro_masked():
               "examples.train_duplex_lm", "models.moe",
               "configs.granite_moe_1b", "configs.llama4_maverick",
               "models.ssm", "configs.mamba2_780m", "models.encdec",
-              "configs.whisper_base", "configs.llama32_vision_90b"):
+              "configs.whisper_base", "configs.llama32_vision_90b",
+              "train.serve_step", "launch.serve", "examples.quickstart"):
         assert f"repro_torch.{m}" in mods
     masked = ("jax", "repro", "msgpack")
     code = (

@@ -242,6 +242,19 @@ def test_ssd_block_stateful_matches_jax(bf16):
                                    rtol=2e-3, atol=2e-3)
 
 
+def test_ssd_state_init_takes_a_device():
+    """The state is built where the caller asks (a CUDA decode's on the
+    card): on the ``meta`` device every leaf is there, with JAX's shapes and
+    dtypes."""
+    jcfg, tcfg, _ = _block(2, seed=4, bf16=True)
+    jst = jssm.ssd_state_init(jcfg, 3, jnp.bfloat16)
+    tst = tssm.ssd_state_init(tcfg, 3, torch.bfloat16, device="meta")
+    assert [(p, tuple(a.shape), str(a.dtype)) for p, a in tree_flatten(tst)]\
+        == [(p, a.shape, "torch." + str(a.dtype)) for p, a in
+            tree_flatten(jst)]
+    assert all(a.device.type == "meta" for _, a in tree_flatten(tst))
+
+
 def test_ssd_block_gradient_matches_jax():
     """d/dparams of sum(y²), leaf for leaf, and d/dx, against jax.grad."""
     kw = dict(d_model=16, d_state=8, headdim=8, expand=2, chunk=4,
