@@ -19,7 +19,7 @@ from repro_torch.models import layers as L, registry
 from repro_torch.optim import AdamWConfig
 from repro_torch.train import serve_step as ss, train_step as ts
 
-ARCH = "granite-3-8b"          # any arch whose layers are all ``attn``
+ARCH = "granite-3-8b"  # any arch whose layers are all ``attn`` or ``local``
 POLICY = L.Policy(compute_dtype=torch.float32)
 
 

@@ -5,16 +5,20 @@ greedy decode loop.
         --preset full --batch 4 --prompt-len 2048 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
         --preset smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
+        --preset smoke --prompt-len 12 --device cpu
 
 Counterpart of ``repro/launch/serve.py``.  Runs on ``cuda`` unless
 ``--device cpu`` is given; a CUDA request without a card raises.  There is
 no mesh: one card (sharding is ROADMAP §1 item 4).  ``--preset full`` runs
 bf16 compute, bf16 params and a bf16 cache; ``smoke`` runs f32.  Params are
-random, drawn on the device from seed 0, and prompts from seed 1.  Archs
-whose layers are not all ``attn`` (gemma2-9b's ``local``, mamba2-780m's
-``ssd``, the ``cross`` layers of whisper-base and llama-3.2-vision-90b)
-raise ``NotImplementedError`` naming their ROADMAP item before any param
-is drawn.
+random, drawn on the device from seed 0, and prompts from seed 1.  The
+cache holds ``prompt + gen + 8`` tokens; a ``local`` layer whose window is
+shorter (gemma2-9b's 4096 past a 4088-token prompt, its smoke config's 8)
+keeps a ring of ``window`` slots.  Archs with other layers than ``attn``
+and ``local`` (mamba2-780m's ``ssd``, the ``cross`` layers of whisper-base
+and llama-3.2-vision-90b) raise ``NotImplementedError`` naming their
+ROADMAP item before any param is drawn.
 """
 from __future__ import annotations
 

@@ -264,20 +264,25 @@ def blockwise_attention(q, k, v, *, causal: bool, softcap=None,
 
 
 def decode_attention(q, k_cache, v_cache, cur_len, *, softcap=None,
-                     window: int | None = None):
+                     window: int | None = None, kpos=None):
     """Single-token decode over a [B,Smax,KV,hd] cache. q: [B,1,H,hd].
 
-    ``cur_len`` (a 0-d tensor) is the number of valid slots: keys at
-    ``kpos >= cur_len`` (and, with a window, ``kpos <= cur_len - 1 -
-    window``) are masked to -1e30 and the f32 softmax runs over all Smax
-    slots, as the reference's does."""
+    ``kpos`` ([Smax], on the device) is the position each slot holds, -1
+    for none (a ring buffer's ``pos``); by default slot i holds position i.
+    ``cur_len`` (a 0-d tensor) is the query's position + 1: keys at ``kpos
+    >= cur_len`` or ``kpos < 0`` (and, with a window, ``kpos <= cur_len -
+    1 - window``) are masked to -1e30 and the f32 softmax runs over all
+    Smax slots, as the reference's does."""
     b, sq, h, hd = q.shape
     smax, nkv = k_cache.shape[1], k_cache.shape[2]
     kc = expand_kv(k_cache, h // nkv)
     vc = expand_kv(v_cache, h // nkv)
     scores = _softcap(_gqa_scores(q, kc) / math.sqrt(hd), softcap)
-    kpos = torch.arange(smax, device=q.device)
-    mask = kpos < cur_len                                 # [Smax]
+    if kpos is None:
+        kpos = torch.arange(smax, device=q.device)
+        mask = kpos < cur_len                             # [Smax]
+    else:
+        mask = (kpos >= 0) & (kpos < cur_len)
     if window is not None:
         mask &= kpos > (cur_len - 1 - window)
     scores = scores.masked_fill(~mask, NEG_INF)           # [B,H,1,Smax]
@@ -376,7 +381,13 @@ def attention_decode(p, x, cache: dict, cfg: AttnConfig, *,
     int32}.  k (after rope) and v are written at slot ``len`` into the
     caller's tensors, in place (the reference donates its cache), and
     ``len`` is advanced in place: the same dict comes back.  ``len`` stays
-    on the device: no step reads it on the host."""
+    on the device: no step reads it on the host.
+
+    A cache of ``Smax`` slots holding a P-token prompt takes at most
+    ``Smax - P`` steps: the write at ``len == Smax`` raises (``IndexError``
+    on the CPU, a device-side assert on the card), where the reference's
+    ``dynamic_update_slice`` clamps it onto slot ``Smax - 1``.  Nothing
+    checks ``len`` on the host, so a step stays free of syncs."""
     b, s, _ = x.shape
     if s != 1:
         raise ValueError(f"a decode step takes one token, got {s}")

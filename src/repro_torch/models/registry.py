@@ -7,10 +7,10 @@ whisper-base dispatches to the enc-dec composition (``models/encdec.py``),
 everything else to the generic stack.  The port trains the dense, MoE,
 local-attention, Mamba-2, audio (whisper-base) and vision-language
 (llama-3.2-vision-90b) archs, and serves those whose layers are all
-``attn`` (granite-3-8b, qwen2-72b, starcoder2-7b, granite-moe-1b-a400m,
-llama4-maverick-400b-a17b); serving any other raises
-``NotImplementedError`` naming its ROADMAP item, as recurrentgemma-9b does
-for everything.
+``attn`` or ``local`` (granite-3-8b, qwen2-72b, starcoder2-7b,
+granite-moe-1b-a400m, llama4-maverick-400b-a17b, gemma2-9b); serving any
+other raises ``NotImplementedError`` naming its ROADMAP item, as
+recurrentgemma-9b does for everything.
 """
 from __future__ import annotations
 

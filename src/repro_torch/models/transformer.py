@@ -11,11 +11,16 @@ mixers, and ``ssd`` (Mamba-2) layers; the ``lru`` kind raises
 ``frontend["cross_kv"]`` (stub image embeddings, or the encoder's output in
 ``models/encdec.py``) without rope and without a causal mask; given no
 frontend it attends to its own input, non-causally, as the reference's
-does.  Serving covers ``attn`` layers with any channel mixer; every other
-kind raises ``NotImplementedError`` naming the ROADMAP item that ports its
-cache (``SERVE_ITEMS``).  The cache tree is the reference's leaf for leaf,
-``{"stack": {"sub<i>": {"k", "v": [n_rep, B, max_len, KV, hd], "len":
-[n_rep] int32}}, "rem": {...}}``, and a decode step updates it in place.
+does.  Serving covers ``attn`` and ``local`` layers with any channel mixer;
+every other kind raises ``NotImplementedError`` naming the ROADMAP item
+that ports its cache (``SERVE_ITEMS``).  The cache tree is the reference's
+leaf for leaf, ``{"stack": {"sub<i>": {"k", "v": [n_rep, B, size, KV, hd],
+"len": [n_rep] int32}}, "rem": {...}}``: ``size`` is ``max_len``, or for a
+``local`` layer ``min(window, max_len)``; a ``local`` layer's cache also
+has ``pos`` (``[n_rep, size]`` int32, the position held in each slot, -1
+for none) in ``init_cache`` always and in ``prefill`` when its window is
+shorter than ``max_len``, and then it is a ring buffer written at slot
+``len % size``.  A decode step updates the cache in place.
 """
 from __future__ import annotations
 
@@ -34,10 +39,10 @@ _PORTED_MLPS = ("dense", "moe", "none")
 KIND_ITEMS = {"lru": "2(c) (models/hybrid.py: RG-LRU)"}
 
 
-# the ROADMAP §1 item that ports each trained kind's serving cache; an
-# ``lru`` layer already fails ``_check_spec`` (its decode comes with 2(c))
-SERVE_ITEMS = {"local": "3(b) (ring buffers for local layers)",
-               "ssd": "3(c) (SSD state decode and the step counter)",
+# the ROADMAP §1 item that ports the serving cache of each trained kind
+# still missing (``attn`` and ``local`` are served); an ``lru`` layer
+# already fails ``_check_spec`` (its decode comes with 2(c))
+SERVE_ITEMS = {"ssd": "3(c) (SSD state decode and the step counter)",
                "cross": "3(d) (cross caches and encoder-decoder serving)"}
 
 
@@ -54,10 +59,11 @@ def _check_spec(spec: LayerSpec):
 
 
 def _check_serving(cfg: ModelConfig):
-    """Serving covers ``attn`` layers only; raise for any other kind."""
+    """Serving covers ``attn`` and ``local`` layers; raise for any other
+    kind."""
     for spec in cfg.pattern + cfg.remainder:
         _check_spec(spec)
-        if spec.kind != "attn":
+        if spec.kind in SERVE_ITEMS:
             raise NotImplementedError(
                 f"serving layer {spec} is not ported to repro_torch yet "
                 f"(ROADMAP §1 'Modules to port' item "
@@ -286,23 +292,40 @@ def lm_logits(params, cfg: ModelConfig, hidden: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# serving: prefill + decode with caches (``attn`` layers)
+# serving: prefill + decode with caches (``attn`` and ``local`` layers)
 # --------------------------------------------------------------------------
+
+def _ring_size(cfg: ModelConfig, spec: LayerSpec, max_len: int) -> int:
+    if spec.kind == "local" and cfg.window is not None:
+        return min(cfg.window, max_len)
+    return max_len
+
+
+def _sub_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                    max_len: int, dtype, *, lead: tuple = (), device) -> dict:
+    """One sublayer's zero cache, the reference's ``_sub_cache_zeros``:
+    k and v sized by ``_ring_size``; a ``local`` layer's also holds ``pos``
+    filled with -1 (whatever its size, as the reference's does)."""
+    size = _ring_size(cfg, spec, max_len)
+    c = L.attn_cache_init(attn_cfg_for(cfg, spec), batch, size, dtype,
+                          lead=lead, device=device)
+    if spec.kind == "local":
+        c["pos"] = torch.full((*lead, size), -1, dtype=torch.int32,
+                              device=device)
+    return c
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device) -> dict:
     """Shape-complete zero cache (also the decode dry-run entry point; on
     the ``meta`` device it allocates nothing)."""
     _check_serving(cfg)
-    cache: dict = {"stack": {}, "rem": {}}
-    for i, spec in enumerate(cfg.pattern):
-        cache["stack"][f"sub{i}"] = L.attn_cache_init(
-            attn_cfg_for(cfg, spec), batch, max_len, dtype,
-            lead=(cfg.n_rep,), device=device)
-    for i, spec in enumerate(cfg.remainder):
-        cache["rem"][f"sub{i}"] = L.attn_cache_init(
-            attn_cfg_for(cfg, spec), batch, max_len, dtype, device=device)
-    return cache
+    return {"stack": {f"sub{i}": _sub_cache_init(
+                cfg, spec, batch, max_len, dtype, lead=(cfg.n_rep,),
+                device=device) for i, spec in enumerate(cfg.pattern)},
+            "rem": {f"sub{i}": _sub_cache_init(
+                cfg, spec, batch, max_len, dtype, device=device)
+                for i, spec in enumerate(cfg.remainder)}}
 
 
 def _layers(params, cache, cfg: ModelConfig):
@@ -318,8 +341,10 @@ def _layers(params, cache, cfg: ModelConfig):
 
 
 def _sub_prefill(p, h, spec, cfg, cache, *, policy, positions):
-    """Sublayer forward that writes its k (after rope) and v into slots
-    ``[0, S)`` of its cache and sets ``len`` to S.  Blockwise above
+    """Sublayer forward that writes its k (after rope) and v into its cache
+    and sets ``len`` to S: slots ``[0, S)``, or for a ring (a cache with
+    ``pos``) the last ``min(size, S)`` tokens at slots ``t % size``, with
+    their positions in ``pos``.  Blockwise above
     ``blockwise_threshold``, full below, never flash (as the reference's).
     Returns h."""
     acfg = attn_cfg_for(cfg, spec)
@@ -340,8 +365,17 @@ def _sub_prefill(p, h, spec, cfg, cache, *, policy, positions):
                 policy=policy)
     if cfg.post_norm:
         y = _norm(cfg, p["post_norm"], y)
-    cache["k"][:, :s] = k.to(cache["k"].dtype)
-    cache["v"][:, :s] = v.to(cache["v"].dtype)
+    if "pos" in cache:
+        size = cache["k"].shape[1]
+        keep = min(size, s)
+        held = torch.arange(s - keep, s, device=h.device)
+        slots = held % size
+        cache["k"].index_copy_(1, slots, k[:, -keep:].to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slots, v[:, -keep:].to(cache["v"].dtype))
+        cache["pos"].index_copy_(0, slots, held.to(torch.int32))
+    else:
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
     cache["len"].fill_(s)
     h, _ = _apply_mlp(p, h + y, spec, cfg, policy, L.NO_BFP)
     return h
@@ -355,7 +389,12 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     decode).  The cache is allocated once, on the tokens' device, and each
     layer writes its slice of it.  ``logits_mode="last"`` unembeds only the
     final position.  ``frontend`` is the reference's argument for ``cross``
-    layers, whose serving is not ported: a config with one raises first."""
+    layers, whose serving is not ported: a config with one raises first.
+
+    A ``local`` layer whose window is shorter than ``max_len`` caches a ring
+    of ``window`` slots (with ``pos``); one whose window reaches ``max_len``
+    caches all ``max_len`` slots, without ``pos``, as the reference's
+    prefill does (its ``init_cache`` gives that layer a ``pos`` leaf)."""
     _check_serving(cfg)
     b, s = tokens.shape
     if s > max_len:
@@ -364,6 +403,11 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = torch.arange(s, device=dev).expand(b, s)
     h = embed_tokens(params, cfg, tokens, positions, policy)
     cache = init_cache(cfg, b, max_len, cache_dtype, device=dev)
+    # only a ring (fewer slots than max_len) keeps ``pos``, as in the
+    # reference's prefill
+    for c in (*cache["stack"].values(), *cache["rem"].values()):
+        if "pos" in c and c["k"].shape[-3] == max_len:
+            del c["pos"]
     for p, c, spec in _layers(params, cache, cfg):
         h = _sub_prefill(p, h, spec, cfg, c, policy=policy,
                          positions=positions)
@@ -373,11 +417,37 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
             "hidden": h}
 
 
+def _ring_decode(p_attn, u, cache: dict, acfg: L.AttnConfig, *, policy):
+    """Sliding-window decode over a ring cache ``{"k", "v": [B, size, KV,
+    hd], "pos": [size], "len"}``: rope at position ``len``; k, v and the
+    position written at slot ``len % size``, computed on the device; the
+    slots whose position lies in ``(len - window, len]`` attended
+    (``L.decode_attention`` over ``pos``); then ``len`` advanced, all in
+    place.  A ring never overflows."""
+    b = u.shape[0]
+    cur = cache["len"]
+    q, k, v = L._project_qkv(p_attn, u, u, acfg, policy, L.NO_BFP,
+                             cur.view(1, 1).expand(b, 1))
+    slot = (cur % cache["k"].shape[1]).long().view(1)
+    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+    cache["pos"].index_copy_(0, slot, cur.view(1))
+    o = L.decode_attention(q, cache["k"], cache["v"], cur + 1,
+                           softcap=acfg.softcap, window=acfg.window,
+                           kpos=cache["pos"])
+    cache["len"].add_(1)
+    return L.dense(p_attn["wo"], o.reshape(b, 1, acfg.n_heads
+                                           * acfg.head_dim), policy=policy)
+
+
 def _sub_decode(p, h, spec, cfg, cache, *, policy):
     """One-token sublayer step; updates ``cache`` in place.  Returns h."""
     u = _norm(cfg, p["norm"], h)
-    y, _ = L.attention_decode(p["attn"], u, cache, attn_cfg_for(cfg, spec),
-                              policy=policy)
+    acfg = attn_cfg_for(cfg, spec)
+    if "pos" in cache:
+        y = _ring_decode(p["attn"], u, cache, acfg, policy=policy)
+    else:
+        y, _ = L.attention_decode(p["attn"], u, cache, acfg, policy=policy)
     if cfg.post_norm:
         y = _norm(cfg, p["post_norm"], y)
     h, _ = _apply_mlp(p, h + y, spec, cfg, policy, L.NO_BFP)
@@ -389,9 +459,13 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     """One decode step: tokens [B,1] + cache → (logits [B,1,V], cache).
 
     The cache is updated in place (the reference donates it) and returned.
-    The position is the first attention cache's ``len`` (all sublayers
-    advance in lockstep), read on the device: the step issues no host
-    sync."""
+    The position is the first ``attn`` or ``local`` cache's ``len`` (all
+    sublayers advance in lockstep), read on the device: the step issues no
+    host sync.  A cache from ``prefill(..., max_len=M)`` of a P-token prompt
+    takes at most M - P steps while it has an ``attn`` layer (or a ``local``
+    one without a ring): the next write to slot M raises (``IndexError`` on
+    the CPU, a device-side assert on the card), where the reference clamps
+    it onto slot M - 1.  A ring's slot is ``len % size``: it never fills."""
     _check_serving(cfg)
     b = tokens.shape[0]
     positions = _first_len(cfg, cache).view(1, 1).expand(b, 1)
@@ -403,8 +477,13 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
 
 
 def _first_len(cfg: ModelConfig, cache: dict) -> torch.Tensor:
-    """A copy of the first attention cache's ``len`` (0-d, on the device):
-    the layers advance theirs in place as the step runs."""
-    if cfg.n_rep:
-        return cache["stack"]["sub0"]["len"][0].clone()
-    return cache["rem"]["sub0"]["len"].clone()
+    """A copy of the first ``attn`` or ``local`` cache's ``len`` (0-d, on the
+    device; in the stack, then in the remainder): the layers advance theirs
+    in place as the step runs.  It counts tokens, never a ring's slot."""
+    for i, spec in enumerate(cfg.pattern if cfg.n_rep else ()):
+        if spec.kind in ("attn", "local"):
+            return cache["stack"][f"sub{i}"]["len"][0].clone()
+    for i, spec in enumerate(cfg.remainder):
+        if spec.kind in ("attn", "local"):
+            return cache["rem"][f"sub{i}"]["len"].clone()
+    raise ValueError("no attn or local cache to read the position from")

@@ -1,14 +1,19 @@
-"""Serving in the port (``attn`` layers): ``layers.attention_decode``,
-``transformer.{init_cache, prefill, decode_step}``, ``train.serve_step``
-and ``launch.serve`` against the JAX package on the CPU, with bridged
-params (``bridge.to_torch`` of JAX's init) and numpy-drawn inputs.
+"""Serving in the port (``attn`` and ``local`` layers):
+``layers.attention_decode``, ``transformer.{init_cache, prefill,
+decode_step, _ring_decode}``, ``train.serve_step`` and ``launch.serve``
+against the JAX package on the CPU, with bridged params (``bridge.to_torch``
+of JAX's init) and numpy-drawn inputs.
 
-f32 at the forward's bound, rtol = atol = 2e-5 (``attention_decode`` alone
-at 1e-5), cache ``len`` exact; bf16 compute with a bf16 cache at 2e-2; the
-counterparts of ``tests/test_arch_smoke.py``'s prefill/decode checks at
-their 2e-3.  The archs are the five whose layers are all ``attn``: every
-other kind, and whisper-base's encoder-decoder, raises naming its ROADMAP
-item."""
+f32 at the forward's bound, rtol = atol = 2e-5 (``attention_decode`` and
+``_ring_decode`` alone at 1e-5), cache ``len`` and ``pos`` exact; bf16
+compute with a bf16 cache at 2e-2; the counterparts of
+``tests/test_arch_smoke.py``'s prefill/decode checks at their 2e-3.  The
+archs are the five whose layers are all ``attn`` and gemma2-9b (``local``
+and ``attn``): its smoke window of 8 is shorter than the 11-token prompt,
+so its ring has wrapped at prefill and keeps wrapping as it decodes; with
+the window at 32, past ``MAX_LEN``, its ``local`` layers keep a plain
+cache.  Every other kind, and whisper-base's encoder-decoder, raises
+naming its ROADMAP item."""
 import dataclasses as dc
 import math
 import re
@@ -37,8 +42,10 @@ DECODE_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 SMOKE_TOL = dict(rtol=2e-3, atol=2e-3)     # tests/test_arch_smoke.py
 ARCHS = ["granite-3-8b", "qwen2-72b", "starcoder2-7b",
-         "granite-moe-1b-a400m", "llama4-maverick-400b-a17b"]
+         "granite-moe-1b-a400m", "llama4-maverick-400b-a17b", "gemma2-9b"]
 B, S, MAX_LEN, STEPS = 2, 11, 20, 6
+# gemma2-9b with its window past MAX_LEN: local layers without a ring
+VARIANTS = {"gemma2-9b-window32": ("gemma2-9b", dict(window=32))}
 # 4-query and 5-key chunks: the 11-token prompt pads on both axes
 BLOCKWISE = dict(blockwise_threshold=4, q_chunk=4, kv_chunk=5)
 
@@ -131,14 +138,80 @@ def test_attention_decode_matches_jax_step_for_step(case):
     assert int(tc["len"]) == x.shape[1]
 
 
+def _ring_layer(window: int):
+    """One gemma2 smoke ``local`` layer (GQA 4/2, softcap 50) with its
+    window set, as both packages' ``attn_cfg_for`` give it."""
+    spec = ttr.LayerSpec("local", "dense")
+    jcfg = dc.replace(jreg.get("gemma2-9b").smoke, window=window)
+    tcfg = dc.replace(treg.get("gemma2-9b").smoke, window=window)
+    jacfg, tacfg = jtr.attn_cfg_for(jcfg, spec), ttr.attn_cfg_for(tcfg, spec)
+    jp = jax.tree_util.tree_map(np.asarray,
+                                JL.attn_init(jax.random.PRNGKey(6), jacfg))
+    return spec, jcfg, tcfg, jacfg, tacfg, jp
+
+
+def test_ring_decode_wraps_as_jax_and_the_windowed_layer():
+    """A 4-slot ring driven 11 steps from empty (past 2·size): every step's
+    output, k, v, pos and len against JAX's ``_ring_decode`` (1e-5, pos
+    and len exact), and the outputs against the port's full-sequence
+    windowed layer over the same tokens (2e-4, as the decode above)."""
+    spec, jcfg, tcfg, jacfg, tacfg, jp = _ring_layer(4)
+    p = bridge.to_torch(jp, "cpu")
+    steps = 11
+    x = np.random.default_rng(7).standard_normal(
+        (B, steps, tcfg.d_model)).astype(np.float32)
+    jc = jtr._sub_cache_zeros(jcfg, spec, B, 16, jnp.float32)
+    tc = ttr._sub_cache_init(tcfg, spec, B, 16, torch.float32, device="cpu")
+    assert_trees_close(tc, jc, DECODE_TOL)
+    assert tc["k"].shape[1] == 4
+    outs = []
+    for t in range(steps):
+        jo, jc = jtr._ring_decode(jp, x[:, t:t + 1], jc, jacfg, jcfg, JP32)
+        to = ttr._ring_decode(p, torch.from_numpy(x[:, t:t + 1]), tc, tacfg,
+                              policy=TP32)
+        np.testing.assert_allclose(_np(to), np.asarray(jo), **DECODE_TOL)
+        assert_trees_close(tc, jc, DECODE_TOL)
+        outs.append(to)
+    assert int(tc["len"]) == steps
+    assert sorted(tc["pos"].tolist()) == list(range(steps - 4, steps))
+    full = TL.attention_layer(p, torch.from_numpy(x), tacfg, policy=TP32)
+    torch.testing.assert_close(torch.cat(outs, 1), full, rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("window", [8, 32])
+def test_local_cache_is_a_ring_only_below_max_len(window):
+    """gemma2's local layers: window 8 < MAX_LEN gives 8 slots and ``pos``
+    holding the prompt's last 8 positions; window 32 gives MAX_LEN slots
+    and no ``pos`` after prefill, though ``init_cache`` has one, as the
+    reference's do (``init_cache_matches_jax`` holds the latter)."""
+    cfg = dc.replace(treg.get("gemma2-9b").smoke, window=window)
+    params = ttr.init_params(torch.Generator().manual_seed(0), cfg)
+    tok = torch.zeros((B, S), dtype=torch.int32)
+    local = ttr.prefill(params, cfg, tok, max_len=MAX_LEN, policy=TP32,
+                        cache_dtype=torch.float32)["cache"]["stack"]["sub0"]
+    size = min(window, MAX_LEN)
+    assert local["k"].shape == (cfg.n_rep, B, size, cfg.n_kv, cfg.head_dim)
+    if window < MAX_LEN:
+        held = sorted(local["pos"][0].tolist())
+        assert held == list(range(S - window, S))
+    else:
+        assert "pos" not in local
+    empty = ttr.init_cache(cfg, B, MAX_LEN, device="cpu")["stack"]["sub0"]
+    assert empty["pos"].shape == (cfg.n_rep, size)
+    assert (empty["pos"] == -1).all()
+
+
 # --------------------------------------------------------------------------
 # prefill / decode_step against JAX
 # --------------------------------------------------------------------------
 
-@pytest.fixture(scope="module", params=ARCHS)
+@pytest.fixture(scope="module", params=ARCHS + list(VARIANTS))
 def model(request):
     name = request.param
-    jcfg, tcfg = jreg.get(name).smoke, treg.get(name).smoke
+    arch, kw = VARIANTS.get(name, (name, {}))
+    jcfg, tcfg = dc.replace(jreg.get(arch).smoke, **kw), \
+        dc.replace(treg.get(arch).smoke, **kw)
     jp = jax.tree_util.tree_map(
         np.asarray, jtr.init_params(jax.random.PRNGKey(0), jcfg))
     tokens = np.random.default_rng(1).integers(
@@ -264,6 +337,47 @@ def test_init_cache_matches_jax(model):
     assert_trees_close(got, want, TOL)
 
 
+def test_first_len_counts_tokens_not_ring_slots():
+    """gemma2's sub0 is ``local``, a ring of 8 slots: after an 11-token
+    prompt and 3 steps the position is 14 (not the slot, 14 % 8), as
+    JAX's ``_first_len`` reads it, and a copy the step can advance past."""
+    name = "gemma2-9b"
+    jcfg, tcfg = jreg.get(name).smoke, treg.get(name).smoke
+    assert tcfg.pattern[0].kind == "local" and tcfg.window < MAX_LEN
+    jp = jax.tree_util.tree_map(
+        np.asarray, jtr.init_params(jax.random.PRNGKey(0), jcfg))
+    tp = bridge.to_torch(jp, "cpu")
+    tok = np.random.default_rng(2).integers(0, jcfg.vocab, (B, S + 3))
+    jc = _jax_prefill(jcfg, jp, tok[:, :S], JP32, jnp.float32)["cache"]
+    tc = ttr.prefill(tp, tcfg, torch.from_numpy(tok[:, :S]),
+                     max_len=MAX_LEN, policy=TP32,
+                     cache_dtype=torch.float32)["cache"]
+    jdec = _jax_decode(jcfg, JP32)
+    for t in range(S, S + 3):
+        _, jc = jdec(jp, tok[:, t:t + 1], jc)
+        ttr.decode_step(tp, tcfg, torch.from_numpy(tok[:, t:t + 1]), tc,
+                        policy=TP32)
+    pos = ttr._first_len(tcfg, tc)
+    assert pos.dim() == 0 and int(pos) == S + 3 == int(jtr._first_len(
+        jcfg, jc))
+    pos.add_(1)
+    assert int(tc["stack"]["sub0"]["len"][0]) == S + 3
+
+
+def test_decode_past_max_len_raises():
+    """F2: an ``attn`` cache of max_len slots takes max_len - prompt steps;
+    the next write (slot 6 of 6 here) raises, where the reference clamps
+    it onto slot 5; the port adds no host check to a step."""
+    cfg = treg.get("granite-3-8b").smoke
+    params = ttr.init_params(torch.Generator().manual_seed(0), cfg)
+    cache = ttr.prefill(params, cfg, torch.zeros((B, 6), dtype=torch.int32),
+                        max_len=6, policy=TP32,
+                        cache_dtype=torch.float32)["cache"]
+    with pytest.raises(IndexError):
+        ttr.decode_step(params, cfg, torch.zeros((B, 1), dtype=torch.int32),
+                        cache, policy=TP32)
+
+
 # --------------------------------------------------------------------------
 # the port alone: tests/test_arch_smoke.py:57-95's counterparts
 # --------------------------------------------------------------------------
@@ -341,18 +455,32 @@ def test_zero_init_cache_decode_runs(arch):
 # serve_step
 # --------------------------------------------------------------------------
 
+def _prefilled(arch: str, prompt: int):
+    """``arch``'s smoke config with a cache of 64 sequences prefilled with
+    ``prompt`` tokens, ``max_len`` prompt + 4."""
+    entry = treg.get(arch)
+    cfg = entry.smoke
+    params = entry.module.init_params(torch.Generator().manual_seed(0), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (64, prompt)))
+    prefill = tss.make_prefill_step(entry, cfg, max_len=prompt + 4,
+                                    policy=TP32, cache_dtype=torch.float32)
+    return entry, cfg, params, prefill(params, tokens)
+
+
 @pytest.fixture(scope="module")
 def granite():
     """granite's smoke config (vocab 130, padded to 144) with a prefilled
     cache of 64 sequences."""
-    entry = treg.get("granite-3-8b")
-    cfg = entry.smoke
-    params = entry.module.init_params(torch.Generator().manual_seed(0), cfg)
-    tokens = torch.from_numpy(np.random.default_rng(4).integers(
-        0, cfg.vocab, (64, 8)))
-    prefill = tss.make_prefill_step(entry, cfg, max_len=12, policy=TP32,
-                                    cache_dtype=torch.float32)
-    return entry, cfg, params, prefill(params, tokens)
+    return _prefilled("granite-3-8b", 8)
+
+
+# gemma2's 10-token prompt has wrapped its ring of 8 slots
+@pytest.fixture(scope="module", params=[("granite-3-8b", 8),
+                                        ("gemma2-9b", 10)],
+                ids=["granite-3-8b", "gemma2-9b"])
+def served(request):
+    return _prefilled(*request.param)
 
 
 def _fresh(out):
@@ -410,10 +538,11 @@ def test_sampling_never_draws_padded_vocab(granite):
     assert len(torch.unique(seen)) > 60          # spread, not stuck
 
 
-def test_greedy_decode_reads_nothing_on_the_host(granite, monkeypatch):
-    """The position is a tensor: a greedy step calls no ``Tensor.item`` (nor
-    int / float / bool of a tensor), so on the card it issues no sync."""
-    entry, cfg, params, out = granite
+def test_greedy_decode_reads_nothing_on_the_host(served, monkeypatch):
+    """The position is a tensor, and so is a ring's slot: a greedy step
+    calls no ``Tensor.item`` (nor int / float / bool of a tensor), so on
+    the card it issues no sync."""
+    entry, cfg, params, out = served
     s = _fresh(out)
     decode = tss.make_decode_step(entry, cfg, policy=TP32)
 
@@ -430,17 +559,22 @@ def test_greedy_decode_reads_nothing_on_the_host(granite, monkeypatch):
 # launch/serve, the quickstart, and what is not ported
 # --------------------------------------------------------------------------
 
-def test_serve_launcher_on_cpu():
-    out = serve.main(["--arch", "granite-3-8b", "--preset", "smoke",
-                      "--batch", "3", "--prompt-len", "10", "--gen", "5",
-                      "--device", "cpu"])
+# gemma2's 12-token prompt is longer than its smoke window of 8
+@pytest.mark.parametrize("arch,prompt", [("granite-3-8b", 10),
+                                         ("gemma2-9b", 12)],
+                         ids=["granite-3-8b", "gemma2-9b"])
+def test_serve_launcher_on_cpu(arch, prompt):
+    out = serve.main(["--arch", arch, "--preset", "smoke",
+                      "--batch", "3", "--prompt-len", str(prompt), "--gen",
+                      "5", "--device", "cpu"])
+    vocab = treg.get(arch).smoke.vocab
     assert out["tokens"].shape == (3, 5)
-    assert set(_lens(out["cache"])) == {10 + 5 - 1}
+    assert set(_lens(out["cache"])) == {prompt + 5 - 1}
     assert len(out["decode_step_ms"]) == 4
-    assert torch.isfinite(out["prefill_logits"][:, :130]).all()
+    assert torch.isfinite(out["prefill_logits"][:, :vocab]).all()
     before, after = out["backbone_checksum"]
     assert before == after
-    assert 0 <= int(out["tokens"].min()) and int(out["tokens"].max()) < 130
+    assert 0 <= int(out["tokens"].min()) and int(out["tokens"].max()) < vocab
 
 
 def test_serve_launcher_cuda_without_card_raises():
@@ -459,20 +593,23 @@ def test_quickstart_trains_then_decodes():
     assert all(0 <= t < vocab for t in out["generated"])
 
 
-def _lru_cfg():
-    return dc.replace(treg.get("granite-3-8b").smoke,
-                      pattern=(ttr.LayerSpec("lru", "none"),), ssm_state=16,
-                      lru_width=32)
-
-
-ARCH_ITEMS = {"gemma2-9b": "3(b)", "mamba2-780m": "3(c)",
-              "whisper-base": "3(d)", "llama-3.2-vision-90b": "3(d)",
-              "lru": "2(c)"}
-# every entry point of each; no arch of the registry has only lru layers,
-# so the lru kind (on granite's widths) has no launcher case
+# configs of no registered arch: the lru kind on granite's widths, and
+# gemma2's widths with an ssd layer after the local one
+MIXES = {"lru": lambda: dc.replace(
+             treg.get("granite-3-8b").smoke,
+             pattern=(ttr.LayerSpec("lru", "none"),), ssm_state=16,
+             lru_width=32),
+         "local+ssd": lambda: dc.replace(
+             treg.get("gemma2-9b").smoke,
+             pattern=(ttr.LayerSpec("local", "dense"),
+                      ttr.LayerSpec("ssd", "none")))}
+ARCH_ITEMS = {"mamba2-780m": "3(c)", "whisper-base": "3(d)",
+              "llama-3.2-vision-90b": "3(d)", "lru": "2(c)",
+              "local+ssd": "3(c)"}
+# every entry point of each; a mix has no launcher case
 UNPORTED = [(arch, where) for arch in ARCH_ITEMS
             for where in ("init_cache", "prefill", "decode_step", "launcher")
-            if not (arch == "lru" and where == "launcher")]
+            if not (arch in MIXES and where == "launcher")]
 
 
 @pytest.mark.parametrize("arch,where", UNPORTED,
@@ -484,7 +621,7 @@ def test_unported_serving_raises_naming_the_roadmap(arch, where):
     if where == "launcher":
         call = lambda: serve.main(["--arch", arch, "--device", "cpu"])  # noqa
     else:
-        module, cfg = (ttr, _lru_cfg()) if arch == "lru" else \
+        module, cfg = (ttr, MIXES[arch]()) if arch in MIXES else \
             (treg.get(arch).module, treg.get(arch).smoke)
         call = {"init_cache": lambda: module.init_cache(
                     cfg, 1, 8, torch.float32, device="cpu"),
