@@ -117,31 +117,37 @@ Phases, each printing its numbers on lines of their own:
      0-3999 with the stub frontend (must be 0) and without one (printed:
      the reference's cross layer then attends to its own input,
      non-causally);
-  12. serving, ROADMAP §1 items 3(a) and 3(b): ``decode_check``, one
-     layer's decode step at full width, f32, on the card against the CPU
-     (output and v at 1e-4, the written k slot at 1e-3 beside rope's angle
-     difference there, every other k slot equal, ``len`` and ``pos``
+  12. serving, ROADMAP §1 items 3(a), 3(b) and 3(c): ``decode_check``,
+     one layer's decode step at full width, f32, on the card against the
+     CPU (output and v at 1e-4, the written k slot at 1e-3 beside rope's
+     angle difference there, every other k slot equal, ``len`` and ``pos``
      exact): ``attn``, granite-3-8b's layer, B=4, ``attention_decode``
      over a 2088-slot cache holding 2047 tokens; ``ring``, gemma2-9b's
      ``local`` layer (window 4096, softcap 50, head dim 256), B=2,
      ``_ring_decode`` over a 4096-slot ring holding positions 512-4607;
-     ``serve_check`` (granite-3-8b, B=4, 2048 tokens) and
+     ``ssd``, mamba2-780m's ``ssd_block`` (d 1536, 48 heads of 64, state
+     128), B=4, one step from a seeded state (output and every state leaf
+     at 1e-4); ``serve_check`` (granite-3-8b, B=4, 2048 tokens),
      ``gemma2_serve_check`` (gemma2-9b, B=2, 4608 tokens, so every local
-     ring has wrapped), each model at full width and depth: ``prefill`` of
+     ring has wrapped) and ``mamba2_serve_check`` (mamba2-780m, B=4, 2048
+     tokens, its position in the cache's ``step``), each model at full
+     width and depth: ``prefill`` of
      all tokens but the last and one ``decode_step``, their logits against
      ``forward`` + ``lm_logits`` at the last two positions, in f32
      (relative Frobenius 1e-4) and in bf16 (at most 1.1 times the bf16
      forward's own error against the f32 forward; granite also 2e-2
      against the bf16 forward; argmax agreement printed), then a greedy
      step under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
-     raises); ``serve_path`` and ``gemma2_serve_path``, the serving
-     launcher ``repro_torch.launch.serve`` on the same cases with 32
-     generated tokens: prefill seconds, each decode step by CUDA events,
-     tok/s, the peaks beside the params' and the cache's bytes, a step's
-     byte bound (their sum over 3.35 TB/s), no kernel launched, every cache
-     ``len`` at prompt + 31, each ring holding the last 4096 positions, the
-     params unchanged, and one decode step profiled (``serve_profile`` and
-     ``gemma2_serve_profile`` lines);
+     raises); ``serve_path``, ``gemma2_serve_path`` and
+     ``mamba2_serve_path``, the serving launcher
+     ``repro_torch.launch.serve`` on the same cases with 32 generated
+     tokens: prefill seconds, each decode step by CUDA events, tok/s, the
+     peaks beside the params' and the cache's bytes, a step's byte bound
+     (their sum over 3.35 TB/s), no kernel launched, every cache ``len``
+     (mamba2's ``step``) at prompt + 31, each ring holding the last 4096
+     positions, the params unchanged, and one decode step profiled
+     (``serve_profile``, ``gemma2_serve_profile`` and
+     ``mamba2_serve_profile`` lines);
   13. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
      on, B=2 x S=4096: 4 steps straight; then 2 steps saving a checkpoint
      every 2 into a directory that is removed afterwards, whose restored
@@ -154,7 +160,7 @@ Phases, each printing its numbers on lines of their own:
      ordering row, the wall time;
   15. one JSON line with every kernel's numbers, the card line again, and
      the last line {"ok": true, "device": {...}}.
-Each of the paths 4-14 (in 12, the two ``*serve_path`` runs) zeroes every
+Each of the paths 4-14 (in 12, the three ``*serve_path`` runs) zeroes every
 kernel's launch count just before it and reads the counts just after.
 Any failure raises and the exit code is not 0.  Without a CUDA device it
 exits with code 2 before printing any result.
@@ -1656,12 +1662,14 @@ def vision_causality(run: dict, position: int = 4000) -> None:
                              f"{with_fe}")
 
 
-# Serving: granite-3-8b at B=4 with a 2048-token prompt, and gemma2-9b at
-# B=2 with a 4608-token prompt, past its 4096 window, so that every local
-# ring wraps; 32 generated tokens give max_len prompt + 32 + 8, as the
-# launcher reckons it (2088; 4648).
+# Serving: granite-3-8b at B=4 with a 2048-token prompt, gemma2-9b at B=2
+# with a 4608-token prompt, past its 4096 window, so that every local ring
+# wraps, and mamba2-780m at B=4 with a 2048-token prompt; 32 generated
+# tokens give max_len prompt + 32 + 8, as the launcher reckons it (2088;
+# 4648; mamba2's state has no length).
 SERVE_GEN = 32
-SERVE_CASES = {"granite-3-8b": (4, 2048), "gemma2-9b": (2, 4608)}
+SERVE_CASES = {"granite-3-8b": (4, 2048), "gemma2-9b": (2, 4608),
+               "mamba2-780m": (4, 2048)}
 DECODE_TOL = 1e-4
 # k is cached after rope, whose angle at position p is p x a frequency
 # that the card's exp and the CPU's may round one ulp apart (about 1.2e-4
@@ -1677,6 +1685,16 @@ BF16_FLOOR_RATIO = 1.1
 
 def serve_max_len(arch: str) -> int:
     return SERVE_CASES[arch][1] + SERVE_GEN + 8
+
+
+def cache_positions(cache) -> list:
+    """The positions a serving cache holds, sorted and distinct: every
+    ``len`` leaf's values, or its ``step`` when it has one (no ``attn`` or
+    ``local`` layer)."""
+    from repro_torch.utils import tree_flatten
+    return sorted({int(x) for p, t in tree_flatten(cache)
+                   if p.endswith("len") or p == "step"
+                   for x in t.reshape(-1)})
 
 
 def _decode_case(case: str, arch: str, spec_i: int, batch: int, held: int):
@@ -1770,6 +1788,55 @@ def _decode_case(case: str, arch: str, spec_i: int, batch: int, held: int):
     return row
 
 
+def _ssd_decode_case(batch: int = 4) -> dict:
+    """``decode_check ssd``: mamba2-780m's ``ssd_block`` at full width (d
+    1536, 48 heads of 64, state 128, conv width 4), f32, ``batch`` rows,
+    one step (S=1) from a seeded state (``h`` and the three conv states
+    drawn, not zeros) on the card and on the CPU with the same params and
+    input: the output and every leaf of the new state at ``DECODE_TOL``.
+    The card's step is timed by CUDA events (the block returns a new state,
+    so every call starts from the same one)."""
+    from repro_torch.models import layers as L, registry, ssm, \
+        transformer as tr
+    from repro_torch.utils import tree_map
+    cfg = tr._ssd_cfg(registry.get("mamba2-780m").full)
+    gen = torch.Generator().manual_seed(6)
+    params = ssm.ssd_init(gen, cfg)
+    x = torch.randn((batch, 1, cfg.d_model), generator=gen)
+    state = {k: torch.randn(t.shape, generator=gen) * 0.5
+             for k, t in ssm.ssd_state_init(cfg, batch).items()}
+    pol = L.Policy(compute_dtype=torch.float32)
+    card = tree_map(lambda t: t.to("cuda", copy=True),
+                    {"p": params, "x": x, "c": state})
+
+    def step(p, x_, c):
+        return ssm.ssd_block(p, x_, cfg, policy=pol, state=c)
+
+    with torch.inference_mode():
+        got, gc = step(card["p"], card["x"], card["c"])
+        t0 = time.perf_counter()
+        want, wc = step(params, x, state)
+        cpu_s = time.perf_counter() - t0
+        row = {"case": "ssd", "arch": "mamba2-780m", "x": list(x.shape),
+               "cache": {k: list(t.shape) for k, t in state.items()},
+               "tol": DECODE_TOL,
+               "out_max_abs_err": close_gate("decode_check", "ssd out",
+                                             got.cpu(), want, DECODE_TOL)}
+        for k in sorted(wc):
+            if gc[k].dtype != wc[k].dtype or gc[k].shape != state[k].shape:
+                raise AssertionError(f"decode_check ssd: {k} is "
+                                     f"{gc[k].dtype} {list(gc[k].shape)}")
+            row[f"{k}_max_abs_err"] = close_gate(
+                "decode_check", f"ssd {k}", gc[k].cpu(), wc[k], DECODE_TOL)
+        row["card_ms"] = time_ms(lambda: step(card["p"], card["x"],
+                                              card["c"]), 10)
+    row["cpu_s"] = cpu_s
+    print("decode_check ssd " + json.dumps(row), flush=True)
+    del card, gc, got
+    torch.cuda.empty_cache()
+    return row
+
+
 def decode_check() -> list:
     """One decode step of one layer at full width, f32, card against CPU:
     ``attn``, granite-3-8b's layer (d 4096, 32 heads, kv 8, head dim 128),
@@ -1777,9 +1844,11 @@ def decode_check() -> list:
     ``ring``, gemma2-9b's ``local`` layer (d 3584, 16 heads, kv 8, head dim
     256, softcap 50, window 4096), B=2, ``transformer._ring_decode`` over a
     4096-slot ring holding positions 512-4607, at position 4608: it
-    overwrites slot 512, the oldest, and masks nothing else."""
+    overwrites slot 512, the oldest, and masks nothing else; ``ssd``,
+    mamba2-780m's block, B=4, from a seeded state (``_ssd_decode_case``)."""
     return [_decode_case("attn", "granite-3-8b", 0, 4, 2047),
-            _decode_case("ring", "gemma2-9b", 0, 2, 4608)]
+            _decode_case("ring", "gemma2-9b", 0, 2, 4608),
+            _ssd_decode_case()]
 
 
 def serve_check(arch: str, label: str) -> dict:
@@ -1805,7 +1874,8 @@ def serve_check(arch: str, label: str) -> dict:
     error of at most about 0.46 of the floor's (sqrt(1.1^2 - 1), if
     independent); that H100 run read ratios of 1.00 and 0.99.
     granite-3-8b also keeps its fixed 2e-2 gate on bf16 serving against the
-    bf16 forward.  Printed only: argmax agreement and bf16 serving against
+    bf16 forward; gemma2-9b and mamba2-780m (whose bf16 forward alone sits
+    near 3e-2 of f32) take the derived gates only.  Printed only: argmax agreement and bf16 serving against
     the bf16 forward.  Then one more greedy bf16 step
     through ``make_decode_step`` under
     ``torch.cuda.set_sync_debug_mode("error")``: any host sync raises."""
@@ -1896,7 +1966,7 @@ def serve_check(arch: str, label: str) -> dict:
         raise AssertionError(f"{label}: the sync debug mode let a "
                              "Tensor.item pass")
     row["sync_free_step"] = {"tokens": list(nxt.shape),
-                             "len": int(cache["stack"]["sub0"]["len"][0])}
+                             "positions": cache_positions(cache)}
     print(f"{label} " + json.dumps(row), flush=True)
     del params, cache, got, ref
     torch.cuda.empty_cache()
@@ -1914,8 +1984,9 @@ def serve_path(arch: str, label: str) -> dict:
     3.35 TB/s; the local rings' slots and the positions they hold; then
     one more decode step profiled (``<label>_profile`` lines).  Gates:
     finite prefill logits, every generated token in the vocabulary, no
-    kernel launched, every ``len`` at prompt + 31, every ring holding the
-    last ``size`` positions, the params unchanged."""
+    kernel launched, every ``len`` (or the cache's ``step``) at prompt +
+    31, every ring holding the last ``size`` positions, the params
+    unchanged."""
     from repro_torch.launch import serve
     from repro_torch.models import layers as L, registry
     from repro_torch.train import serve_step as ss
@@ -1941,8 +2012,7 @@ def serve_path(arch: str, label: str) -> dict:
     entry = registry.get(arch)
     cfg = entry.full
     leaves = tree_flatten(out["cache"])
-    lens = sorted({int(x) for p, t in leaves if p.endswith("len")
-                   for x in t.reshape(-1)})
+    lens = cache_positions(out["cache"])
     pos = [t for p, t in leaves if p.endswith("pos")]
     param_bytes, cache_bytes = tree_nbytes(out["params"]), \
         tree_nbytes(out["cache"])
@@ -1986,7 +2056,8 @@ def serve_path(arch: str, label: str) -> dict:
         raise AssertionError(f"{label} launched {counts}; serving reaches "
                              f"no kernel, as the reference's")
     if lens != [last]:
-        raise AssertionError(f"{label}: cache lens {lens}, expected {last}")
+        raise AssertionError(f"{label}: cache positions {lens}, expected "
+                             f"{last}")
     before, after = out["backbone_checksum"]
     if before != after:
         raise AssertionError(f"{label}: params changed {before} -> {after}")
@@ -2198,6 +2269,8 @@ def main() -> int:
     serve_check("gemma2-9b", "gemma2_serve_check")
     serve = serve_path("granite-3-8b", "serve_path")
     gemma2_serve = serve_path("gemma2-9b", "gemma2_serve_path")
+    serve_check("mamba2-780m", "mamba2_serve_check")
+    mamba2_serve = serve_path("mamba2-780m", "mamba2_serve_path")
     run_resume_path()
     run_arms()
 
@@ -2218,7 +2291,8 @@ def main() -> int:
                              "whisper_path": whisper["launches"],
                              "vision_path": vision["launches"],
                              "serve_path": serve["launches"],
-                             "gemma2_serve_path": gemma2_serve["launches"]},
+                             "gemma2_serve_path": gemma2_serve["launches"],
+                             "mamba2_serve_path": mamba2_serve["launches"]},
         **{name: {k: row[k] for k in (
             "q", "kv", "softcap", "max_abs_err", "kernel_ms", "plain_ms",
             "bound_ms", "bound_by", "library", "library_ms",

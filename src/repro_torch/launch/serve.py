@@ -7,6 +7,8 @@ greedy decode loop.
         --preset smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \\
         --preset smoke --prompt-len 12 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+        --preset smoke --device cpu
 
 Counterpart of ``repro/launch/serve.py``.  Runs on ``cuda`` unless
 ``--device cpu`` is given; a CUDA request without a card raises.  There is
@@ -15,10 +17,11 @@ bf16 compute, bf16 params and a bf16 cache; ``smoke`` runs f32.  Params are
 random, drawn on the device from seed 0, and prompts from seed 1.  The
 cache holds ``prompt + gen + 8`` tokens; a ``local`` layer whose window is
 shorter (gemma2-9b's 4096 past a 4088-token prompt, its smoke config's 8)
-keeps a ring of ``window`` slots.  Archs with other layers than ``attn``
-and ``local`` (mamba2-780m's ``ssd``, the ``cross`` layers of whisper-base
-and llama-3.2-vision-90b) raise ``NotImplementedError`` naming their
-ROADMAP item before any param is drawn.
+keeps a ring of ``window`` slots; an ``ssd`` layer (mamba2-780m) keeps its
+state and the cache a ``step`` counter, whatever the length.  Archs with
+``cross`` layers (whisper-base, llama-3.2-vision-90b) raise
+``NotImplementedError`` naming their ROADMAP item before any param is
+drawn.
 """
 from __future__ import annotations
 

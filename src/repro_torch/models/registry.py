@@ -7,10 +7,11 @@ whisper-base dispatches to the enc-dec composition (``models/encdec.py``),
 everything else to the generic stack.  The port trains the dense, MoE,
 local-attention, Mamba-2, audio (whisper-base) and vision-language
 (llama-3.2-vision-90b) archs, and serves those whose layers are all
-``attn`` or ``local`` (granite-3-8b, qwen2-72b, starcoder2-7b,
-granite-moe-1b-a400m, llama4-maverick-400b-a17b, gemma2-9b); serving any
-other raises ``NotImplementedError`` naming its ROADMAP item, as
-recurrentgemma-9b does for everything.
+``attn``, ``local`` or ``ssd`` (granite-3-8b, qwen2-72b, starcoder2-7b,
+granite-moe-1b-a400m, llama4-maverick-400b-a17b, gemma2-9b, mamba2-780m);
+serving whisper-base or llama-3.2-vision-90b (``cross`` layers) raises
+``NotImplementedError`` naming ROADMAP item 3(d), as recurrentgemma-9b
+does for everything, naming item 2(c).
 """
 from __future__ import annotations
 

@@ -11,16 +11,21 @@ mixers, and ``ssd`` (Mamba-2) layers; the ``lru`` kind raises
 ``frontend["cross_kv"]`` (stub image embeddings, or the encoder's output in
 ``models/encdec.py``) without rope and without a causal mask; given no
 frontend it attends to its own input, non-causally, as the reference's
-does.  Serving covers ``attn`` and ``local`` layers with any channel mixer;
-every other kind raises ``NotImplementedError`` naming the ROADMAP item
-that ports its cache (``SERVE_ITEMS``).  The cache tree is the reference's
-leaf for leaf, ``{"stack": {"sub<i>": {"k", "v": [n_rep, B, size, KV, hd],
-"len": [n_rep] int32}}, "rem": {...}}``: ``size`` is ``max_len``, or for a
+does.  Serving covers ``attn``, ``local`` and ``ssd`` layers with any
+channel mixer; a ``cross`` layer raises ``NotImplementedError`` naming the
+ROADMAP item that ports its cache (``SERVE_ITEMS``).  The cache tree is the
+reference's leaf for leaf, ``{"stack": {"sub<i>": {...}}, "rem": {...}}``:
+an ``attn`` or ``local`` layer holds ``"k", "v": [n_rep, B, size, KV, hd]``
+and ``"len": [n_rep]`` int32, ``size`` being ``max_len``, or for a
 ``local`` layer ``min(window, max_len)``; a ``local`` layer's cache also
 has ``pos`` (``[n_rep, size]`` int32, the position held in each slot, -1
 for none) in ``init_cache`` always and in ``prefill`` when its window is
 shorter than ``max_len``, and then it is a ring buffer written at slot
-``len % size``.  A decode step updates the cache in place.
+``len % size``.  An ``ssd`` layer holds its Mamba-2 state, ``"h": [n_rep,
+B, H, P, N]`` f32 and ``"conv_x"/"conv_b"/"conv_c": [n_rep, B, K-1, C]``.
+A cache with no ``attn`` or ``local`` layer carries the position in a
+top-level ``"step"`` (0-d int32).  A decode step updates the cache in
+place.
 """
 from __future__ import annotations
 
@@ -40,10 +45,9 @@ KIND_ITEMS = {"lru": "2(c) (models/hybrid.py: RG-LRU)"}
 
 
 # the ROADMAP §1 item that ports the serving cache of each trained kind
-# still missing (``attn`` and ``local`` are served); an ``lru`` layer
-# already fails ``_check_spec`` (its decode comes with 2(c))
-SERVE_ITEMS = {"ssd": "3(c) (SSD state decode and the step counter)",
-               "cross": "3(d) (cross caches and encoder-decoder serving)"}
+# still missing (``attn``, ``local`` and ``ssd`` are served); an ``lru``
+# layer already fails ``_check_spec`` (its decode comes with 2(c))
+SERVE_ITEMS = {"cross": "3(d) (cross caches and encoder-decoder serving)"}
 
 
 def roadmap_item(kind: str) -> str:
@@ -59,8 +63,8 @@ def _check_spec(spec: LayerSpec):
 
 
 def _check_serving(cfg: ModelConfig):
-    """Serving covers ``attn`` and ``local`` layers; raise for any other
-    kind."""
+    """Serving covers ``attn``, ``local`` and ``ssd`` layers; raise for any
+    other kind."""
     for spec in cfg.pattern + cfg.remainder:
         _check_spec(spec)
         if spec.kind in SERVE_ITEMS:
@@ -292,7 +296,7 @@ def lm_logits(params, cfg: ModelConfig, hidden: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# serving: prefill + decode with caches (``attn`` and ``local`` layers)
+# serving: prefill + decode with caches (``attn``, ``local``, ``ssd``)
 # --------------------------------------------------------------------------
 
 def _ring_size(cfg: ModelConfig, spec: LayerSpec, max_len: int) -> int:
@@ -305,7 +309,13 @@ def _sub_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
                     max_len: int, dtype, *, lead: tuple = (), device) -> dict:
     """One sublayer's zero cache, the reference's ``_sub_cache_zeros``:
     k and v sized by ``_ring_size``; a ``local`` layer's also holds ``pos``
-    filled with -1 (whatever its size, as the reference's does)."""
+    filled with -1 (whatever its size, as the reference's does); an
+    ``ssd`` layer's is ``ssm.ssd_state_init``'s on ``lead`` (``h`` f32, the
+    conv states in ``dtype``)."""
+    if spec.kind == "ssd":
+        base = ssm.ssd_state_init(_ssd_cfg(cfg), batch, dtype, device="meta")
+        return {k: torch.zeros((*lead, *t.shape), dtype=t.dtype,
+                               device=device) for k, t in base.items()}
     size = _ring_size(cfg, spec, max_len)
     c = L.attn_cache_init(attn_cfg_for(cfg, spec), batch, size, dtype,
                           lead=lead, device=device)
@@ -318,14 +328,19 @@ def _sub_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device) -> dict:
     """Shape-complete zero cache (also the decode dry-run entry point; on
-    the ``meta`` device it allocates nothing)."""
+    the ``meta`` device it allocates nothing), with a zero ``step`` when no
+    layer is ``attn`` or ``local``."""
     _check_serving(cfg)
-    return {"stack": {f"sub{i}": _sub_cache_init(
-                cfg, spec, batch, max_len, dtype, lead=(cfg.n_rep,),
-                device=device) for i, spec in enumerate(cfg.pattern)},
-            "rem": {f"sub{i}": _sub_cache_init(
-                cfg, spec, batch, max_len, dtype, device=device)
-                for i, spec in enumerate(cfg.remainder)}}
+    cache = {"stack": {f"sub{i}": _sub_cache_init(
+                 cfg, spec, batch, max_len, dtype, lead=(cfg.n_rep,),
+                 device=device) for i, spec in enumerate(cfg.pattern)},
+             "rem": {f"sub{i}": _sub_cache_init(
+                 cfg, spec, batch, max_len, dtype, device=device)
+                 for i, spec in enumerate(cfg.remainder)}}
+    if not any(s.kind in ("attn", "local")
+               for s in cfg.pattern + cfg.remainder):
+        cache["step"] = torch.zeros((), dtype=torch.int32, device=device)
+    return cache
 
 
 def _layers(params, cache, cfg: ModelConfig):
@@ -340,13 +355,29 @@ def _layers(params, cache, cfg: ModelConfig):
         yield params["rem"][f"sub{i}"], cache["rem"][f"sub{i}"], spec
 
 
+def _ssd_serve(p, h, spec, cfg, cache, *, policy):
+    """An ``ssd`` sublayer over h [B, S, D] from the state in ``cache``
+    (zero at prefill), which it overwrites in place with the state after
+    the last token; the conv states land in the leaves' dtype.  Returns
+    h."""
+    y, st = ssm.ssd_block(p["ssd"], _norm(cfg, p["norm"], h), _ssd_cfg(cfg),
+                          policy=policy, state=cache)
+    for k, t in st.items():
+        cache[k].copy_(t)
+    h, _ = _apply_mlp(p, h + y, spec, cfg, policy, L.NO_BFP)
+    return h
+
+
 def _sub_prefill(p, h, spec, cfg, cache, *, policy, positions):
-    """Sublayer forward that writes its k (after rope) and v into its cache
-    and sets ``len`` to S: slots ``[0, S)``, or for a ring (a cache with
-    ``pos``) the last ``min(size, S)`` tokens at slots ``t % size``, with
-    their positions in ``pos``.  Blockwise above
-    ``blockwise_threshold``, full below, never flash (as the reference's).
-    Returns h."""
+    """Sublayer forward that fills its cache.  An ``ssd`` layer runs its
+    block from the zero state and keeps the state after the prompt.  An
+    ``attn`` or ``local`` layer writes its k (after rope) and v and sets
+    ``len`` to S: slots ``[0, S)``, or for a ring (a cache with ``pos``)
+    the last ``min(size, S)`` tokens at slots ``t % size``, with their
+    positions in ``pos``.  Blockwise above ``blockwise_threshold``, full
+    below, never flash (as the reference's).  Returns h."""
+    if spec.kind == "ssd":
+        return _ssd_serve(p, h, spec, cfg, cache, policy=policy)
     acfg = attn_cfg_for(cfg, spec)
     b, s, _ = h.shape
     u = _norm(cfg, p["norm"], h)
@@ -394,7 +425,10 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     A ``local`` layer whose window is shorter than ``max_len`` caches a ring
     of ``window`` slots (with ``pos``); one whose window reaches ``max_len``
     caches all ``max_len`` slots, without ``pos``, as the reference's
-    prefill does (its ``init_cache`` gives that layer a ``pos`` leaf)."""
+    prefill does (its ``init_cache`` gives that layer a ``pos`` leaf).  An
+    ``ssd`` layer's conv states are in the compute dtype, not
+    ``cache_dtype`` (its ``h`` is f32), and ``step`` is S, as the
+    reference's prefill returns them."""
     _check_serving(cfg)
     b, s = tokens.shape
     if s > max_len:
@@ -403,11 +437,16 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = torch.arange(s, device=dev).expand(b, s)
     h = embed_tokens(params, cfg, tokens, positions, policy)
     cache = init_cache(cfg, b, max_len, cache_dtype, device=dev)
-    # only a ring (fewer slots than max_len) keeps ``pos``, as in the
-    # reference's prefill
+    # only a ring (fewer slots than max_len) keeps ``pos``, and the conv
+    # states take the compute dtype, as in the reference's prefill
     for c in (*cache["stack"].values(), *cache["rem"].values()):
         if "pos" in c and c["k"].shape[-3] == max_len:
             del c["pos"]
+        for k in ("conv_x", "conv_b", "conv_c"):
+            if k in c:
+                c[k] = c[k].to(policy.compute_dtype)
+    if "step" in cache:
+        cache["step"].fill_(s)
     for p, c, spec in _layers(params, cache, cfg):
         h = _sub_prefill(p, h, spec, cfg, c, policy=policy,
                          positions=positions)
@@ -442,6 +481,8 @@ def _ring_decode(p_attn, u, cache: dict, acfg: L.AttnConfig, *, policy):
 
 def _sub_decode(p, h, spec, cfg, cache, *, policy):
     """One-token sublayer step; updates ``cache`` in place.  Returns h."""
+    if spec.kind == "ssd":
+        return _ssd_serve(p, h, spec, cfg, cache, policy=policy)
     u = _norm(cfg, p["norm"], h)
     acfg = attn_cfg_for(cfg, spec)
     if "pos" in cache:
@@ -459,19 +500,30 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     """One decode step: tokens [B,1] + cache → (logits [B,1,V], cache).
 
     The cache is updated in place (the reference donates it) and returned.
-    The position is the first ``attn`` or ``local`` cache's ``len`` (all
-    sublayers advance in lockstep), read on the device: the step issues no
-    host sync.  A cache from ``prefill(..., max_len=M)`` of a P-token prompt
-    takes at most M - P steps while it has an ``attn`` layer (or a ``local``
-    one without a ring): the next write to slot M raises (``IndexError`` on
-    the CPU, a device-side assert on the card), where the reference clamps
-    it onto slot M - 1.  A ring's slot is ``len % size``: it never fills."""
+    The position is the cache's ``step`` when it has one (no ``attn`` or
+    ``local`` layer), else the first ``attn`` or ``local`` cache's ``len``
+    (all sublayers advance in lockstep), read on the device: the step
+    issues no host sync; ``step`` is then advanced by 1.  A cache from
+    ``prefill(..., max_len=M)`` of a P-token prompt takes at most M - P
+    steps while it has an ``attn`` layer (or a ``local`` one without a
+    ring): the next write to slot M raises (``IndexError`` on the CPU, a
+    device-side assert on the card), where the reference clamps it onto
+    slot M - 1.  A ring's slot is ``len % size``, and an ``ssd`` layer's
+    state has no length: neither fills, so a cache of only ``ssd`` (and
+    ring) layers has no limit.  An ``ssd`` layer's new conv states are
+    written in the leaves' dtype, where the reference returns them in the
+    compute dtype (only a cache of another dtype than the compute's, as
+    neither launcher makes, sees the rounding)."""
     _check_serving(cfg)
     b = tokens.shape[0]
-    positions = _first_len(cfg, cache).view(1, 1).expand(b, 1)
-    h = embed_tokens(params, cfg, tokens, positions, policy)
+    pos = cache["step"].clone() if "step" in cache else \
+        _first_len(cfg, cache)
+    h = embed_tokens(params, cfg, tokens, pos.view(1, 1).expand(b, 1),
+                     policy)
     for p, c, spec in _layers(params, cache, cfg):
         h = _sub_decode(p, h, spec, cfg, c, policy=policy)
+    if "step" in cache:
+        cache["step"].add_(1)
     h = _norm(cfg, params["final_norm"], h)
     return lm_logits(params, cfg, h, policy), cache
 
@@ -479,7 +531,8 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
 def _first_len(cfg: ModelConfig, cache: dict) -> torch.Tensor:
     """A copy of the first ``attn`` or ``local`` cache's ``len`` (0-d, on the
     device; in the stack, then in the remainder): the layers advance theirs
-    in place as the step runs.  It counts tokens, never a ring's slot."""
+    in place as the step runs.  It counts tokens, never a ring's slot.  A
+    cache with no such layer carries ``step`` instead."""
     for i, spec in enumerate(cfg.pattern if cfg.n_rep else ()):
         if spec.kind in ("attn", "local"):
             return cache["stack"][f"sub{i}"]["len"][0].clone()

@@ -1,19 +1,21 @@
-"""Serving in the port (``attn`` and ``local`` layers):
+"""Serving in the port (``attn``, ``local`` and ``ssd`` layers):
 ``layers.attention_decode``, ``transformer.{init_cache, prefill,
 decode_step, _ring_decode}``, ``train.serve_step`` and ``launch.serve``
 against the JAX package on the CPU, with bridged params (``bridge.to_torch``
 of JAX's init) and numpy-drawn inputs.
 
 f32 at the forward's bound, rtol = atol = 2e-5 (``attention_decode`` and
-``_ring_decode`` alone at 1e-5), cache ``len`` and ``pos`` exact; bf16
-compute with a bf16 cache at 2e-2; the counterparts of
+``_ring_decode`` alone at 1e-5), cache ``len``, ``pos`` and ``step`` exact;
+bf16 compute with a bf16 cache at 2e-2; the counterparts of
 ``tests/test_arch_smoke.py``'s prefill/decode checks at their 2e-3.  The
-archs are the five whose layers are all ``attn`` and gemma2-9b (``local``
-and ``attn``): its smoke window of 8 is shorter than the 11-token prompt,
-so its ring has wrapped at prefill and keeps wrapping as it decodes; with
-the window at 32, past ``MAX_LEN``, its ``local`` layers keep a plain
-cache.  Every other kind, and whisper-base's encoder-decoder, raises
-naming its ROADMAP item."""
+archs are the five whose layers are all ``attn``, gemma2-9b (``local`` and
+``attn``) and mamba2-780m (``ssd`` only, so its cache carries ``step``):
+gemma2's smoke window of 8 is shorter than the 11-token prompt, so its ring
+has wrapped at prefill and keeps wrapping as it decodes; with the window at
+32, past ``MAX_LEN``, its ``local`` layers keep a plain cache; ``local+ssd``
+is gemma2's widths with an ``ssd`` layer after the ``local`` one (a ring
+and an SSD state, no ``step``).  The ``cross`` kind, whisper-base's
+encoder-decoder and the ``lru`` kind raise naming their ROADMAP item."""
 import dataclasses as dc
 import math
 import re
@@ -42,10 +44,17 @@ DECODE_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 SMOKE_TOL = dict(rtol=2e-3, atol=2e-3)     # tests/test_arch_smoke.py
 ARCHS = ["granite-3-8b", "qwen2-72b", "starcoder2-7b",
-         "granite-moe-1b-a400m", "llama4-maverick-400b-a17b", "gemma2-9b"]
+         "granite-moe-1b-a400m", "llama4-maverick-400b-a17b", "gemma2-9b",
+         "mamba2-780m"]
 B, S, MAX_LEN, STEPS = 2, 11, 20, 6
-# gemma2-9b with its window past MAX_LEN: local layers without a ring
-VARIANTS = {"gemma2-9b-window32": ("gemma2-9b", dict(window=32))}
+# parity models beside the archs, each an arch's smoke config with fields
+# replaced (given the package's LayerSpec): gemma2-9b with its window past
+# MAX_LEN, so its local layers keep no ring; and gemma2's widths with an
+# ssd layer (mamba2's smoke state) after the local one
+VARIANTS = {"gemma2-9b-window32": ("gemma2-9b", lambda spec: dict(window=32)),
+            "local+ssd": ("gemma2-9b", lambda spec: dict(
+                pattern=(spec("local", "dense"), spec("ssd", "none")),
+                ssm_state=16, ssm_headdim=8, ssm_chunk=8))}
 # 4-query and 5-key chunks: the 11-token prompt pads on both axes
 BLOCKWISE = dict(blockwise_threshold=4, q_chunk=4, kv_chunk=5)
 
@@ -56,9 +65,15 @@ def _np(x):
 
 
 def _lens(cache) -> list[int]:
-    """Every ``len`` leaf's values."""
-    return [int(v) for p, x in tree_flatten(cache) if p.endswith("len")
-            for v in x.reshape(-1)]
+    """Every ``len`` leaf's values, and ``step``'s: the positions held."""
+    return [int(v) for p, x in tree_flatten(cache)
+            if p.endswith("len") or p == "step" for v in x.reshape(-1)]
+
+
+def _dtypes(tree) -> dict:
+    """Each leaf's dtype name by path, of a port's or a JAX tree."""
+    return {p: str(x.dtype).removeprefix("torch.")
+            for p, x in tree_flatten(tree)}
 
 
 def assert_trees_close(got, want, tol):
@@ -206,18 +221,23 @@ def test_local_cache_is_a_ring_only_below_max_len(window):
 # prefill / decode_step against JAX
 # --------------------------------------------------------------------------
 
-@pytest.fixture(scope="module", params=ARCHS + list(VARIANTS))
-def model(request):
-    name = request.param
-    arch, kw = VARIANTS.get(name, (name, {}))
-    jcfg, tcfg = dc.replace(jreg.get(arch).smoke, **kw), \
-        dc.replace(treg.get(arch).smoke, **kw)
+def _load_model(name: str) -> dict:
+    """An arch's or a variant's smoke configs, JAX's params from key 0 and
+    their bridge, and numpy tokens [B, S + STEPS]."""
+    arch, kw = VARIANTS.get(name, (name, lambda spec: {}))
+    jcfg, tcfg = dc.replace(jreg.get(arch).smoke, **kw(jtr.LayerSpec)), \
+        dc.replace(treg.get(arch).smoke, **kw(ttr.LayerSpec))
     jp = jax.tree_util.tree_map(
         np.asarray, jtr.init_params(jax.random.PRNGKey(0), jcfg))
     tokens = np.random.default_rng(1).integers(
         0, jcfg.vocab, (B, S + STEPS)).astype(np.int32)
     return {"name": name, "jcfg": jcfg, "tcfg": tcfg, "jp": jp,
             "tp": bridge.to_torch(jp, "cpu"), "tokens": tokens}
+
+
+@pytest.fixture(scope="module", params=ARCHS + list(VARIANTS))
+def model(request):
+    return _load_model(request.param)
 
 
 def _jax_prefill(jcfg, jp, tokens, policy, cache_dtype, logits_mode="all"):
@@ -235,8 +255,8 @@ def _jax_decode(jcfg, policy):
                          ids=["full", "blockwise"])
 @pytest.mark.parametrize("logits_mode", ["all", "last"])
 def test_prefill_matches_jax(model, logits_mode, blockwise):
-    """Logits, hidden and every cache leaf (len exact); with the threshold
-    at 4 the prompt takes the blockwise branch."""
+    """Logits, hidden and every cache leaf (len and step exact); with the
+    threshold at 4 the prompt takes the blockwise branch."""
     kw = BLOCKWISE if blockwise else {}
     jcfg, tcfg = dc.replace(model["jcfg"], **kw), \
         dc.replace(model["tcfg"], **kw)
@@ -327,7 +347,8 @@ def test_bf16_prefill_and_decode_match_jax(model):
             tokens[:, t:t + 1]), tc, policy=TBF)
         np.testing.assert_allclose(_np(tl), _np(jl), **BF16_TOL)
     assert_leaves_rel_fro(tc, jc, 2e-2)
-    assert tc["stack"]["sub0"]["k"].dtype == torch.bfloat16
+    assert _dtypes(tc) == _dtypes(jc)
+    assert "bfloat16" in _dtypes(tc).values()
 
 
 def test_init_cache_matches_jax(model):
@@ -376,6 +397,111 @@ def test_decode_past_max_len_raises():
     with pytest.raises(IndexError):
         ttr.decode_step(params, cfg, torch.zeros((B, 1), dtype=torch.int32),
                         cache, policy=TP32)
+
+
+def test_step_is_a_device_counter_advanced_in_place(monkeypatch):
+    """mamba2's cache carries ``step``, a 0-d int32 tensor on the cache's
+    device (S after prefill); a decode step embeds at a copy of it and then
+    advances the same tensor by 1: set to 7, the step reads position 7 for
+    every row, and ``step`` reads 8 afterwards while that copy keeps 7."""
+    cfg = treg.get("mamba2-780m").smoke
+    params = ttr.init_params(torch.Generator().manual_seed(0), cfg)
+    cache = ttr.prefill(params, cfg, torch.zeros((B, 5), dtype=torch.int32),
+                        max_len=8, policy=TP32,
+                        cache_dtype=torch.float32)["cache"]
+    step = cache["step"]
+    assert step.shape == () and step.dtype == torch.int32
+    assert step.device == cache["stack"]["sub0"]["h"].device
+    assert int(step) == 5
+    step.fill_(7)
+    seen = []
+    embed = ttr.embed_tokens
+
+    def spy(params_, cfg_, tokens, positions, policy):
+        seen.append(positions)
+        return embed(params_, cfg_, tokens, positions, policy)
+    monkeypatch.setattr(ttr, "embed_tokens", spy)
+    _, after = ttr.decode_step(params, cfg, torch.zeros((B, 1),
+                                                        dtype=torch.int32),
+                               cache, policy=TP32)
+    assert after["step"] is step and int(step) == 8
+    assert seen[0].shape == (B, 1) and seen[0].tolist() == [[7]] * B
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "local+ssd"])
+def test_prefill_cache_dtypes_match_jax(name):
+    """f32 compute with a bf16 cache: the reference's prefill returns an
+    ``ssd`` layer's conv states in the compute dtype, f32, (and ``h`` in
+    f32) but k and v in ``cache_dtype``; the port's leaves take the same
+    dtypes, and hold the same values (bf16 leaves at 2e-2)."""
+    m = _load_model(name)
+    tok = m["tokens"][:, :S]
+    want = _jax_prefill(m["jcfg"], m["jp"], tok, JP32, jnp.bfloat16)
+    got = ttr.prefill(m["tp"], m["tcfg"], torch.from_numpy(tok),
+                      max_len=MAX_LEN, policy=TP32,
+                      cache_dtype=torch.bfloat16)
+    assert _dtypes(got["cache"]) == _dtypes(want["cache"])
+    ssd = [c for c in got["cache"]["stack"].values() if "h" in c]
+    assert len(ssd) == 1
+    assert {t.dtype for t in ssd[0].values()} == {torch.float32}
+    assert ("k" in got["cache"]["stack"]["sub0"]) == (name == "local+ssd")
+    assert_trees_close(got["cache"], want["cache"], BF16_TOL)
+
+
+def test_ssd_decode_keeps_the_leaf_dtype_where_jax_takes_the_compute_dtype():
+    """Pinned divergence (ROADMAP §3): a zero bf16 ``init_cache`` decoded
+    one step under f32 compute.  JAX's step returns the conv states in f32;
+    the port writes them in place, so its leaves stay bf16 and hold JAX's
+    values rounded to bf16 (one bf16 ulp, past the f32 2e-5).  The logits
+    and ``h`` (f32 on both sides) agree at 2e-5, ``step`` exactly."""
+    m = _load_model("mamba2-780m")
+    jcfg, tcfg = m["jcfg"], m["tcfg"]
+    nxt = m["tokens"][:, :1]
+    jl, jc = _jax_decode(jcfg, JP32)(
+        m["jp"], nxt, jtr.init_cache(jcfg, B, MAX_LEN, jnp.bfloat16))
+    tl, tc = ttr.decode_step(
+        m["tp"], tcfg, torch.from_numpy(nxt),
+        ttr.init_cache(tcfg, B, MAX_LEN, torch.bfloat16, device="cpu"),
+        policy=TP32)
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+    jd, td = _dtypes(jc), _dtypes(tc)
+    assert sorted(jd) == sorted(td)
+    got = dict(tree_flatten(tc))
+    for path, w in tree_flatten(jc):
+        w = np.asarray(w)
+        if "/conv_" in path:
+            assert (jd[path], td[path]) == ("float32", "bfloat16"), path
+            rounded = torch.tensor(w).to(torch.bfloat16).float()
+            torch.testing.assert_close(got[path].float(), rounded,
+                                       rtol=2 ** -7, atol=2e-5)
+            assert np.abs(_np(got[path]) - w).max() > 1e-4, path
+        else:
+            assert jd[path] == td[path], path
+            np.testing.assert_allclose(_np(got[path]), w, err_msg=path,
+                                       **TOL)
+    assert int(tc["step"]) == 1
+
+
+def test_pure_ssm_cache_decodes_past_max_len():
+    """An ``ssd`` state has no slots: mamba2 prefilled with 6 tokens at
+    ``max_len`` 6 decodes 4 more steps as JAX's does (logits and every
+    leaf at 2e-5, ``step`` 10 exact), where an ``attn`` cache raises."""
+    m = _load_model("mamba2-780m")
+    jcfg, tcfg, jp, tp, tok = m["jcfg"], m["tcfg"], m["jp"], m["tp"], \
+        m["tokens"]
+    jc = jax.jit(lambda p, t: jtr.prefill(
+        p, jcfg, t, max_len=6, policy=JP32, cache_dtype=jnp.float32))(
+        jp, tok[:, :6])["cache"]
+    tc = ttr.prefill(tp, tcfg, torch.from_numpy(tok[:, :6]), max_len=6,
+                     policy=TP32, cache_dtype=torch.float32)["cache"]
+    jdec = _jax_decode(jcfg, JP32)
+    for t in range(6, 10):
+        jl, jc = jdec(jp, tok[:, t:t + 1], jc)
+        tl, tc = ttr.decode_step(tp, tcfg, torch.from_numpy(tok[:, t:t + 1]),
+                                 tc, policy=TP32)
+        np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+    assert_trees_close(tc, jc, TOL)
+    assert int(tc["step"]) == 10
 
 
 # --------------------------------------------------------------------------
@@ -448,7 +574,7 @@ def test_zero_init_cache_decode_runs(arch):
         policy=TP32)
     assert logits.shape[0] == B
     assert torch.isfinite(logits[..., :cfg.vocab]).all()
-    assert int(cache["stack"]["sub0"]["len"][0]) == 1
+    assert set(_lens(cache)) == {1}
 
 
 # --------------------------------------------------------------------------
@@ -475,10 +601,12 @@ def granite():
     return _prefilled("granite-3-8b", 8)
 
 
-# gemma2's 10-token prompt has wrapped its ring of 8 slots
+# gemma2's 10-token prompt has wrapped its ring of 8 slots; mamba2's
+# position is its cache's step
 @pytest.fixture(scope="module", params=[("granite-3-8b", 8),
-                                        ("gemma2-9b", 10)],
-                ids=["granite-3-8b", "gemma2-9b"])
+                                        ("gemma2-9b", 10),
+                                        ("mamba2-780m", 8)],
+                ids=["granite-3-8b", "gemma2-9b", "mamba2-780m"])
 def served(request):
     return _prefilled(*request.param)
 
@@ -539,8 +667,8 @@ def test_sampling_never_draws_padded_vocab(granite):
 
 
 def test_greedy_decode_reads_nothing_on_the_host(served, monkeypatch):
-    """The position is a tensor, and so is a ring's slot: a greedy step
-    calls no ``Tensor.item`` (nor int / float / bool of a tensor), so on
+    """The position is a tensor (``len`` or ``step``), and so is a ring's
+    slot: a greedy step calls no ``Tensor.item`` (nor int / float / bool of a tensor), so on
     the card it issues no sync."""
     entry, cfg, params, out = served
     s = _fresh(out)
@@ -559,10 +687,12 @@ def test_greedy_decode_reads_nothing_on_the_host(served, monkeypatch):
 # launch/serve, the quickstart, and what is not ported
 # --------------------------------------------------------------------------
 
-# gemma2's 12-token prompt is longer than its smoke window of 8
+# gemma2's 12-token prompt is longer than its smoke window of 8; mamba2's
+# cache holds step 14
 @pytest.mark.parametrize("arch,prompt", [("granite-3-8b", 10),
-                                         ("gemma2-9b", 12)],
-                         ids=["granite-3-8b", "gemma2-9b"])
+                                         ("gemma2-9b", 12),
+                                         ("mamba2-780m", 10)],
+                         ids=["granite-3-8b", "gemma2-9b", "mamba2-780m"])
 def test_serve_launcher_on_cpu(arch, prompt):
     out = serve.main(["--arch", arch, "--preset", "smoke",
                       "--batch", "3", "--prompt-len", str(prompt), "--gen",
@@ -594,22 +724,67 @@ def test_quickstart_trains_then_decodes():
 
 
 # configs of no registered arch: the lru kind on granite's widths, and
-# gemma2's widths with an ssd layer after the local one
+# gemma2's widths with an ssd layer after the local one (``VARIANTS``)
 MIXES = {"lru": lambda: dc.replace(
              treg.get("granite-3-8b").smoke,
              pattern=(ttr.LayerSpec("lru", "none"),), ssm_state=16,
              lru_width=32),
          "local+ssd": lambda: dc.replace(
              treg.get("gemma2-9b").smoke,
-             pattern=(ttr.LayerSpec("local", "dense"),
-                      ttr.LayerSpec("ssd", "none")))}
-ARCH_ITEMS = {"mamba2-780m": "3(c)", "whisper-base": "3(d)",
-              "llama-3.2-vision-90b": "3(d)", "lru": "2(c)",
-              "local+ssd": "3(c)"}
-# every entry point of each; a mix has no launcher case
-UNPORTED = [(arch, where) for arch in ARCH_ITEMS
-            for where in ("init_cache", "prefill", "decode_step", "launcher")
+             **VARIANTS["local+ssd"][1](ttr.LayerSpec))}
+ARCH_ITEMS = {"whisper-base": "3(d)", "llama-3.2-vision-90b": "3(d)",
+              "lru": "2(c)"}
+ENTRY_POINTS = ("init_cache", "prefill", "decode_step", "launcher")
+
+
+def _cases(archs) -> list:
+    """Every entry point of each; a mix has no launcher case."""
+    return [(arch, where) for arch in archs for where in ENTRY_POINTS
             if not (arch in MIXES and where == "launcher")]
+
+
+UNPORTED = _cases(ARCH_ITEMS)
+# the configs whose serving item 3(c) ported: they raised before it
+SSD_SERVED = _cases(("mamba2-780m", "local+ssd"))
+
+
+@pytest.mark.parametrize("arch,where", SSD_SERVED,
+                         ids=[f"{a}-{w}" for a, w in SSD_SERVED])
+def test_ssd_serving_entry_point_runs(arch, where):
+    """Each entry point serves an ``ssd`` layer: ``init_cache`` gives each
+    layer its zero state (and ``step`` only without a ``local`` layer),
+    ``prefill`` and ``decode_step`` (from that zero cache) give finite
+    logits and advance the position, and the launcher serves mamba2-780m
+    at its defaults (32-token prompts, 16 tokens)."""
+    if where == "launcher":
+        out = serve.main(["--arch", arch, "--device", "cpu"])
+        assert out["tokens"].shape == (4, 16)
+        assert set(_lens(out["cache"])) == {32 + 16 - 1}
+        return
+    module, cfg = (ttr, MIXES[arch]()) if arch in MIXES else \
+        (treg.get(arch).module, treg.get(arch).smoke)
+    ssd = [f"sub{i}" for i, sp in enumerate(cfg.pattern) if sp.kind == "ssd"]
+    cache = module.init_cache(cfg, 1, 8, torch.float32, device="cpu")
+    assert ("step" in cache) == (arch not in MIXES)
+    for key in ssd:
+        assert sorted(cache["stack"][key]) == ["conv_b", "conv_c", "conv_x",
+                                               "h"]
+        assert not any(t.any() for t in cache["stack"][key].values())
+    if where == "init_cache":
+        return
+    params = module.init_params(torch.Generator().manual_seed(0), cfg)
+    tok = torch.zeros((1, 4), dtype=torch.int32)
+    if where == "prefill":
+        out = module.prefill(params, cfg, tok, max_len=8, policy=TP32,
+                             cache_dtype=torch.float32)
+        logits, cache, held = out["logits"], out["cache"], 4
+    else:
+        logits, cache = module.decode_step(params, cfg, tok[:, :1], cache,
+                                           policy=TP32)
+        held = 1
+    assert torch.isfinite(logits[..., :cfg.vocab]).all()
+    assert set(_lens(cache)) == {held}
+    assert all(cache["stack"][key]["h"].any() for key in ssd)
 
 
 @pytest.mark.parametrize("arch,where", UNPORTED,
