@@ -117,7 +117,7 @@ Phases, each printing its numbers on lines of their own:
      0-3999 with the stub frontend (must be 0) and without one (printed:
      the reference's cross layer then attends to its own input,
      non-causally);
-  12. serving, ROADMAP §1 items 3(a), 3(b) and 3(c): ``decode_check``,
+  12. serving, ROADMAP §1 items 3(a) to 3(d): ``decode_check``,
      one layer's decode step at full width, f32, on the card against the
      CPU (output and v at 1e-4, the written k slot at 1e-3 beside rope's
      angle difference there, every other k slot equal, ``len`` and ``pos``
@@ -127,27 +127,37 @@ Phases, each printing its numbers on lines of their own:
      ``_ring_decode`` over a 4096-slot ring holding positions 512-4607;
      ``ssd``, mamba2-780m's ``ssd_block`` (d 1536, 48 heads of 64, state
      128), B=4, one step from a seeded state (output and every state leaf
-     at 1e-4); ``serve_check`` (granite-3-8b, B=4, 2048 tokens),
+     at 1e-4); ``cross``, llama-3.2-vision-90b's cross layer (64 heads, kv
+     8, head dim 128), B=2, ``_cross_decode`` over a seeded 1600-slot cross
+     cache (output at 1e-4, the cache bit for bit unchanged);
+     ``serve_check`` (granite-3-8b, B=4, 2048 tokens),
      ``gemma2_serve_check`` (gemma2-9b, B=2, 4608 tokens, so every local
-     ring has wrapped) and ``mamba2_serve_check`` (mamba2-780m, B=4, 2048
-     tokens, its position in the cache's ``step``), each model at full
-     width and depth: ``prefill`` of
+     ring has wrapped), ``mamba2_serve_check`` (mamba2-780m, B=4, 2048
+     tokens, its position in the cache's ``step``), ``whisper_serve_check``
+     (whisper-base, B=8, 384 tokens over the launcher's stub frames [8,
+     1500, 512]) and ``vision_serve_check`` (llama-3.2-vision-90b cut to
+     one superblock, B=2, 2048 tokens over a stub ``cross_kv`` [2, 1600,
+     8192]), each model at full width and, but for vision, depth, the
+     frontend fed to prefill and to the forward alike: ``prefill`` of
      all tokens but the last and one ``decode_step``, their logits against
      ``forward`` + ``lm_logits`` at the last two positions, in f32
      (relative Frobenius 1e-4) and in bf16 (at most 1.1 times the bf16
      forward's own error against the f32 forward; granite also 2e-2
      against the bf16 forward; argmax agreement printed), then a greedy
      step under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
-     raises); ``serve_path``, ``gemma2_serve_path`` and
-     ``mamba2_serve_path``, the serving launcher
+     raises); ``serve_path``, ``gemma2_serve_path``,
+     ``mamba2_serve_path``, ``whisper_serve_path`` and
+     ``vision_serve_path``, the serving launcher
      ``repro_torch.launch.serve`` on the same cases with 32 generated
-     tokens: prefill seconds, each decode step by CUDA events, tok/s, the
-     peaks beside the params' and the cache's bytes, a step's byte bound
-     (their sum over 3.35 TB/s), no kernel launched, every cache ``len``
-     (mamba2's ``step``) at prompt + 31, each ring holding the last 4096
-     positions, the params unchanged, and one decode step profiled
-     (``serve_profile``, ``gemma2_serve_profile`` and
-     ``mamba2_serve_profile`` lines);
+     tokens (``serve.main``; vision, cut, through ``serve.serve``): prefill
+     seconds, each decode step by CUDA events, tok/s, the peaks beside the
+     params' and the cache's bytes, a step's byte bound (their sum over
+     3.35 TB/s; whisper's counts its decoder's params, not its encoder's,
+     and the self and cross caches), no kernel launched, every cache
+     ``len`` (mamba2's ``step``) at prompt + 31, each ring holding the last
+     4096 positions, the params unchanged, and one decode step profiled
+     (``serve_profile``, ``gemma2_serve_profile``, ``mamba2_serve_profile``,
+     ``whisper_serve_profile`` and ``vision_serve_profile`` lines);
   13. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
      on, B=2 x S=4096: 4 steps straight; then 2 steps saving a checkpoint
      every 2 into a directory that is removed afterwards, whose restored
@@ -160,7 +170,7 @@ Phases, each printing its numbers on lines of their own:
      ordering row, the wall time;
   15. one JSON line with every kernel's numbers, the card line again, and
      the last line {"ok": true, "device": {...}}.
-Each of the paths 4-14 (in 12, the three ``*serve_path`` runs) zeroes every
+Each of the paths 4-14 (in 12, the five ``*serve_path`` runs) zeroes every
 kernel's launch count just before it and reads the counts just after.
 Any failure raises and the exit code is not 0.  Without a CUDA device it
 exits with code 2 before printing any result.
@@ -1664,12 +1674,16 @@ def vision_causality(run: dict, position: int = 4000) -> None:
 
 # Serving: granite-3-8b at B=4 with a 2048-token prompt, gemma2-9b at B=2
 # with a 4608-token prompt, past its 4096 window, so that every local ring
-# wraps, and mamba2-780m at B=4 with a 2048-token prompt; 32 generated
-# tokens give max_len prompt + 32 + 8, as the launcher reckons it (2088;
-# 4648; mamba2's state has no length).
+# wraps, mamba2-780m at B=4 with a 2048-token prompt, whisper-base at B=8
+# with a 384-token prompt over 1500 stub frames, and llama-3.2-vision-90b,
+# cut to one superblock, at B=2 with a 2048-token prompt over a stub
+# cross_kv of 1600; 32 generated tokens give max_len prompt + 32 + 8, as
+# the launcher reckons it (2088; 4648; mamba2's state has no length; 424,
+# under whisper's 448-position decoder context).
 SERVE_GEN = 32
 SERVE_CASES = {"granite-3-8b": (4, 2048), "gemma2-9b": (2, 4608),
-               "mamba2-780m": (4, 2048)}
+               "mamba2-780m": (4, 2048), "whisper-base": (8, 384),
+               "llama-3.2-vision-90b": (2, 2048)}
 DECODE_TOL = 1e-4
 # k is cached after rope, whose angle at position p is p x a frequency
 # that the card's exp and the CPU's may round one ulp apart (about 1.2e-4
@@ -1685,6 +1699,23 @@ BF16_FLOOR_RATIO = 1.1
 
 def serve_max_len(arch: str) -> int:
     return SERVE_CASES[arch][1] + SERVE_GEN + 8
+
+
+def serve_cfg(arch: str):
+    """The config an arch is served at: its full one, llama-3.2-vision-90b's
+    cut to ``VISION_LAYERS`` (its 100 layers are 86.6 G params, 173 GB in
+    bf16)."""
+    from repro_torch.models import registry
+    cfg = registry.get(arch).full
+    if arch == "llama-3.2-vision-90b":
+        cfg = dc.replace(cfg, n_layers=VISION_LAYERS).validate()
+    return cfg
+
+
+def cross_cache_bytes(cfg, cache) -> int:
+    """The bytes of a serving cache's ``cross`` layers (k and v)."""
+    keys = [f"sub{i}" for i, s in enumerate(cfg.pattern) if s.kind == "cross"]
+    return sum(tree_nbytes(cache["stack"][k]) for k in keys)
 
 
 def cache_positions(cache) -> list:
@@ -1837,6 +1868,57 @@ def _ssd_decode_case(batch: int = 4) -> dict:
     return row
 
 
+def _cross_decode_case(batch: int = 2, slots: int = 1600) -> dict:
+    """``decode_check cross``: llama-3.2-vision-90b's ``cross`` layer at full
+    width (d 8192, 64 heads, kv 8, head dim 128), f32, ``batch`` rows, one
+    step of ``transformer._cross_decode`` over a seeded cross cache of
+    ``slots`` patch positions, on the card and on the CPU with the same
+    params and input: the output at ``DECODE_TOL``, and both caches bit for
+    bit what they were (decode only reads a cross cache).  The card's step
+    is timed by CUDA events."""
+    from repro_torch.models import layers as L, registry, transformer as tr
+    from repro_torch.utils import tree_map
+    cfg = registry.get("llama-3.2-vision-90b").full
+    spec = next(s for s in cfg.pattern if s.kind == "cross")
+    acfg = tr.attn_cfg_for(cfg, spec)
+    gen = torch.Generator().manual_seed(8)
+    params = L.attn_init(gen, acfg)
+    x = torch.randn((batch, 1, cfg.d_model), generator=gen)
+    cache = {n: torch.randn((batch, slots, acfg.n_kv, acfg.head_dim),
+                            generator=gen) for n in ("k", "v")}
+    frozen = {n: t.clone() for n, t in cache.items()}
+    pol = L.Policy(compute_dtype=torch.float32)
+    card = tree_map(lambda t: t.to("cuda", copy=True),
+                    {"p": params, "x": x, "c": cache})
+
+    def step(c):
+        return tr._cross_decode(c["p"], c["x"], c["c"], acfg, policy=pol)
+
+    with torch.inference_mode():
+        got = step(card)
+        t0 = time.perf_counter()
+        want = step({"p": params, "x": x, "c": cache})
+        cpu_s = time.perf_counter() - t0
+        row = {"case": "cross", "arch": "llama-3.2-vision-90b",
+               "x": list(x.shape),
+               "cache": {n: list(t.shape) for n, t in cache.items()},
+               "softcap": acfg.softcap, "tol": DECODE_TOL,
+               "out_max_abs_err": close_gate("decode_check", "cross out",
+                                             got.cpu(), want, DECODE_TOL)}
+        for n in frozen:
+            if not (torch.equal(card["c"][n].cpu(), frozen[n])
+                    and torch.equal(cache[n], frozen[n])):
+                raise AssertionError(f"decode_check cross: the step wrote "
+                                     f"the cache's {n}")
+        row["cache_unchanged"] = True
+        row["card_ms"] = time_ms(lambda: step(card), 10)
+    row["cpu_s"] = cpu_s
+    print("decode_check cross " + json.dumps(row), flush=True)
+    del card, got
+    torch.cuda.empty_cache()
+    return row
+
+
 def decode_check() -> list:
     """One decode step of one layer at full width, f32, card against CPU:
     ``attn``, granite-3-8b's layer (d 4096, 32 heads, kv 8, head dim 128),
@@ -1845,10 +1927,12 @@ def decode_check() -> list:
     256, softcap 50, window 4096), B=2, ``transformer._ring_decode`` over a
     4096-slot ring holding positions 512-4607, at position 4608: it
     overwrites slot 512, the oldest, and masks nothing else; ``ssd``,
-    mamba2-780m's block, B=4, from a seeded state (``_ssd_decode_case``)."""
+    mamba2-780m's block, B=4, from a seeded state (``_ssd_decode_case``);
+    ``cross``, llama-3.2-vision-90b's cross layer, B=2, over a 1600-slot
+    cross cache (``_cross_decode_case``)."""
     return [_decode_case("attn", "granite-3-8b", 0, 4, 2047),
             _decode_case("ring", "gemma2-9b", 0, 2, 4608),
-            _ssd_decode_case()]
+            _ssd_decode_case(), _cross_decode_case()]
 
 
 def serve_check(arch: str, label: str) -> dict:
@@ -1874,16 +1958,21 @@ def serve_check(arch: str, label: str) -> dict:
     error of at most about 0.46 of the floor's (sqrt(1.1^2 - 1), if
     independent); that H100 run read ratios of 1.00 and 0.99.
     granite-3-8b also keeps its fixed 2e-2 gate on bf16 serving against the
-    bf16 forward; gemma2-9b and mamba2-780m (whose bf16 forward alone sits
-    near 3e-2 of f32) take the derived gates only.  Printed only: argmax agreement and bf16 serving against
-    the bf16 forward.  Then one more greedy bf16 step
-    through ``make_decode_step`` under
+    bf16 forward; the other archs (mamba2-780m's bf16 forward alone sits
+    near 3e-2 of f32) take the derived gates only.  An arch with a stub
+    frontend (whisper-base's frames, llama-3.2-vision-90b's ``cross_kv``,
+    the launcher's draw, seed 7, made in f32 and cast with the params)
+    feeds the same one to prefill and to the forward; vision is served
+    cut to ``VISION_LAYERS`` (``serve_cfg``).  Printed only: argmax
+    agreement and bf16 serving against the bf16 forward.  Then one more
+    greedy bf16 step through ``make_decode_step`` under
     ``torch.cuda.set_sync_debug_mode("error")``: any host sync raises."""
+    from repro_torch.launch.train import stub_frontend
     from repro_torch.models import layers as L, registry
     from repro_torch.train import serve_step as ss
     from repro_torch.utils import cast_tree
     entry = registry.get(arch)
-    cfg, (b, n) = entry.full, SERVE_CASES[arch]
+    cfg, (b, n) = serve_cfg(arch), SERVE_CASES[arch]
     v = cfg.vocab
     params = entry.module.init_params(
         torch.Generator(device="cuda").manual_seed(0), cfg,
@@ -1891,20 +1980,22 @@ def serve_check(arch: str, label: str) -> dict:
     tokens = torch.randint(0, cfg.vocab, (b, n), device="cuda",
                            generator=torch.Generator(device="cuda")
                            .manual_seed(2))
+    fe32 = stub_frontend(entry, cfg, b, torch.float32, "cuda", seed=7)
     got, ref = {}, {}
     for dt in (torch.float32, torch.bfloat16):
         if dt is torch.bfloat16:
             params = cast_tree(params, dt)
+        kw = {} if fe32 is None else {"frontend": cast_tree(fe32, dt)}
         policy = L.Policy(compute_dtype=dt)
         with torch.inference_mode():
             pre = entry.module.prefill(params, cfg, tokens[:, :n - 1],
                                        max_len=serve_max_len(arch),
                                        policy=policy, cache_dtype=dt,
-                                       logits_mode="last")
+                                       logits_mode="last", **kw)
             step, cache = entry.module.decode_step(
                 params, cfg, tokens[:, n - 1:], pre["cache"], policy=policy)
             hidden = entry.module.forward(params, cfg, tokens,
-                                          policy=policy)["hidden"]
+                                          policy=policy, **kw)["hidden"]
             full = entry.module.lm_logits(params, cfg, hidden[:, -2:],
                                           policy)
         got[dt] = (pre["logits"][:, -1, :v].float(), step[:, 0, :v].float())
@@ -1914,7 +2005,9 @@ def serve_check(arch: str, label: str) -> dict:
             del cache
         torch.cuda.empty_cache()
     f32, bf = torch.float32, torch.bfloat16
-    row = {"arch": arch, "layers": cfg.n_layers, "batch": b, "prompt": n,
+    row = {"arch": arch, "layers": cfg.n_layers,
+           "of_layers": entry.full.n_layers, "batch": b, "prompt": n,
+           "frontend": json.loads(frontend_shapes(fe32)),
            "max_len": serve_max_len(arch), "f32_tol": SERVE_F32_TOL,
            "bf16_floor_ratio": BF16_FLOOR_RATIO,
            "tol": SERVE_REL_TOL if arch == "granite-3-8b" else None}
@@ -1968,30 +2061,35 @@ def serve_check(arch: str, label: str) -> dict:
     row["sync_free_step"] = {"tokens": list(nxt.shape),
                              "positions": cache_positions(cache)}
     print(f"{label} " + json.dumps(row), flush=True)
-    del params, cache, got, ref
+    del params, cache, got, ref, fe32, kw
     torch.cuda.empty_cache()
     return row
 
 
 def serve_path(arch: str, label: str) -> dict:
     """The serving launcher, ``repro_torch.launch.serve``, on ``arch`` FULL
-    (bf16 params and cache), B and prompt from ``SERVE_CASES``, 32
-    generated tokens: prefill seconds, each decode step by CUDA events (the
-    first apart from the rest), tok/s, the peaks while the params are drawn
-    (each leaf is drawn in f32, then cast) and while serving (from the
-    launcher's ``make_prefill_step`` call on) beside the params' and the
-    cache's bytes, and a decode step's byte bound, (param + cache bytes) /
-    3.35 TB/s; the local rings' slots and the positions they hold; then
-    one more decode step profiled (``<label>_profile`` lines).  Gates:
-    finite prefill logits, every generated token in the vocabulary, no
-    kernel launched, every ``len`` (or the cache's ``step``) at prompt +
-    31, every ring holding the last ``size`` positions, the params
-    unchanged."""
+    (bf16 params and cache; through ``serve.main``, or through
+    ``serve.serve`` with llama-3.2-vision-90b cut by ``serve_cfg``), B and
+    prompt from ``SERVE_CASES``, 32 generated tokens, the launcher's stub
+    frontend if the arch has one: prefill seconds, each decode step by CUDA
+    events (the first apart from the rest), tok/s, the peaks while the
+    params are drawn (each leaf is drawn in f32, then cast) and while
+    serving (from the launcher's ``make_prefill_step`` call on) beside the
+    params' and the cache's bytes (the cross layers' apart), and a decode
+    step's byte bound, (param + cache bytes) / 3.35 TB/s, whose params are
+    what a step reads: an encoder-decoder's decoder, not its encoder,
+    which runs once at prefill (``bound_counts`` says which); the local
+    rings' slots and the positions they hold; then one more decode step
+    profiled (``<label>_profile`` lines).  Gates: finite prefill logits,
+    every generated token in the vocabulary, no kernel launched, every
+    ``len`` (or the cache's ``step``) at prompt + 31, every ring holding
+    the last ``size`` positions, the params unchanged."""
     from repro_torch.launch import serve
     from repro_torch.models import layers as L, registry
     from repro_torch.train import serve_step as ss
     from repro_torch.utils import tree_flatten
     batch, prompt = SERVE_CASES[arch]
+    entry, cfg = registry.get(arch), serve_cfg(arch)
     argv = ["--arch", arch, "--preset", "full", "--batch", str(batch),
             "--prompt-len", str(prompt), "--gen", str(SERVE_GEN)]
     init_peak = []
@@ -2005,20 +2103,26 @@ def serve_path(arch: str, label: str) -> dict:
     zero_counts()
     t0 = time.perf_counter()
     with watching(ss, "make_prefill_step", params_drawn):
-        out = serve.main(argv)
+        if cfg is entry.full:
+            out = serve.main(argv)
+        else:
+            out = serve.serve(entry, cfg, batch=batch, prompt_len=prompt,
+                              gen=SERVE_GEN, dtype=torch.bfloat16,
+                              device="cuda")
     wall = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    entry = registry.get(arch)
-    cfg = entry.full
     leaves = tree_flatten(out["cache"])
     lens = cache_positions(out["cache"])
     pos = [t for p, t in leaves if p.endswith("pos")]
-    param_bytes, cache_bytes = tree_nbytes(out["params"]), \
-        tree_nbytes(out["cache"])
+    encdec = "decoder" in out["params"]
+    read = out["params"]["decoder"] if encdec else out["params"]
+    param_bytes, cache_bytes = tree_nbytes(read), tree_nbytes(out["cache"])
     steps = out["decode_step_ms"]
     rest = sorted(steps[1:])
     row = {"arch": arch, "layers": cfg.n_layers,
+           "of_layers": entry.full.n_layers,
+           "frontend": json.loads(frontend_shapes(out["frontend"])),
            "batch": batch, "prompt": prompt, "gen": SERVE_GEN,
            "max_len": serve_max_len(arch), "wall_s": wall,
            "prefill_s": out["prefill_s"], "decode_s": out["decode_s"],
@@ -2029,8 +2133,13 @@ def serve_path(arch: str, label: str) -> dict:
            "init_max_memory_allocated_bytes": init_peak[0],
            "serve_max_memory_allocated_bytes": peak,
            "param_bytes": param_bytes,
+           "encoder_param_bytes": (tree_nbytes(out["params"]["encoder"])
+                                   if encdec else None),
            "cache_bytes": cache_bytes,
+           "cross_cache_bytes": cross_cache_bytes(cfg, out["cache"]),
            "step_bound_ms": (param_bytes + cache_bytes) / PEAK_BYTES * 1e3,
+           "bound_counts": ("decoder " if encdec else "") + "params + cache"
+           + (" (self and cross)" if out["frontend"] is not None else ""),
            "lens": lens, "launches": counts,
            "backbone_checksum": list(out["backbone_checksum"])}
     last = prompt + SERVE_GEN - 1
@@ -2271,6 +2380,10 @@ def main() -> int:
     gemma2_serve = serve_path("gemma2-9b", "gemma2_serve_path")
     serve_check("mamba2-780m", "mamba2_serve_check")
     mamba2_serve = serve_path("mamba2-780m", "mamba2_serve_path")
+    serve_check("whisper-base", "whisper_serve_check")
+    whisper_serve = serve_path("whisper-base", "whisper_serve_path")
+    serve_check("llama-3.2-vision-90b", "vision_serve_check")
+    vision_serve = serve_path("llama-3.2-vision-90b", "vision_serve_path")
     run_resume_path()
     run_arms()
 
@@ -2292,7 +2405,9 @@ def main() -> int:
                              "vision_path": vision["launches"],
                              "serve_path": serve["launches"],
                              "gemma2_serve_path": gemma2_serve["launches"],
-                             "mamba2_serve_path": mamba2_serve["launches"]},
+                             "mamba2_serve_path": mamba2_serve["launches"],
+                             "whisper_serve_path": whisper_serve["launches"],
+                             "vision_serve_path": vision_serve["launches"]},
         **{name: {k: row[k] for k in (
             "q", "kv", "softcap", "max_abs_err", "kernel_ms", "plain_ms",
             "bound_ms", "bound_by", "library", "library_ms",

@@ -9,19 +9,25 @@ greedy decode loop.
         --preset smoke --prompt-len 12 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
         --preset smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+        --preset smoke --device cpu
 
 Counterpart of ``repro/launch/serve.py``.  Runs on ``cuda`` unless
 ``--device cpu`` is given; a CUDA request without a card raises.  There is
 no mesh: one card (sharding is ROADMAP §1 item 4).  ``--preset full`` runs
 bf16 compute, bf16 params and a bf16 cache; ``smoke`` runs f32.  Params are
-random, drawn on the device from seed 0, and prompts from seed 1.  The
-cache holds ``prompt + gen + 8`` tokens; a ``local`` layer whose window is
-shorter (gemma2-9b's 4096 past a 4088-token prompt, its smoke config's 8)
-keeps a ring of ``window`` slots; an ``ssd`` layer (mamba2-780m) keeps its
-state and the cache a ``step`` counter, whatever the length.  Archs with
-``cross`` layers (whisper-base, llama-3.2-vision-90b) raise
-``NotImplementedError`` naming their ROADMAP item before any param is
-drawn.
+random, drawn on the device from seed 0, and prompts from seed 1.  An arch
+with a stubbed frontend (whisper-base's audio frames, llama-3.2-vision-90b's
+``cross_kv``) is fed one draw per run of ``ArchEntry.frontend_shape``'s
+shape, ``randn * 0.1`` in the compute dtype from seed 7
+(``train.stub_frontend``), which prefill encodes (whisper) and caches as
+the cross layers' keys and values.  The cache holds ``prompt + gen + 8``
+tokens; a ``local`` layer whose window is shorter (gemma2-9b's 4096 past a
+4088-token prompt, its smoke config's 8) keeps a ring of ``window`` slots;
+an ``ssd`` layer (mamba2-780m) keeps its state and the cache a ``step``
+counter, whatever the length.  ``main`` parses the arguments and calls
+``serve``, which a caller can give a config of its own (a model cut in
+depth).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ import time
 
 import torch
 
+from repro_torch.launch.train import stub_frontend
 from repro_torch.models import layers as L, registry
 from repro_torch.train import serve_step as ss
 from repro_torch.utils import tree_checksum
@@ -57,10 +64,8 @@ def _sync(device: torch.device) -> None:
 
 
 def main(argv=None) -> dict:
-    """Parse ``argv``, prefill and decode, and return ``{"tokens": [B, gen]
-    int32, "cache", "params", "prefill_logits": [B, V], "prefill_s",
-    "decode_s", "decode_step_ms": one per decode step, "tok_per_s",
-    "backbone_checksum": (before, after)}``."""
+    """Parse ``argv`` and ``serve`` the arch at its preset; returns what
+    ``serve`` returns."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(registry.ARCHS))
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
@@ -77,19 +82,33 @@ def main(argv=None) -> dict:
                            "is_available() is False; pass --device cpu to "
                            "run on the CPU")
     entry = registry.get(args.arch)
-    cfg = entry.config(args.preset)
-    dtype = torch.bfloat16 if args.preset == "full" else torch.float32
+    return serve(entry, entry.config(args.preset), batch=args.batch,
+                 prompt_len=args.prompt_len, gen=args.gen,
+                 dtype=(torch.bfloat16 if args.preset == "full"
+                        else torch.float32), device=device)
+
+
+def serve(entry, cfg, *, batch: int, prompt_len: int, gen: int,
+          dtype: torch.dtype, device) -> dict:
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
+    decode ``gen`` tokens greedily, with ``dtype`` compute, params and
+    cache on ``device``; return ``{"tokens": [B, gen] int32, "cache",
+    "params", "frontend" (None without one), "prefill_logits": [B, V],
+    "prefill_s", "decode_s", "decode_step_ms": one per decode step,
+    "tok_per_s", "backbone_checksum": (before, after)}``."""
+    device = torch.device(device)
     policy = L.Policy(compute_dtype=dtype)
-    max_len = args.prompt_len + args.gen + 8
+    max_len = prompt_len + gen + 8
     # the cache's shapes on the meta device: an unported kind raises here
-    entry.module.init_cache(cfg, args.batch, max_len, dtype, device="meta")
+    entry.module.init_cache(cfg, batch, max_len, dtype, device="meta")
 
     params = entry.module.init_params(
         torch.Generator(device=device).manual_seed(0), cfg, dtype=dtype,
         device=device)
     before = tree_checksum(params)
+    frontend = stub_frontend(entry, cfg, batch, dtype, device, seed=7)
     prompts = torch.randint(
-        0, cfg.vocab, (args.batch, args.prompt_len),
+        0, cfg.vocab, (batch, prompt_len),
         generator=torch.Generator(device=device).manual_seed(1),
         device=device)
     prefill = ss.make_prefill_step(entry, cfg, max_len=max_len,
@@ -99,7 +118,7 @@ def main(argv=None) -> dict:
 
     _sync(device)
     t0 = time.perf_counter()
-    out = prefill(params, prompts)
+    out = prefill(params, prompts, frontend)
     cache, logits = out["cache"], out["next_token_logits"]
     tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
     _sync(device)
@@ -108,23 +127,23 @@ def main(argv=None) -> dict:
 
     t0 = time.perf_counter()
     toks, marks = [tok], [_mark(device)]
-    for _ in range(args.gen - 1):
+    for _ in range(gen - 1):
         tok, cache = decode(params, cache, tok)
         toks.append(tok)
         marks.append(_mark(device))
     _sync(device)
     decode_s = time.perf_counter() - t0
     step_ms = [_elapsed_ms(a, b) for a, b in zip(marks, marks[1:])]
-    tok_per_s = (args.gen - 1) * args.batch / decode_s
-    print(f"decode: {args.gen - 1} steps, {tok_per_s:.1f} tok/s" + (
+    tok_per_s = (gen - 1) * batch / decode_s
+    print(f"decode: {gen - 1} steps, {tok_per_s:.1f} tok/s" + (
         f", step median {statistics.median(step_ms):.2f} ms" if step_ms
         else ""))
-    gen = torch.cat(toks, dim=1)
-    print("first sequence:", gen[0].tolist())
-    return {"tokens": gen, "cache": cache, "params": params,
-            "prefill_logits": logits, "prefill_s": prefill_s,
-            "decode_s": decode_s, "decode_step_ms": step_ms,
-            "tok_per_s": tok_per_s,
+    generated = torch.cat(toks, dim=1)
+    print("first sequence:", generated[0].tolist())
+    return {"tokens": generated, "cache": cache, "params": params,
+            "frontend": frontend, "prefill_logits": logits,
+            "prefill_s": prefill_s, "decode_s": decode_s,
+            "decode_step_ms": step_ms, "tok_per_s": tok_per_s,
             "backbone_checksum": (before, tree_checksum(params))}
 
 

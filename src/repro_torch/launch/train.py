@@ -60,14 +60,14 @@ def build(arch: str, preset: str, mode: str = "duplex"):
 
 
 def stub_frontend(entry, cfg, batch: int, dtype: torch.dtype,
-                  device) -> dict | None:
+                  device, seed: int = 1) -> dict | None:
     """The run's stub frontend, shaped as the reference's ``input_specs``
-    (``frontend_shape``), drawn ``randn * 0.1`` from seed 1 on ``device``;
-    None for an arch without one."""
+    (``frontend_shape``), drawn ``randn * 0.1`` from ``seed`` on
+    ``device``; None for an arch without one."""
     shapes = entry.frontend_shape(cfg, batch)
     if shapes is None:
         return None
-    gen = torch.Generator(device=device).manual_seed(1)
+    gen = torch.Generator(device=device).manual_seed(seed)
     return {k: (torch.randn(v, generator=gen, device=device) * 0.1).to(dtype)
             for k, v in sorted(shapes.items())}
 

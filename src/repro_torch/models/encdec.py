@@ -1,12 +1,13 @@
 """Encoder-decoder composition (whisper family).
 
-Counterpart of ``repro/models/encdec.py:20-56``.  The audio conv frontend
+Counterpart of ``repro/models/encdec.py``.  The audio conv frontend
 is a stub: the caller provides precomputed frame embeddings
 ``frontend["frames"]`` [B, n_frames, d_model].  The encoder is a
 bidirectional stack; the decoder is a causal stack whose pattern
 interleaves self-attention and cross-attention to the encoder output.
-Serving (``prefill``, ``init_cache``, ``decode_step``) is not ported yet:
-each raises ``NotImplementedError`` naming ROADMAP §1 item 3(d).
+Serving encodes the frames once, at ``prefill``, whose cross layers cache
+the encoder output's keys and values; ``decode_step`` runs the decoder
+alone over that cache.
 """
 from __future__ import annotations
 
@@ -65,20 +66,29 @@ def lm_logits(params, cfg: ModelConfig, hidden: torch.Tensor,
     return T.lm_logits(params["decoder"], cfg, hidden, policy)
 
 
-_SERVING = ("encoder-decoder serving is not ported to repro_torch yet "
-            "(ROADMAP §1 'Modules to port' item 3(d) (cross caches and "
-            "encoder-decoder serving))")
-
-
-def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, **kw) -> dict:
-    raise NotImplementedError(_SERVING)
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
+            frontend: dict, max_len: int, policy: L.Policy = L.Policy(),
+            cache_dtype=torch.bfloat16, logits_mode: str = "all") -> dict:
+    """Encode ``frontend["frames"]`` once, then the decoder's
+    ``transformer.prefill`` over ``tokens`` with the encoder's output as
+    ``cross_kv``: its cross layers cache that output's k and v, at the
+    frames' length."""
+    enc_out = encode(params, cfg, frontend["frames"], policy=policy)
+    return T.prefill(params["decoder"], cfg, tokens,
+                     frontend={"cross_kv": enc_out}, max_len=max_len,
+                     policy=policy, cache_dtype=cache_dtype,
+                     logits_mode=logits_mode)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device) -> dict:
-    raise NotImplementedError(_SERVING)
+    """The decoder's zero cache (``transformer.init_cache``)."""
+    return T.init_cache(cfg, batch, max_len, dtype, device=device)
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
-                **kw) -> tuple:
-    raise NotImplementedError(_SERVING)
+                *, policy: L.Policy = L.Policy()) -> tuple:
+    """One decoder step (``transformer.decode_step``); the encoder is not
+    run: its output lives in the cross layers' cache."""
+    return T.decode_step(params["decoder"], cfg, tokens, cache,
+                         policy=policy)

@@ -6,12 +6,8 @@ API (``init_params``/``forward``/``lm_logits``, and for serving
 whisper-base dispatches to the enc-dec composition (``models/encdec.py``),
 everything else to the generic stack.  The port trains the dense, MoE,
 local-attention, Mamba-2, audio (whisper-base) and vision-language
-(llama-3.2-vision-90b) archs, and serves those whose layers are all
-``attn``, ``local`` or ``ssd`` (granite-3-8b, qwen2-72b, starcoder2-7b,
-granite-moe-1b-a400m, llama4-maverick-400b-a17b, gemma2-9b, mamba2-780m);
-serving whisper-base or llama-3.2-vision-90b (``cross`` layers) raises
-``NotImplementedError`` naming ROADMAP item 3(d), as recurrentgemma-9b
-does for everything, naming item 2(c).
+(llama-3.2-vision-90b) archs, and serves each of them; recurrentgemma-9b
+raises ``NotImplementedError`` for everything, naming ROADMAP item 2(c).
 """
 from __future__ import annotations
 

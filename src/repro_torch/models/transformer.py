@@ -11,9 +11,8 @@ mixers, and ``ssd`` (Mamba-2) layers; the ``lru`` kind raises
 ``frontend["cross_kv"]`` (stub image embeddings, or the encoder's output in
 ``models/encdec.py``) without rope and without a causal mask; given no
 frontend it attends to its own input, non-causally, as the reference's
-does.  Serving covers ``attn``, ``local`` and ``ssd`` layers with any
-channel mixer; a ``cross`` layer raises ``NotImplementedError`` naming the
-ROADMAP item that ports its cache (``SERVE_ITEMS``).  The cache tree is the
+does.  Serving covers every ported kind (``attn``, ``local``, ``cross``
+and ``ssd``) with any channel mixer.  The cache tree is the
 reference's leaf for leaf, ``{"stack": {"sub<i>": {...}}, "rem": {...}}``:
 an ``attn`` or ``local`` layer holds ``"k", "v": [n_rep, B, size, KV, hd]``
 and ``"len": [n_rep]`` int32, ``size`` being ``max_len``, or for a
@@ -23,9 +22,12 @@ for none) in ``init_cache`` always and in ``prefill`` when its window is
 shorter than ``max_len``, and then it is a ring buffer written at slot
 ``len % size``.  An ``ssd`` layer holds its Mamba-2 state, ``"h": [n_rep,
 B, H, P, N]`` f32 and ``"conv_x"/"conv_b"/"conv_c": [n_rep, B, K-1, C]``.
-A cache with no ``attn`` or ``local`` layer carries the position in a
-top-level ``"step"`` (0-d int32).  A decode step updates the cache in
-place.
+A ``cross`` layer holds the keys and values of its frontend, ``"k", "v":
+[n_rep, B, T, KV, hd]``, with no rope and no ``len``: ``T`` is the
+frontend's length after ``prefill``, ``max(n_frontend_tokens, 1)`` in
+``init_cache``; decode only reads it.  A cache with no ``attn`` or
+``local`` layer carries the position in a top-level ``"step"`` (0-d
+int32).  A decode step updates the cache in place.
 """
 from __future__ import annotations
 
@@ -44,12 +46,6 @@ _PORTED_MLPS = ("dense", "moe", "none")
 KIND_ITEMS = {"lru": "2(c) (models/hybrid.py: RG-LRU)"}
 
 
-# the ROADMAP §1 item that ports the serving cache of each trained kind
-# still missing (``attn``, ``local`` and ``ssd`` are served); an ``lru``
-# layer already fails ``_check_spec`` (its decode comes with 2(c))
-SERVE_ITEMS = {"cross": "3(d) (cross caches and encoder-decoder serving)"}
-
-
 def roadmap_item(kind: str) -> str:
     return ("ROADMAP §1 'Modules to port' item "
             + KIND_ITEMS.get(kind, "2, 'The other layer kinds'"))
@@ -63,15 +59,10 @@ def _check_spec(spec: LayerSpec):
 
 
 def _check_serving(cfg: ModelConfig):
-    """Serving covers ``attn``, ``local`` and ``ssd`` layers; raise for any
-    other kind."""
+    """Serving covers every ported kind; raise for any other (``lru``,
+    whose decode comes with its layer)."""
     for spec in cfg.pattern + cfg.remainder:
         _check_spec(spec)
-        if spec.kind in SERVE_ITEMS:
-            raise NotImplementedError(
-                f"serving layer {spec} is not ported to repro_torch yet "
-                f"(ROADMAP §1 'Modules to port' item "
-                f"{SERVE_ITEMS[spec.kind]})")
 
 
 def _norm_init(cfg: ModelConfig, d: int, **kw) -> dict:
@@ -296,7 +287,8 @@ def lm_logits(params, cfg: ModelConfig, hidden: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# serving: prefill + decode with caches (``attn``, ``local``, ``ssd``)
+# serving: prefill + decode with caches (``attn``, ``local``, ``cross``,
+# ``ssd``)
 # --------------------------------------------------------------------------
 
 def _ring_size(cfg: ModelConfig, spec: LayerSpec, max_len: int) -> int:
@@ -306,12 +298,21 @@ def _ring_size(cfg: ModelConfig, spec: LayerSpec, max_len: int) -> int:
 
 
 def _sub_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
-                    max_len: int, dtype, *, lead: tuple = (), device) -> dict:
+                    max_len: int, dtype, *, lead: tuple = (), device,
+                    cross_len: int | None = None) -> dict:
     """One sublayer's zero cache, the reference's ``_sub_cache_zeros``:
     k and v sized by ``_ring_size``; a ``local`` layer's also holds ``pos``
-    filled with -1 (whatever its size, as the reference's does); an
-    ``ssd`` layer's is ``ssm.ssd_state_init``'s on ``lead`` (``h`` f32, the
-    conv states in ``dtype``)."""
+    filled with -1 (whatever its size, as the reference's does); a
+    ``cross`` layer's k and v hold ``cross_len`` frontend positions, by
+    default ``max(n_frontend_tokens, 1)`` (the reference's dry-run
+    stand-in), and no ``len``; an ``ssd`` layer's is
+    ``ssm.ssd_state_init``'s on ``lead`` (``h`` f32, the conv states in
+    ``dtype``)."""
+    if spec.kind == "cross":
+        t = max(cfg.n_frontend_tokens, 1) if cross_len is None else cross_len
+        shape = (*lead, batch, t, cfg.n_kv, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
     if spec.kind == "ssd":
         base = ssm.ssd_state_init(_ssd_cfg(cfg), batch, dtype, device="meta")
         return {k: torch.zeros((*lead, *t.shape), dtype=t.dtype,
@@ -326,16 +327,20 @@ def _sub_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, *, device) -> dict:
+               dtype=torch.bfloat16, *, device,
+               cross_len: int | None = None) -> dict:
     """Shape-complete zero cache (also the decode dry-run entry point; on
     the ``meta`` device it allocates nothing), with a zero ``step`` when no
-    layer is ``attn`` or ``local``."""
+    layer is ``attn`` or ``local``.  ``cross_len`` sizes the ``cross``
+    layers' k and v (``prefill`` passes its frontend's length); by default
+    ``max(n_frontend_tokens, 1)``."""
     _check_serving(cfg)
+    kw = dict(device=device, cross_len=cross_len)
     cache = {"stack": {f"sub{i}": _sub_cache_init(
-                 cfg, spec, batch, max_len, dtype, lead=(cfg.n_rep,),
-                 device=device) for i, spec in enumerate(cfg.pattern)},
+                 cfg, spec, batch, max_len, dtype, lead=(cfg.n_rep,), **kw)
+                 for i, spec in enumerate(cfg.pattern)},
              "rem": {f"sub{i}": _sub_cache_init(
-                 cfg, spec, batch, max_len, dtype, device=device)
+                 cfg, spec, batch, max_len, dtype, **kw)
                  for i, spec in enumerate(cfg.remainder)}}
     if not any(s.kind in ("attn", "local")
                for s in cfg.pattern + cfg.remainder):
@@ -368,22 +373,26 @@ def _ssd_serve(p, h, spec, cfg, cache, *, policy):
     return h
 
 
-def _sub_prefill(p, h, spec, cfg, cache, *, policy, positions):
+def _sub_prefill(p, h, spec, cfg, cache, *, policy, positions, cross_kv):
     """Sublayer forward that fills its cache.  An ``ssd`` layer runs its
     block from the zero state and keeps the state after the prompt.  An
     ``attn`` or ``local`` layer writes its k (after rope) and v and sets
     ``len`` to S: slots ``[0, S)``, or for a ring (a cache with ``pos``)
     the last ``min(size, S)`` tokens at slots ``t % size``, with their
-    positions in ``pos``.  Blockwise above ``blockwise_threshold``, full
-    below, never flash (as the reference's).  Returns h."""
+    positions in ``pos``.  A ``cross`` layer attends to ``cross_kv``
+    [B, T, D] (no rope, no mask) and writes the k and v it projected from
+    it, the reference's ``dense(wk|wv, cross_kv)``.  Blockwise when the
+    queries or keys pass ``blockwise_threshold``, full below, never flash
+    (as the reference's).  Returns h."""
     if spec.kind == "ssd":
         return _ssd_serve(p, h, spec, cfg, cache, policy=policy)
     acfg = attn_cfg_for(cfg, spec)
     b, s, _ = h.shape
     u = _norm(cfg, p["norm"], h)
-    q, k, v = L._project_qkv(p["attn"], u, u, acfg, policy, L.NO_BFP,
-                             positions)
-    if s > acfg.blockwise_threshold:
+    q, k, v = L._project_qkv(p["attn"], u,
+                             cross_kv if spec.kind == "cross" else u, acfg,
+                             policy, L.NO_BFP, positions)
+    if max(s, k.shape[1]) > acfg.blockwise_threshold:
         o = L.blockwise_attention(q, k, v, causal=acfg.causal,
                                   softcap=acfg.softcap, window=acfg.window,
                                   q_chunk=acfg.q_chunk,
@@ -396,7 +405,10 @@ def _sub_prefill(p, h, spec, cfg, cache, *, policy, positions):
                 policy=policy)
     if cfg.post_norm:
         y = _norm(cfg, p["post_norm"], y)
-    if "pos" in cache:
+    if spec.kind == "cross":
+        cache["k"].copy_(k)
+        cache["v"].copy_(v)
+    elif "pos" in cache:
         size = cache["k"].shape[1]
         keep = min(size, s)
         held = torch.arange(s - keep, s, device=h.device)
@@ -407,7 +419,8 @@ def _sub_prefill(p, h, spec, cfg, cache, *, policy, positions):
     else:
         cache["k"][:, :s] = k.to(cache["k"].dtype)
         cache["v"][:, :s] = v.to(cache["v"].dtype)
-    cache["len"].fill_(s)
+    if "len" in cache:
+        cache["len"].fill_(s)
     h, _ = _apply_mlp(p, h + y, spec, cfg, policy, L.NO_BFP)
     return h
 
@@ -419,8 +432,11 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Process a prompt, return ``{logits, cache, hidden}`` (cache ready for
     decode).  The cache is allocated once, on the tokens' device, and each
     layer writes its slice of it.  ``logits_mode="last"`` unembeds only the
-    final position.  ``frontend`` is the reference's argument for ``cross``
-    layers, whose serving is not ported: a config with one raises first.
+    final position.  ``cross`` layers attend to ``frontend["cross_kv"]``
+    [B, T, D] and cache its k and v at its own length T (not
+    ``n_frontend_tokens``); a config with a ``cross`` layer and no
+    ``cross_kv`` raises ``ValueError`` before any compute, where the
+    reference's prefill fails on ``None.shape``.
 
     A ``local`` layer whose window is shorter than ``max_len`` caches a ring
     of ``window`` slots (with ``pos``); one whose window reaches ``max_len``
@@ -433,10 +449,18 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
+    cross_kv = None if frontend is None else frontend.get("cross_kv")
+    if cross_kv is None and any(sp.kind == "cross"
+                                for sp in cfg.pattern + cfg.remainder):
+        raise ValueError(f"{cfg.name}: prefill of a cross layer needs "
+                         f"frontend['cross_kv'], the [B, T, D] it attends "
+                         f"to; none was given")
     dev = tokens.device
     positions = torch.arange(s, device=dev).expand(b, s)
     h = embed_tokens(params, cfg, tokens, positions, policy)
-    cache = init_cache(cfg, b, max_len, cache_dtype, device=dev)
+    cache = init_cache(cfg, b, max_len, cache_dtype, device=dev,
+                       cross_len=None if cross_kv is None
+                       else cross_kv.shape[1])
     # only a ring (fewer slots than max_len) keeps ``pos``, and the conv
     # states take the compute dtype, as in the reference's prefill
     for c in (*cache["stack"].values(), *cache["rem"].values()):
@@ -449,7 +473,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         cache["step"].fill_(s)
     for p, c, spec in _layers(params, cache, cfg):
         h = _sub_prefill(p, h, spec, cfg, c, policy=policy,
-                         positions=positions)
+                         positions=positions, cross_kv=cross_kv)
     h = _norm(cfg, params["final_norm"], h)
     h_out = h[:, -1:] if logits_mode == "last" else h
     return {"logits": lm_logits(params, cfg, h_out, policy), "cache": cache,
@@ -479,13 +503,29 @@ def _ring_decode(p_attn, u, cache: dict, acfg: L.AttnConfig, *, policy):
                                            * acfg.head_dim), policy=policy)
 
 
+def _cross_decode(p_attn, u, cache: dict, acfg: L.AttnConfig, *, policy):
+    """One token's cross-attention over a ``cross`` cache ``{"k", "v": [B,
+    T, KV, hd]}``: q from u, without rope, attends to every slot, no mask
+    (``L.full_attention``, non-causal); the cache is only read."""
+    b = u.shape[0]
+    q = L.dense(p_attn["wq"], u, policy=policy).reshape(
+        b, 1, acfg.n_heads, acfg.head_dim)
+    o = L.full_attention(q, cache["k"], cache["v"], causal=False,
+                         softcap=acfg.softcap)
+    return L.dense(p_attn["wo"], o.reshape(b, 1, acfg.n_heads
+                                           * acfg.head_dim), policy=policy)
+
+
 def _sub_decode(p, h, spec, cfg, cache, *, policy):
-    """One-token sublayer step; updates ``cache`` in place.  Returns h."""
+    """One-token sublayer step; updates ``cache`` in place (a ``cross``
+    cache is only read).  Returns h."""
     if spec.kind == "ssd":
         return _ssd_serve(p, h, spec, cfg, cache, policy=policy)
     u = _norm(cfg, p["norm"], h)
     acfg = attn_cfg_for(cfg, spec)
-    if "pos" in cache:
+    if spec.kind == "cross":
+        y = _cross_decode(p["attn"], u, cache, acfg, policy=policy)
+    elif "pos" in cache:
         y = _ring_decode(p["attn"], u, cache, acfg, policy=policy)
     else:
         y, _ = L.attention_decode(p["attn"], u, cache, acfg, policy=policy)
@@ -510,7 +550,8 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     device-side assert on the card), where the reference clamps it onto
     slot M - 1.  A ring's slot is ``len % size``, and an ``ssd`` layer's
     state has no length: neither fills, so a cache of only ``ssd`` (and
-    ring) layers has no limit.  An ``ssd`` layer's new conv states are
+    ring) layers has no limit; a ``cross`` cache is read, never written.
+    An ``ssd`` layer's new conv states are
     written in the leaves' dtype, where the reference returns them in the
     compute dtype (only a cache of another dtype than the compute's, as
     neither launcher makes, sees the rounding)."""

@@ -1,21 +1,25 @@
-"""Serving in the port (``attn``, ``local`` and ``ssd`` layers):
+"""Serving in the port (``attn``, ``local``, ``cross`` and ``ssd`` layers):
 ``layers.attention_decode``, ``transformer.{init_cache, prefill,
-decode_step, _ring_decode}``, ``train.serve_step`` and ``launch.serve``
-against the JAX package on the CPU, with bridged params (``bridge.to_torch``
-of JAX's init) and numpy-drawn inputs.
+decode_step, _ring_decode, _cross_decode}``, ``encdec.{init_cache,
+prefill, decode_step}``, ``train.serve_step`` and ``launch.serve`` against
+the JAX package on the CPU, with bridged params (``bridge.to_torch`` of
+JAX's init) and numpy-drawn inputs and frontends.
 
-f32 at the forward's bound, rtol = atol = 2e-5 (``attention_decode`` and
-``_ring_decode`` alone at 1e-5), cache ``len``, ``pos`` and ``step`` exact;
-bf16 compute with a bf16 cache at 2e-2; the counterparts of
-``tests/test_arch_smoke.py``'s prefill/decode checks at their 2e-3.  The
-archs are the five whose layers are all ``attn``, gemma2-9b (``local`` and
-``attn``) and mamba2-780m (``ssd`` only, so its cache carries ``step``):
+f32 at the forward's bound, rtol = atol = 2e-5 (``attention_decode``,
+``_ring_decode``, ``_cross_decode`` and the cross caches' k and v at 1e-5),
+cache ``len``, ``pos`` and ``step`` exact; bf16 compute with a bf16 cache at
+2e-2; the counterparts of ``tests/test_arch_smoke.py``'s prefill/decode
+checks at their 2e-3.  The archs are the five whose layers are all
+``attn``, gemma2-9b (``local`` and ``attn``), mamba2-780m (``ssd`` only, so
+its cache carries ``step``), whisper-base (the encoder-decoder: 12 stub
+frames, sinusoidal positions, ``cross`` layers over the encoder's output)
+and llama-3.2-vision-90b (a stub ``cross_kv`` of 8 patch embeddings):
 gemma2's smoke window of 8 is shorter than the 11-token prompt, so its ring
 has wrapped at prefill and keeps wrapping as it decodes; with the window at
 32, past ``MAX_LEN``, its ``local`` layers keep a plain cache; ``local+ssd``
 is gemma2's widths with an ``ssd`` layer after the ``local`` one (a ring
-and an SSD state, no ``step``).  The ``cross`` kind, whisper-base's
-encoder-decoder and the ``lru`` kind raise naming their ROADMAP item."""
+and an SSD state, no ``step``).  The ``lru`` kind raises naming its
+ROADMAP item."""
 import dataclasses as dc
 import math
 import re
@@ -30,8 +34,9 @@ from repro.models import layers as JL, registry as jreg, transformer as jtr
 from repro_torch import bridge
 from repro_torch.examples import quickstart
 from repro_torch.launch import serve
-from repro_torch.models import layers as TL, registry as treg, \
-    transformer as ttr
+from repro_torch.launch.train import stub_frontend
+from repro_torch.models import encdec as ted, layers as TL, \
+    registry as treg, transformer as ttr
 from repro_torch.train import serve_step as tss
 from repro_torch.utils import tree_flatten, tree_map
 
@@ -43,9 +48,10 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 DECODE_TOL = dict(rtol=1e-5, atol=1e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 SMOKE_TOL = dict(rtol=2e-3, atol=2e-3)     # tests/test_arch_smoke.py
+CROSS_ARCHS = ["whisper-base", "llama-3.2-vision-90b"]
 ARCHS = ["granite-3-8b", "qwen2-72b", "starcoder2-7b",
          "granite-moe-1b-a400m", "llama4-maverick-400b-a17b", "gemma2-9b",
-         "mamba2-780m"]
+         "mamba2-780m", *CROSS_ARCHS]
 B, S, MAX_LEN, STEPS = 2, 11, 20, 6
 # parity models beside the archs, each an arch's smoke config with fields
 # replaced (given the package's LayerSpec): gemma2-9b with its window past
@@ -55,8 +61,16 @@ VARIANTS = {"gemma2-9b-window32": ("gemma2-9b", lambda spec: dict(window=32)),
             "local+ssd": ("gemma2-9b", lambda spec: dict(
                 pattern=(spec("local", "dense"), spec("ssd", "none")),
                 ssm_state=16, ssm_headdim=8, ssm_chunk=8))}
-# 4-query and 5-key chunks: the 11-token prompt pads on both axes
+# 4-query and 5-key chunks: the 11-token prompt pads on both axes (and
+# whisper's 12 frames and vision's 8 patch embeddings the key axis)
 BLOCKWISE = dict(blockwise_threshold=4, q_chunk=4, kv_chunk=5)
+
+
+def _lower(cfg):
+    """``cfg`` (and whisper's encoder) with the ``BLOCKWISE`` chunks."""
+    enc = None if cfg.encoder is None else dc.replace(cfg.encoder,
+                                                      **BLOCKWISE)
+    return dc.replace(cfg, encoder=enc, **BLOCKWISE)
 
 
 def _np(x):
@@ -221,18 +235,35 @@ def test_local_cache_is_a_ring_only_below_max_len(window):
 # prefill / decode_step against JAX
 # --------------------------------------------------------------------------
 
-def _load_model(name: str) -> dict:
-    """An arch's or a variant's smoke configs, JAX's params from key 0 and
-    their bridge, and numpy tokens [B, S + STEPS]."""
+def _np_frontend(arch: str, cfg, batch: int = B, seed: int = 11,
+                 length: int | None = None):
+    """numpy stub frontend of ``frontend_shape``'s shape (its length
+    replaced by ``length``), ``N(0,1)·0.1``; None for an arch without one."""
+    shapes = treg.get(arch).frontend_shape(cfg, batch)
+    if shapes is None:
+        return None
+    rng = np.random.default_rng(seed)
+    return {k: (rng.standard_normal(
+        v if length is None else (v[0], length, v[2])) * 0.1).astype(
+            np.float32) for k, v in shapes.items()}
+
+
+def _load_model(name: str, frontend_len: int | None = None) -> dict:
+    """An arch's or a variant's smoke configs and modules (JAX's, the
+    port's), JAX's params from key 0 and their bridge, numpy tokens [B, S +
+    STEPS] and the stub frontend (None without one)."""
     arch, kw = VARIANTS.get(name, (name, lambda spec: {}))
     jcfg, tcfg = dc.replace(jreg.get(arch).smoke, **kw(jtr.LayerSpec)), \
         dc.replace(treg.get(arch).smoke, **kw(ttr.LayerSpec))
+    jmod, tmod = jreg.get(arch).module, treg.get(arch).module
     jp = jax.tree_util.tree_map(
-        np.asarray, jtr.init_params(jax.random.PRNGKey(0), jcfg))
+        np.asarray, jmod.init_params(jax.random.PRNGKey(0), jcfg))
     tokens = np.random.default_rng(1).integers(
         0, jcfg.vocab, (B, S + STEPS)).astype(np.int32)
-    return {"name": name, "jcfg": jcfg, "tcfg": tcfg, "jp": jp,
-            "tp": bridge.to_torch(jp, "cpu"), "tokens": tokens}
+    return {"name": name, "jcfg": jcfg, "tcfg": tcfg, "jmod": jmod,
+            "tmod": tmod, "jp": jp, "tp": bridge.to_torch(jp, "cpu"),
+            "tokens": tokens,
+            "frontend": _np_frontend(arch, tcfg, length=frontend_len)}
 
 
 @pytest.fixture(scope="module", params=ARCHS + list(VARIANTS))
@@ -240,65 +271,92 @@ def model(request):
     return _load_model(request.param)
 
 
-def _jax_prefill(jcfg, jp, tokens, policy, cache_dtype, logits_mode="all"):
-    return jax.jit(lambda p, t: jtr.prefill(
-        p, jcfg, t, max_len=MAX_LEN, policy=policy, cache_dtype=cache_dtype,
-        logits_mode=logits_mode))(jp, tokens)
+def _fe_kw(frontend, to_torch: bool = False) -> dict:
+    if frontend is None:
+        return {}
+    return {"frontend": bridge.to_torch(frontend, "cpu") if to_torch
+            else frontend}
 
 
-def _jax_decode(jcfg, policy):
-    return jax.jit(lambda p, t, c: jtr.decode_step(p, jcfg, t, c,
-                                                   policy=policy))
+def _jax_prefill(m, tokens, policy, cache_dtype, logits_mode="all",
+                 jcfg=None, max_len=MAX_LEN):
+    """JAX's prefill through the model's module, fed its frontend."""
+    jcfg = m["jcfg"] if jcfg is None else jcfg
+    return jax.jit(lambda p, t, f: m["jmod"].prefill(
+        p, jcfg, t, max_len=max_len, policy=policy, cache_dtype=cache_dtype,
+        logits_mode=logits_mode, **_fe_kw(f)))(m["jp"], tokens,
+                                               m["frontend"])
+
+
+def _jax_decode(m, policy):
+    return jax.jit(lambda p, t, c: m["jmod"].decode_step(p, m["jcfg"], t, c,
+                                                         policy=policy))
+
+
+def _port_prefill(m, tokens, policy, cache_dtype, logits_mode="all",
+                  tcfg=None, max_len=MAX_LEN):
+    """The port's prefill through the model's module, fed its frontend."""
+    tcfg = m["tcfg"] if tcfg is None else tcfg
+    return m["tmod"].prefill(m["tp"], tcfg, torch.from_numpy(tokens),
+                             max_len=max_len, policy=policy,
+                             cache_dtype=cache_dtype, logits_mode=logits_mode,
+                             **_fe_kw(m["frontend"], to_torch=True))
 
 
 @pytest.mark.parametrize("blockwise", [False, True],
                          ids=["full", "blockwise"])
 @pytest.mark.parametrize("logits_mode", ["all", "last"])
 def test_prefill_matches_jax(model, logits_mode, blockwise):
-    """Logits, hidden and every cache leaf (len and step exact); with the
-    threshold at 4 the prompt takes the blockwise branch."""
-    kw = BLOCKWISE if blockwise else {}
-    jcfg, tcfg = dc.replace(model["jcfg"], **kw), \
-        dc.replace(model["tcfg"], **kw)
+    """Logits, hidden and every cache leaf (len and step exact; a cross
+    layer's k and v at 1e-5); with the threshold at 4 the prompt (and
+    whisper's encoder) takes the blockwise branch."""
+    jcfg, tcfg = model["jcfg"], model["tcfg"]
+    if blockwise:
+        jcfg, tcfg = _lower(jcfg), _lower(tcfg)
     tok = model["tokens"][:, :S]
-    want = _jax_prefill(jcfg, model["jp"], tok, JP32, jnp.float32,
-                        logits_mode)
-    got = ttr.prefill(model["tp"], tcfg, torch.from_numpy(tok),
-                      max_len=MAX_LEN, policy=TP32,
-                      cache_dtype=torch.float32, logits_mode=logits_mode)
+    want = _jax_prefill(model, tok, JP32, jnp.float32, logits_mode, jcfg=jcfg)
+    got = _port_prefill(model, tok, TP32, torch.float32, logits_mode,
+                        tcfg=tcfg)
     assert got["logits"].shape == want["logits"].shape
     np.testing.assert_allclose(_np(got["logits"]), np.asarray(want["logits"]),
                                **TOL)
     np.testing.assert_allclose(_np(got["hidden"]), np.asarray(want["hidden"]),
                                **TOL)
     assert_trees_close(got["cache"], want["cache"], TOL)
+    assert_trees_close(_cross_leaves(tcfg, got["cache"]),
+                       _cross_leaves(jcfg, want["cache"]), DECODE_TOL)
     assert set(_lens(got["cache"])) == {S}
+
+
+def _cross_leaves(cfg, cache) -> dict:
+    """The ``cross`` layers' caches of a (stacked) cache tree, by key."""
+    return {f"sub{i}": cache["stack"][f"sub{i}"]
+            for i, sp in enumerate(cfg.pattern) if sp.kind == "cross"}
 
 
 def test_decode_step_matches_jax(model):
     """One step from JAX's own prefill cache carried across; then 6 greedy
     steps from each side's own cache: logits, tokens and every leaf."""
-    jcfg, tcfg, jp, tp = model["jcfg"], model["tcfg"], model["jp"], \
-        model["tp"]
+    tcfg, jp, tp, tmod = model["tcfg"], model["jp"], model["tp"], \
+        model["tmod"]
     tok = model["tokens"][:, :S]
-    jdec = _jax_decode(jcfg, JP32)
-    jpre = _jax_prefill(jcfg, jp, tok, JP32, jnp.float32)
+    jdec = _jax_decode(model, JP32)
+    jpre = _jax_prefill(model, tok, JP32, jnp.float32)
     nxt = model["tokens"][:, S:S + 1]
     jl, jc = jdec(jp, nxt, jpre["cache"])
-    tl, tc = ttr.decode_step(tp, tcfg, torch.from_numpy(nxt),
-                             bridge.to_torch(jpre["cache"], "cpu"),
-                             policy=TP32)
+    tl, tc = tmod.decode_step(tp, tcfg, torch.from_numpy(nxt),
+                              bridge.to_torch(jpre["cache"], "cpu"),
+                              policy=TP32)
     np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
     assert_trees_close(tc, jc, TOL)
 
     jc = jpre["cache"]
-    tc = ttr.prefill(tp, tcfg, torch.from_numpy(tok), max_len=MAX_LEN,
-                     policy=TP32, cache_dtype=torch.float32)["cache"]
+    tc = _port_prefill(model, tok, TP32, torch.float32)["cache"]
     jt = np.asarray(jnp.argmax(jpre["logits"][:, -1], -1))[:, None]
     tt = torch.from_numpy(jt.astype(np.int32))
     for _ in range(STEPS):
         jl, jc = jdec(jp, jnp.asarray(jt, jnp.int32), jc)
-        tl, tc = ttr.decode_step(tp, tcfg, tt, tc, policy=TP32)
+        tl, tc = tmod.decode_step(tp, tcfg, tt, tc, policy=TP32)
         np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
         jt = np.asarray(jnp.argmax(jl[:, -1], -1))[:, None]
         tt = torch.argmax(tl[:, -1], -1)[:, None].to(torch.int32)
@@ -329,21 +387,18 @@ def test_bf16_prefill_and_decode_match_jax(model):
     residual stream carries those one-ulp flips to the next layer: cached
     k/v values near 3 then differ by two bf16 ulps, 0.03, past an
     elementwise 2e-2, on a few of 1,920 elements; layer 0's are equal.)"""
-    jcfg, tcfg, jp, tp = model["jcfg"], model["tcfg"], model["jp"], \
-        model["tp"]
+    tcfg, jp, tp = model["tcfg"], model["jp"], model["tp"]
     tokens = model["tokens"]
-    jpre = _jax_prefill(jcfg, jp, tokens[:, :S], JBF, jnp.bfloat16)
-    tpre = ttr.prefill(tp, tcfg, torch.from_numpy(tokens[:, :S]),
-                       max_len=MAX_LEN, policy=TBF,
-                       cache_dtype=torch.bfloat16)
+    jpre = _jax_prefill(model, tokens[:, :S], JBF, jnp.bfloat16)
+    tpre = _port_prefill(model, tokens[:, :S], TBF, torch.bfloat16)
     np.testing.assert_allclose(_np(tpre["logits"]),
                                _np(jpre["logits"]), **BF16_TOL)
     assert_leaves_rel_fro(tpre["cache"], jpre["cache"], 2e-2)
-    jdec = _jax_decode(jcfg, JBF)
+    jdec = _jax_decode(model, JBF)
     jc, tc = jpre["cache"], tpre["cache"]
     for t in range(S, S + STEPS):
         jl, jc = jdec(jp, tokens[:, t:t + 1], jc)
-        tl, tc = ttr.decode_step(tp, tcfg, torch.from_numpy(
+        tl, tc = model["tmod"].decode_step(tp, tcfg, torch.from_numpy(
             tokens[:, t:t + 1]), tc, policy=TBF)
         np.testing.assert_allclose(_np(tl), _np(jl), **BF16_TOL)
     assert_leaves_rel_fro(tc, jc, 2e-2)
@@ -352,28 +407,28 @@ def test_bf16_prefill_and_decode_match_jax(model):
 
 
 def test_init_cache_matches_jax(model):
-    want = jtr.init_cache(model["jcfg"], B, MAX_LEN, jnp.float32)
-    got = ttr.init_cache(model["tcfg"], B, MAX_LEN, torch.float32,
-                         device="cpu")
+    """Leaf for leaf, a cross layer's k and v ``max(n_frontend_tokens,
+    1)`` slots long."""
+    want = model["jmod"].init_cache(model["jcfg"], B, MAX_LEN, jnp.float32)
+    got = model["tmod"].init_cache(model["tcfg"], B, MAX_LEN, torch.float32,
+                                   device="cpu")
     assert_trees_close(got, want, TOL)
+    t = max(model["tcfg"].n_frontend_tokens, 1)
+    for c in _cross_leaves(model["tcfg"], got).values():
+        assert c["k"].shape[2] == c["v"].shape[2] == t
 
 
 def test_first_len_counts_tokens_not_ring_slots():
     """gemma2's sub0 is ``local``, a ring of 8 slots: after an 11-token
     prompt and 3 steps the position is 14 (not the slot, 14 % 8), as
     JAX's ``_first_len`` reads it, and a copy the step can advance past."""
-    name = "gemma2-9b"
-    jcfg, tcfg = jreg.get(name).smoke, treg.get(name).smoke
+    m = _load_model("gemma2-9b")
+    jcfg, tcfg, jp, tp = m["jcfg"], m["tcfg"], m["jp"], m["tp"]
     assert tcfg.pattern[0].kind == "local" and tcfg.window < MAX_LEN
-    jp = jax.tree_util.tree_map(
-        np.asarray, jtr.init_params(jax.random.PRNGKey(0), jcfg))
-    tp = bridge.to_torch(jp, "cpu")
     tok = np.random.default_rng(2).integers(0, jcfg.vocab, (B, S + 3))
-    jc = _jax_prefill(jcfg, jp, tok[:, :S], JP32, jnp.float32)["cache"]
-    tc = ttr.prefill(tp, tcfg, torch.from_numpy(tok[:, :S]),
-                     max_len=MAX_LEN, policy=TP32,
-                     cache_dtype=torch.float32)["cache"]
-    jdec = _jax_decode(jcfg, JP32)
+    jc = _jax_prefill(m, tok[:, :S], JP32, jnp.float32)["cache"]
+    tc = _port_prefill(m, tok[:, :S], TP32, torch.float32)["cache"]
+    jdec = _jax_decode(m, JP32)
     for t in range(S, S + 3):
         _, jc = jdec(jp, tok[:, t:t + 1], jc)
         ttr.decode_step(tp, tcfg, torch.from_numpy(tok[:, t:t + 1]), tc,
@@ -436,10 +491,8 @@ def test_prefill_cache_dtypes_match_jax(name):
     dtypes, and hold the same values (bf16 leaves at 2e-2)."""
     m = _load_model(name)
     tok = m["tokens"][:, :S]
-    want = _jax_prefill(m["jcfg"], m["jp"], tok, JP32, jnp.bfloat16)
-    got = ttr.prefill(m["tp"], m["tcfg"], torch.from_numpy(tok),
-                      max_len=MAX_LEN, policy=TP32,
-                      cache_dtype=torch.bfloat16)
+    want = _jax_prefill(m, tok, JP32, jnp.bfloat16)
+    got = _port_prefill(m, tok, TP32, torch.bfloat16)
     assert _dtypes(got["cache"]) == _dtypes(want["cache"])
     ssd = [c for c in got["cache"]["stack"].values() if "h" in c]
     assert len(ssd) == 1
@@ -457,7 +510,7 @@ def test_ssd_decode_keeps_the_leaf_dtype_where_jax_takes_the_compute_dtype():
     m = _load_model("mamba2-780m")
     jcfg, tcfg = m["jcfg"], m["tcfg"]
     nxt = m["tokens"][:, :1]
-    jl, jc = _jax_decode(jcfg, JP32)(
+    jl, jc = _jax_decode(m, JP32)(
         m["jp"], nxt, jtr.init_cache(jcfg, B, MAX_LEN, jnp.bfloat16))
     tl, tc = ttr.decode_step(
         m["tp"], tcfg, torch.from_numpy(nxt),
@@ -489,12 +542,10 @@ def test_pure_ssm_cache_decodes_past_max_len():
     m = _load_model("mamba2-780m")
     jcfg, tcfg, jp, tp, tok = m["jcfg"], m["tcfg"], m["jp"], m["tp"], \
         m["tokens"]
-    jc = jax.jit(lambda p, t: jtr.prefill(
-        p, jcfg, t, max_len=6, policy=JP32, cache_dtype=jnp.float32))(
-        jp, tok[:, :6])["cache"]
-    tc = ttr.prefill(tp, tcfg, torch.from_numpy(tok[:, :6]), max_len=6,
-                     policy=TP32, cache_dtype=torch.float32)["cache"]
-    jdec = _jax_decode(jcfg, JP32)
+    jc = _jax_prefill(m, tok[:, :6], JP32, jnp.float32, max_len=6)["cache"]
+    tc = _port_prefill(m, tok[:, :6], TP32, torch.float32,
+                       max_len=6)["cache"]
+    jdec = _jax_decode(m, JP32)
     for t in range(6, 10):
         jl, jc = jdec(jp, tok[:, t:t + 1], jc)
         tl, tc = ttr.decode_step(tp, tcfg, torch.from_numpy(tok[:, t:t + 1]),
@@ -508,14 +559,16 @@ def test_pure_ssm_cache_decodes_past_max_len():
 # the port alone: tests/test_arch_smoke.py:57-95's counterparts
 # --------------------------------------------------------------------------
 
-def _prefill_decode_forward(module, cfg, params, tokens):
+def _prefill_decode_forward(module, cfg, params, tokens, frontend=None):
     """(prefill's last logits, one decode step's logits, the forward's
-    logits) for tokens[:, :-1] then token -1, f32, real vocab rows."""
+    logits) for tokens[:, :-1] then token -1, f32, real vocab rows, the
+    forward and prefill fed the same ``frontend``."""
     n, v = tokens.shape[1], cfg.vocab
+    kw = _fe_kw(frontend, to_torch=True)
     full = module.lm_logits(params, cfg, module.forward(
-        params, cfg, tokens, policy=TP32)["hidden"], TP32)
+        params, cfg, tokens, policy=TP32, **kw)["hidden"], TP32)
     pre = module.prefill(params, cfg, tokens[:, :n - 1], max_len=n + 4,
-                         policy=TP32, cache_dtype=torch.float32)
+                         policy=TP32, cache_dtype=torch.float32, **kw)
     step, _ = module.decode_step(params, cfg, tokens[:, n - 1:],
                                  pre["cache"], policy=TP32)
     return pre["logits"][:, -1, :v], step[:, 0, :v], full[..., :v]
@@ -524,15 +577,20 @@ def _prefill_decode_forward(module, cfg, params, tokens):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_decode_matches_forward(arch):
     """Prefill[0:S-1] + decode step S-1 ≈ the forward's logits there, on
-    tests/test_arch_smoke.py's own params and tokens (keys 2 and 3)."""
+    tests/test_arch_smoke.py's own params, tokens and frontend (keys 2, 3
+    and 11)."""
     entry, jentry = treg.get(arch), jreg.get(arch)
     params = bridge.to_torch(jax.tree_util.tree_map(
         np.asarray, jentry.module.init_params(jax.random.PRNGKey(2),
                                               jentry.smoke)), "cpu")
     tokens = torch.from_numpy(np.array(jax.random.randint(
         jax.random.PRNGKey(3), (B, 16), 0, entry.smoke.vocab)))
+    shapes = jentry.frontend_shape(jentry.smoke, B)
+    frontend = None if shapes is None else {
+        k: np.asarray(jax.random.normal(jax.random.PRNGKey(11), v) * 0.1)
+        for k, v in shapes.items()}
     last, step, full = _prefill_decode_forward(entry.module, entry.smoke,
-                                               params, tokens)
+                                               params, tokens, frontend)
     torch.testing.assert_close(last, full[:, -2], **SMOKE_TOL)
     torch.testing.assert_close(step, full[:, -1], **SMOKE_TOL)
 
@@ -583,7 +641,8 @@ def test_zero_init_cache_decode_runs(arch):
 
 def _prefilled(arch: str, prompt: int):
     """``arch``'s smoke config with a cache of 64 sequences prefilled with
-    ``prompt`` tokens, ``max_len`` prompt + 4."""
+    ``prompt`` tokens (and the launcher's stub frontend, if it has one),
+    ``max_len`` prompt + 4."""
     entry = treg.get(arch)
     cfg = entry.smoke
     params = entry.module.init_params(torch.Generator().manual_seed(0), cfg)
@@ -591,7 +650,8 @@ def _prefilled(arch: str, prompt: int):
         0, cfg.vocab, (64, prompt)))
     prefill = tss.make_prefill_step(entry, cfg, max_len=prompt + 4,
                                     policy=TP32, cache_dtype=torch.float32)
-    return entry, cfg, params, prefill(params, tokens)
+    frontend = stub_frontend(entry, cfg, 64, torch.float32, "cpu", seed=7)
+    return entry, cfg, params, prefill(params, tokens, frontend)
 
 
 @pytest.fixture(scope="module")
@@ -602,11 +662,15 @@ def granite():
 
 
 # gemma2's 10-token prompt has wrapped its ring of 8 slots; mamba2's
-# position is its cache's step
+# position is its cache's step; whisper's decode adds the sinusoidal
+# embedding at a position read on the device
 @pytest.fixture(scope="module", params=[("granite-3-8b", 8),
                                         ("gemma2-9b", 10),
-                                        ("mamba2-780m", 8)],
-                ids=["granite-3-8b", "gemma2-9b", "mamba2-780m"])
+                                        ("mamba2-780m", 8),
+                                        ("whisper-base", 8),
+                                        ("llama-3.2-vision-90b", 8)],
+                ids=["granite-3-8b", "gemma2-9b", "mamba2-780m",
+                     "whisper-base", "llama-3.2-vision-90b"])
 def served(request):
     return _prefilled(*request.param)
 
@@ -684,15 +748,137 @@ def test_greedy_decode_reads_nothing_on_the_host(served, monkeypatch):
 
 
 # --------------------------------------------------------------------------
+# cross layers: the frontend's length, a missing frontend, a read-only cache
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", CROSS_ARCHS)
+def test_cross_cache_takes_the_frontend_length(arch):
+    """The port allocates its cache before the layers run, so the cross
+    leaves must take the frontend's own length, as JAX's prefill emits
+    them, not ``n_frontend_tokens``: 5 frames (whisper's encoder output) or
+    patch embeddings, fewer than the smoke configs' 12 and 8.  Prefill's
+    logits and every leaf (cross k and v at 1e-5), then 3 decode steps,
+    against JAX's."""
+    m = _load_model(arch, frontend_len=5)
+    tcfg, tok = m["tcfg"], m["tokens"]
+    assert tcfg.n_frontend_tokens > 5
+    want = _jax_prefill(m, tok[:, :S], JP32, jnp.float32)
+    got = _port_prefill(m, tok[:, :S], TP32, torch.float32)
+    np.testing.assert_allclose(_np(got["logits"]),
+                               np.asarray(want["logits"]), **TOL)
+    assert_trees_close(got["cache"], want["cache"], TOL)
+    cross = _cross_leaves(tcfg, got["cache"])
+    assert cross and {c[k].shape[2] for c in cross.values()
+                      for k in ("k", "v")} == {5}
+    assert_trees_close(cross, _cross_leaves(m["jcfg"], want["cache"]),
+                       DECODE_TOL)
+    jdec = _jax_decode(m, JP32)
+    jc, tc = want["cache"], got["cache"]
+    for t in range(S, S + 3):
+        jl, jc = jdec(m["jp"], tok[:, t:t + 1], jc)
+        tl, tc = m["tmod"].decode_step(m["tp"], tcfg, torch.from_numpy(
+            tok[:, t:t + 1]), tc, policy=TP32)
+        np.testing.assert_allclose(_np(tl), np.asarray(jl), **TOL)
+    assert_trees_close(tc, jc, TOL)
+
+
+@pytest.mark.parametrize("arch", CROSS_ARCHS)
+def test_prefill_without_frontend_raises(arch):
+    """A stack with cross layers and no ``frontend["cross_kv"]``: JAX's
+    prefill fails on ``None.shape`` (its forward would let the cross layer
+    attend to its own input); the port's raises ``ValueError`` naming the
+    missing key before any compute (empty params), with no fallback.
+    whisper's stack is its decoder; ``encdec.prefill`` itself requires
+    ``frontend`` on both sides."""
+    m = _load_model(arch)
+    tok = m["tokens"][:, :S]
+    jp = m["jp"]["decoder"] if arch == "whisper-base" else m["jp"]
+    with pytest.raises(AttributeError):
+        jtr.prefill(jp, m["jcfg"], tok, max_len=MAX_LEN, policy=JP32)
+    for frontend in (None, {}):
+        with pytest.raises(ValueError, match=r"frontend\['cross_kv'\]"):
+            ttr.prefill({}, m["tcfg"], torch.from_numpy(tok),
+                        frontend=frontend, max_len=MAX_LEN, policy=TP32)
+    if arch == "whisper-base":
+        with pytest.raises(TypeError):
+            m["jmod"].prefill(m["jp"], m["jcfg"], tok, max_len=MAX_LEN)
+        with pytest.raises(TypeError):
+            ted.prefill(m["tp"], m["tcfg"], torch.from_numpy(tok),
+                        max_len=MAX_LEN)
+
+
+@pytest.mark.parametrize("arch", CROSS_ARCHS)
+def test_cross_decode_matches_jax_and_the_cross_layer(arch):
+    """One smoke cross sublayer (whisper: MHA 4/4, layernorm; vision: GQA
+    4/2) over a cache projected from 7 seeded encoder positions, 5 steps:
+    ``_sub_decode``'s output against JAX's (1e-5), the cache's tensors bit
+    for bit what they were and JAX's cache returned as given; and
+    ``_cross_decode`` alone against the port's full-sequence cross layer
+    at each query (no mask, no rope: row t reads only token t; 1e-5)."""
+    jcfg, tcfg = jreg.get(arch).smoke, treg.get(arch).smoke
+    i = next(i for i, sp in enumerate(tcfg.pattern) if sp.kind == "cross")
+    spec = tcfg.pattern[i]
+    jsub = jax.tree_util.tree_map(np.asarray, jtr._sub_init(
+        jax.random.PRNGKey(6), jcfg, jcfg.pattern[i]))
+    sub = bridge.to_torch(jsub, "cpu")
+    acfg = ttr.attn_cfg_for(tcfg, spec)
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((B, 5, tcfg.d_model)).astype(np.float32)
+    enc = rng.standard_normal((B, 7, tcfg.d_model)).astype(np.float32)
+    xt, enct = torch.from_numpy(x), torch.from_numpy(enc)
+    _, k, v = TL._project_qkv(sub["attn"], xt, enct, acfg, TP32, TL.NO_BFP,
+                              None)
+    cache = {"k": k, "v": v}
+    frozen = {n: t.clone() for n, t in cache.items()}
+    jcache = {n: np.asarray(t) for n, t in cache.items()}
+    full = TL.attention_layer(sub["attn"], xt, acfg, policy=TP32, kv_x=enct)
+    for t in range(x.shape[1]):
+        jh, jc = jtr._sub_decode(jsub, x[:, t:t + 1], jcfg.pattern[i], jcfg,
+                                 jcache, policy=JP32)
+        th = ttr._sub_decode(sub, xt[:, t:t + 1], spec, tcfg, cache,
+                             policy=TP32)
+        np.testing.assert_allclose(_np(th), np.asarray(jh), **DECODE_TOL)
+        assert jc is jcache
+        y = ttr._cross_decode(sub["attn"], xt[:, t:t + 1], cache, acfg,
+                              policy=TP32)
+        np.testing.assert_allclose(_np(y), _np(full[:, t:t + 1]),
+                                   **DECODE_TOL)
+    assert all(torch.equal(cache[n], frozen[n]) for n in frozen)
+
+
+@pytest.mark.parametrize("arch", CROSS_ARCHS)
+def test_decode_step_leaves_the_cross_cache_unchanged(arch):
+    """Through the arch's ``decode_step``: 4 steps advance every ``len``
+    and leave each cross cache's k and v bit for bit as prefill wrote
+    them, in the same tensors."""
+    m = _load_model(arch)
+    tok = m["tokens"]
+    cache = _port_prefill(m, tok[:, :S], TP32, torch.float32)["cache"]
+    cross = _cross_leaves(m["tcfg"], cache)
+    held = {(key, n): (c[n], c[n].clone()) for key, c in cross.items()
+            for n in ("k", "v")}
+    for t in range(S, S + 4):
+        _, cache = m["tmod"].decode_step(m["tp"], m["tcfg"], torch.from_numpy(
+            tok[:, t:t + 1]), cache, policy=TP32)
+    assert set(_lens(cache)) == {S + 4}
+    for (key, n), (same, before) in held.items():
+        now = _cross_leaves(m["tcfg"], cache)[key][n]
+        assert now is same and torch.equal(now, before), (key, n)
+
+
+# --------------------------------------------------------------------------
 # launch/serve, the quickstart, and what is not ported
 # --------------------------------------------------------------------------
 
 # gemma2's 12-token prompt is longer than its smoke window of 8; mamba2's
-# cache holds step 14
+# cache holds step 14; whisper and vision are fed the stub frontend
 @pytest.mark.parametrize("arch,prompt", [("granite-3-8b", 10),
                                          ("gemma2-9b", 12),
-                                         ("mamba2-780m", 10)],
-                         ids=["granite-3-8b", "gemma2-9b", "mamba2-780m"])
+                                         ("mamba2-780m", 10),
+                                         ("whisper-base", 10),
+                                         ("llama-3.2-vision-90b", 10)],
+                         ids=["granite-3-8b", "gemma2-9b", "mamba2-780m",
+                              "whisper-base", "llama-3.2-vision-90b"])
 def test_serve_launcher_on_cpu(arch, prompt):
     out = serve.main(["--arch", arch, "--preset", "smoke",
                       "--batch", "3", "--prompt-len", str(prompt), "--gen",
@@ -705,6 +891,42 @@ def test_serve_launcher_on_cpu(arch, prompt):
     before, after = out["backbone_checksum"]
     assert before == after
     assert 0 <= int(out["tokens"].min()) and int(out["tokens"].max()) < vocab
+
+
+@pytest.mark.parametrize("arch", CROSS_ARCHS)
+def test_serve_launcher_matches_jax(arch):
+    """The launcher on the CPU (smoke, f32, B=2, 10-token prompts, 5
+    tokens) against JAX's prefill and greedy decode run on the launcher's
+    own params, prompts and stub frontend, bridged: the prefill logits at
+    2e-5, the same 5 tokens, every cache leaf at 2e-5 (``len`` exact), the
+    frontend ``randn * 0.1`` of ``frontend_shape``'s shape."""
+    out = serve.main(["--arch", arch, "--batch", "2", "--prompt-len", "10",
+                      "--gen", "5", "--device", "cpu"])
+    jentry, cfg = jreg.get(arch), treg.get(arch).smoke
+    prompts = torch.randint(0, cfg.vocab, (2, 10),
+                            generator=torch.Generator().manual_seed(1))
+    fe = out["frontend"]
+    assert {k: tuple(t.shape) for k, t in fe.items()} == \
+        treg.get(arch).frontend_shape(cfg, 2)
+    assert 0.05 < float(next(iter(fe.values())).std()) < 0.2
+    jp, jfe = bridge.to_numpy(out["params"]), bridge.to_numpy(fe)
+    jpre = jentry.module.prefill(jp, jentry.smoke, prompts.numpy(),
+                                 frontend=jfe, max_len=10 + 5 + 8,
+                                 policy=JP32, cache_dtype=jnp.float32,
+                                 logits_mode="last")
+    np.testing.assert_allclose(_np(out["prefill_logits"]),
+                               np.asarray(jpre["logits"][:, -1]), **TOL)
+    jdec = jax.jit(lambda p, t, c: jentry.module.decode_step(
+        p, jentry.smoke, t, c, policy=JP32))
+    jt = jnp.argmax(jpre["logits"][:, -1], -1)[:, None].astype(jnp.int32)
+    toks, jc = [jt], jpre["cache"]
+    for _ in range(4):
+        jl, jc = jdec(jp, jt, jc)
+        jt = jnp.argmax(jl[:, -1], -1)[:, None].astype(jnp.int32)
+        toks.append(jt)
+    np.testing.assert_array_equal(out["tokens"].numpy(),
+                                  np.concatenate(toks, axis=1))
+    assert_trees_close(out["cache"], jc, TOL)
 
 
 def test_serve_launcher_cuda_without_card_raises():
@@ -732,8 +954,7 @@ MIXES = {"lru": lambda: dc.replace(
          "local+ssd": lambda: dc.replace(
              treg.get("gemma2-9b").smoke,
              **VARIANTS["local+ssd"][1](ttr.LayerSpec))}
-ARCH_ITEMS = {"whisper-base": "3(d)", "llama-3.2-vision-90b": "3(d)",
-              "lru": "2(c)"}
+ARCH_ITEMS = {"lru": "2(c)"}
 ENTRY_POINTS = ("init_cache", "prefill", "decode_step", "launcher")
 
 
@@ -746,6 +967,8 @@ def _cases(archs) -> list:
 UNPORTED = _cases(ARCH_ITEMS)
 # the configs whose serving item 3(c) ported: they raised before it
 SSD_SERVED = _cases(("mamba2-780m", "local+ssd"))
+# the archs whose serving item 3(d) ported: they raised before it
+CROSS_SERVED = _cases(CROSS_ARCHS)
 
 
 @pytest.mark.parametrize("arch,where", SSD_SERVED,
@@ -785,6 +1008,51 @@ def test_ssd_serving_entry_point_runs(arch, where):
     assert torch.isfinite(logits[..., :cfg.vocab]).all()
     assert set(_lens(cache)) == {held}
     assert all(cache["stack"][key]["h"].any() for key in ssd)
+
+
+@pytest.mark.parametrize("arch,where", CROSS_SERVED,
+                         ids=[f"{a}-{w}" for a, w in CROSS_SERVED])
+def test_cross_serving_entry_point_runs(arch, where):
+    """Each entry point serves ``cross`` layers: ``init_cache`` gives each
+    its zero k and v of ``max(n_frontend_tokens, 1)`` slots and no ``len``
+    (and no ``step``: there is an ``attn`` layer), and allocates nothing
+    on the ``meta`` device; ``prefill`` (with the launcher's stub
+    frontend) fills the cross caches, and it and ``decode_step`` (from the
+    zero cache) give finite logits and advance the position; the launcher
+    serves the arch at its defaults (32-token prompts, 16 tokens)."""
+    if where == "launcher":
+        out = serve.main(["--arch", arch, "--device", "cpu"])
+        assert out["tokens"].shape == (4, 16)
+        assert set(_lens(out["cache"])) == {32 + 16 - 1}
+        return
+    entry = treg.get(arch)
+    module, cfg = entry.module, entry.smoke
+    meta = module.init_cache(cfg, 1, 8, torch.float32, device="meta")
+    assert {t.device.type for _, t in tree_flatten(meta)} == {"meta"}
+    cache = module.init_cache(cfg, 1, 8, torch.float32, device="cpu")
+    assert "step" not in cache
+    cross = _cross_leaves(cfg, cache)
+    assert cross
+    for c in cross.values():
+        assert sorted(c) == ["k", "v"]
+        assert c["k"].shape[2] == max(cfg.n_frontend_tokens, 1)
+        assert not c["k"].any() and not c["v"].any()
+    if where == "init_cache":
+        return
+    params = module.init_params(torch.Generator().manual_seed(0), cfg)
+    tok = torch.zeros((1, 4), dtype=torch.int32)
+    if where == "prefill":
+        fe = stub_frontend(entry, cfg, 1, torch.float32, "cpu", seed=7)
+        out = module.prefill(params, cfg, tok, frontend=fe, max_len=8,
+                             policy=TP32, cache_dtype=torch.float32)
+        logits, cache, held = out["logits"], out["cache"], 4
+        assert all(c["k"].any() for c in _cross_leaves(cfg, cache).values())
+    else:
+        logits, cache = module.decode_step(params, cfg, tok[:, :1], cache,
+                                           policy=TP32)
+        held = 1
+    assert torch.isfinite(logits[..., :cfg.vocab]).all()
+    assert set(_lens(cache)) == {held}
 
 
 @pytest.mark.parametrize("arch,where", UNPORTED,
