@@ -38,7 +38,17 @@ Phases, each printing its numbers on lines of their own:
      f32 at its head shape (H=48, P=64, N=128, chunk 256), B=1, S=1024:
      the chunked scan against the recurrent oracle (y and the final
      state), and one full-width ``ssd_block`` on the card against the same
-     block on the CPU, both at rtol = atol = 1e-4, with their times;
+     block on the CPU, both at rtol = atol = 1e-4, with their times; then
+     ``lru_check``: recurrentgemma-9b's RG-LRU block (``models/hybrid.py``,
+     d 4096, lru width 4096) in f32, B=2, S=4096: the odd-even scan against
+     the step-by-step oracle, with and without a carried state, and the
+     chunked scan (chunks 4096 and 256) against the full one, at 1e-4; the
+     scan's gradients (x, ``wr``, ``wi``, Λ; B=1, S=1024) against the
+     oracle's at 1e-4 of each leaf's scale; one block on the card against
+     the CPU (B=1, S=1024); a 1024-token prefill and 32 decode steps against
+     the stateless block at 2e-4; the scan's, the block's (f32, bf16, bf16
+     forward + backward with its peak) and a decode step's times beside
+     their bounds; no kernel launched;
   7. ``full_path``: the full finetune (the paper's FR baseline) on
      granite-3-8b at full width, depth cut to 8 of 40 layers (f32 params,
      gradients and SGD momentum of 40 layers need 98 GB), bf16 compute,
@@ -1265,6 +1275,213 @@ def ssd_check() -> dict:
     return row
 
 
+# RG-LRU on the card: prefill then decode against the stateless block at the
+# reference test's bound (tests/test_special_layers.py:93-105); the scan's
+# gradients against the oracle's at this share of each leaf's largest entry
+LRU_DECODE_TOL = 2e-4
+LRU_GRAD_TOL = 1e-4
+
+
+def scale_gate(phase: str, label: str, got: torch.Tensor,
+               want: torch.Tensor, tol: float) -> float:
+    """max |got - want| <= tol · max |want|, everywhere finite; returns
+    max |got - want| / max |want|."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{phase} {label}: non-finite values")
+    rel = float((got - want).abs().max() / want.abs().max())
+    if not rel <= tol:
+        raise AssertionError(f"{phase} {label}: max |got - want| is {rel} "
+                             f"of max |want|, over {tol}")
+    return rel
+
+
+def lru_check() -> dict:
+    """recurrentgemma-9b's RG-LRU block (``models/hybrid.py``) on the card at
+    its widths (d 4096, lru width 4096, conv width 4, from the port's config
+    copy), seeded; the layer reaches no kernel, so every launch count must
+    stay 0.  At B=2, S=4096, f32: ``_rg_lru``'s scan against
+    ``rg_lru_reference`` without and with a seeded ``h0`` (y and the final
+    state), and the chunked form at ``scan_chunk`` 4096 (the reference's
+    tuned setting, ``repro/launch/cells.py:116``: the full scan here)
+    and 256 against the full scan, all at ``SSD_TOL``.  At B=1, S=1024: the
+    gradients of ``_rg_lru``'s output under a seeded cotangent with respect
+    to x, ``wr``, ``wi`` and Λ against the oracle's; one f32 ``lru_block``
+    on the card against the CPU.  At B=2: a 1024-token prefill through the
+    state, then 32 decode steps, against the stateless block over all 1056
+    tokens.  Times by CUDA events at B=2, S=4096, each beside its bound: the
+    scan alone (full, chunked, the oracle's step loop) and the bytes
+    autograd keeps for its backward, the block forward in f32 and in bf16,
+    a bf16 forward + backward (f32 master params, as FR keeps them) with its
+    peak over the memory held before it, one S=1 decode step."""
+    from repro_torch.configs import recurrentgemma_9b
+    from repro_torch.models import hybrid, layers as L
+    from repro_torch.utils import cast_tree, tree_leaves, tree_map
+    full = recurrentgemma_9b.FULL
+    cfg = hybrid.LRUConfig(d_model=full.d_model, lru_width=full.lru_width,
+                           conv_width=full.conv_width)
+    b, s, d, w = 2, 4096, cfg.d_model, cfg.lru_width
+    pol = L.Policy(compute_dtype=torch.float32)
+    pol16 = L.Policy(compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    zero_counts()
+    params = hybrid.lru_init(gen, cfg, device="cuda")
+    x, h0 = randn(b, s, w), randn(b, w, scale=0.1)
+    row = {"arch": full.name, "d_model": d, "lru_width": w, "x": [b, s, w],
+           "tol": SSD_TOL}
+    with torch.no_grad():
+        for tag, h in (("", None), ("h0_", h0)):
+            y, hf = hybrid._rg_lru(params, x, pol, h0=h)
+            yr, hr = hybrid.rg_lru_reference(params, x, pol, h0=h)
+            row[f"scan_{tag}y_max_abs_err"] = close_gate(
+                "lru_check", f"scan {tag}y", y, yr, SSD_TOL)
+            row[f"scan_{tag}h_max_abs_err"] = close_gate(
+                "lru_check", f"scan {tag}h_final", hf, hr, SSD_TOL)
+        for chunk in (4096, 256):
+            yc, hc = hybrid._rg_lru(params, x, pol, h0=h0, scan_chunk=chunk)
+            row[f"chunk{chunk}_y_max_abs_err"] = close_gate(
+                "lru_check", f"chunk {chunk} y", yc, y, SSD_TOL)
+            row[f"chunk{chunk}_h_max_abs_err"] = close_gate(
+                "lru_check", f"chunk {chunk} h_final", hc, hf, SSD_TOL)
+        del y, hf, yr, hr, yc, hc
+        a, gx = hybrid._gates(params, x, pol)
+        row.update({
+            "scan_ms": time_ms(lambda: hybrid._scan_from(a, gx), 10),
+            "chunk4096_ms": time_ms(
+                lambda: hybrid._scan_from(a, gx, h0, 4096), 10),
+            "chunk256_ms": time_ms(
+                lambda: hybrid._scan_from(a, gx, h0, 256), 10),
+            "oracle_ms": time_ms(lambda: hybrid._recurrence(a, gx, h0), 2,
+                                 warmup=1),
+            # a and gated_x read once, y written once
+            "scan_bound_ms": 3 * b * s * w * 4 / PEAK_BYTES * 1e3,
+            "scan_bound_by": "bytes"})
+
+    def saved_bytes(scan_chunk) -> int:
+        """Bytes autograd keeps for the scan's backward beyond its inputs
+        (each storage once)."""
+        ag, gg = a.detach().requires_grad_(), gx.detach().requires_grad_()
+        held = {}
+
+        def pack(t):
+            held[t.untyped_storage().data_ptr()] = \
+                t.untyped_storage().nbytes()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            hybrid._scan_from(ag, gg, h0, scan_chunk)
+        for t in (ag, gg):
+            held.pop(t.untyped_storage().data_ptr(), None)
+        return sum(held.values())
+
+    row.update({"scan_input_bytes": 2 * a.numel() * a.element_size(),
+                "scan_saved_bytes": saved_bytes(None),
+                "chunk256_saved_bytes": saved_bytes(256)})
+    del a, gx
+
+    sg = 1024                    # the gradient against the oracle's
+    xg = x[:1, :sg].clone().requires_grad_()
+    pg = {**params, "lambda": params["lambda"].clone().requires_grad_(),
+          **{k: tree_map(lambda t: t.clone().requires_grad_(), params[k])
+             for k in ("wr", "wi")}}
+    wrt = {"x": xg, "wr/w": pg["wr"]["w"], "wr/b": pg["wr"]["b"],
+           "wi/w": pg["wi"]["w"], "wi/b": pg["wi"]["b"],
+           "lambda": pg["lambda"]}
+    ct = randn(1, sg, w)
+
+    def grads(fn):
+        return torch.autograd.grad(fn(pg, xg, pol)[0], list(wrt.values()),
+                                   ct)
+
+    got, want = grads(hybrid._rg_lru), grads(hybrid.rg_lru_reference)
+    row["grad_tol"] = LRU_GRAD_TOL
+    row["grad_max_err_over_scale"] = {
+        n: scale_gate("lru_check", f"grad {n}", g, wt, LRU_GRAD_TOL)
+        for n, g, wt in zip(wrt, got, want)}
+    del xg, pg, wrt, got, want, x
+
+    cpu_gen = torch.Generator().manual_seed(9)
+    cparams = hybrid.lru_init(cpu_gen, cfg)
+    xin = torch.randn((1, 1024, d), generator=cpu_gen)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want, _ = hybrid.lru_block(cparams, xin, cfg, policy=pol)
+        row["block_cpu_s"] = time.perf_counter() - t0
+        got, _ = hybrid.lru_block(tree_map(lambda t: t.cuda(), cparams),
+                                  xin.cuda(), cfg, policy=pol)
+        row["block_max_abs_err"] = close_gate(
+            "lru_check", "block cuda vs cpu", got.cpu(), want, SSD_TOL)
+        del cparams, got
+
+        xb = randn(b, 1056, d)
+        want, _ = hybrid.lru_block(params, xb, cfg, policy=pol)
+        st = hybrid.lru_state_init(cfg, b, device="cuda")
+        outs = []
+        for lo, hi in [(0, 1024)] + [(t, t + 1) for t in range(1024, 1056)]:
+            o, st = hybrid.lru_block(params, xb[:, lo:hi], cfg, policy=pol,
+                                     state=st)
+            outs.append(o)
+        row["decode_tol"] = LRU_DECODE_TOL
+        row["prefill_decode_max_abs_err"] = close_gate(
+            "lru_check", "prefill then decode", torch.cat(outs, 1), want,
+            LRU_DECODE_TOL)
+        last = xb[:, -1:]
+        row["decode_ms"] = time_ms(lambda: hybrid.lru_block(
+            params, last, cfg, policy=pol, state=st), 20)
+        # every param read once, the state read and written once
+        row["decode_bound_ms"] = (tree_nbytes(params) + 2 * tree_nbytes(st)
+                                  ) / PEAK_BYTES * 1e3
+        del xb, want, outs
+
+        flops = 2 * b * s * (3 * d * w + 2 * w * w)     # wx, wy, wo; wr, wi
+        xf = randn(b, s, d)
+        p16, x16 = cast_tree(params, torch.bfloat16), xf.bfloat16()
+        row.update({
+            "block_x": [b, s, d],
+            "block_f32_ms": time_ms(
+                lambda: hybrid.lru_block(params, xf, cfg, policy=pol), 5),
+            "block_f32_bound_ms": flops / PEAK_FLOPS[torch.float32] * 1e3,
+            "block_bf16_ms": time_ms(
+                lambda: hybrid.lru_block(p16, x16, cfg, policy=pol16), 10),
+            "block_bf16_bound_ms": flops / PEAK_FLOPS[torch.bfloat16] * 1e3,
+            "block_bound_by": "operations"})
+        del p16, xf
+
+    leaves = [t.requires_grad_() for t in tree_leaves(params)] + \
+        [x16.requires_grad_()]
+    ct16 = randn(b, s, d).bfloat16()
+
+    def fwd_bwd():
+        y, _ = hybrid.lru_block(params, x16, cfg, policy=pol16)
+        return torch.autograd.grad(y, leaves, ct16)
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    g = fwd_bwd()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del g
+    row.update({"fwd_bwd_base_bytes": base, "fwd_bwd_peak_bytes": peak,
+                "fwd_bwd_over_base_bytes": peak - base,
+                "fwd_bwd_ms": time_ms(fwd_bwd, 5),
+                # forward, and the two products of each GEMM's backward
+                "fwd_bwd_bound_ms": 3 * flops / PEAK_FLOPS[torch.bfloat16]
+                * 1e3})
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"lru_check launched kernels: {counts}")
+    row["launches"] = counts
+    print("lru_check " + json.dumps(row), flush=True)
+    del params, leaves, x16, ct16, st, last
+    torch.cuda.empty_cache()
+    return row
+
+
 def masked_exponents(entry, cfg, policy, backbone, tokens) -> list:
     """Each SSD layer's largest exponent in the scan's masked exp, in a
     forward of ``tokens``: the largest dAcs_i - dAcs_j with i < j (above the
@@ -2343,6 +2560,7 @@ def main() -> int:
     check_bfp_stages(gen)
     f1_check()
     ssd_check()
+    lru_check()
     bfp = run_bfp_path()     # before the step, and freed: its peak stands
     main_path, run = run_main_path()
     del run          # each path frees its state: its peak stands alone

@@ -7,7 +7,8 @@ whisper-base dispatches to the enc-dec composition (``models/encdec.py``),
 everything else to the generic stack.  The port trains the dense, MoE,
 local-attention, Mamba-2, audio (whisper-base) and vision-language
 (llama-3.2-vision-90b) archs, and serves each of them; recurrentgemma-9b
-raises ``NotImplementedError`` for everything, naming ROADMAP item 2(c).
+raises ``NotImplementedError`` for everything, naming ROADMAP item
+2(c)-ii (its RG-LRU block, ``models/hybrid.py``, is not in the stack yet).
 """
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ scan layout, ``params["stack"]["sub<i>"]``) and the forward walks it with a
 Python loop; remainder layers run unrolled.  The forward covers ``attn``,
 ``local`` (sliding-window) and ``cross`` layers with dense or MoE channel
 mixers, and ``ssd`` (Mamba-2) layers; the ``lru`` kind raises
-``NotImplementedError``.  A ``cross`` layer attends to
+``NotImplementedError``: its block, ``models/hybrid.py``, is not wired in
+yet.  A ``cross`` layer attends to
 ``frontend["cross_kv"]`` (stub image embeddings, or the encoder's output in
 ``models/encdec.py``) without rope and without a causal mask; given no
 frontend it attends to its own input, non-causally, as the reference's
@@ -43,7 +44,8 @@ _PORTED_KINDS = ("attn", "local", "cross", "ssd")
 _PORTED_MLPS = ("dense", "moe", "none")
 # the ROADMAP §1 'Modules to port' item that ports each layer kind still
 # missing; the registry names an unported arch's item through it too
-KIND_ITEMS = {"lru": "2(c) (models/hybrid.py: RG-LRU)"}
+KIND_ITEMS = {"lru": "2(c)-ii (recurrentgemma-9b in the stack; the RG-LRU "
+                      "layer itself is models/hybrid.py)"}
 
 
 def roadmap_item(kind: str) -> str:

@@ -33,7 +33,8 @@ def test_every_module_imports_with_jax_and_repro_masked():
               "configs.granite_moe_1b", "configs.llama4_maverick",
               "models.ssm", "configs.mamba2_780m", "models.encdec",
               "configs.whisper_base", "configs.llama32_vision_90b",
-              "train.serve_step", "launch.serve", "examples.quickstart"):
+              "train.serve_step", "launch.serve", "examples.quickstart",
+              "models.hybrid", "configs.recurrentgemma_9b"):
         assert f"repro_torch.{m}" in mods
     masked = ("jax", "repro", "msgpack")
     code = (

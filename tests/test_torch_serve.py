@@ -19,7 +19,8 @@ has wrapped at prefill and keeps wrapping as it decodes; with the window at
 32, past ``MAX_LEN``, its ``local`` layers keep a plain cache; ``local+ssd``
 is gemma2's widths with an ``ssd`` layer after the ``local`` one (a ring
 and an SSD state, no ``step``).  The ``lru`` kind raises naming its
-ROADMAP item."""
+ROADMAP item, 2(c)-ii (recurrentgemma-9b in the stack: the RG-LRU layer,
+``models/hybrid.py``, is ported but not wired in)."""
 import dataclasses as dc
 import math
 import re
@@ -945,8 +946,9 @@ def test_quickstart_trains_then_decodes():
     assert all(0 <= t < vocab for t in out["generated"])
 
 
-# configs of no registered arch: the lru kind on granite's widths, and
-# gemma2's widths with an ssd layer after the local one (``VARIANTS``)
+# configs of no registered arch: the lru kind on granite's widths (not in
+# the stack until item 2(c)-ii, which "2(c)" matches), and gemma2's widths
+# with an ssd layer after the local one (``VARIANTS``)
 MIXES = {"lru": lambda: dc.replace(
              treg.get("granite-3-8b").smoke,
              pattern=(ttr.LayerSpec("lru", "none"),), ssm_state=16,
