@@ -126,7 +126,26 @@ Phases, each printing its numbers on lines of their own:
      batch changed, the largest change of the hidden state at positions
      0-3999 with the stub frontend (must be 0) and without one (printed:
      the reference's cross layer then attends to its own input,
-     non-causally);
+     non-causally); then ``recurrentgemma_path``: the duplex step of phase
+     5 on recurrentgemma-9b at full width and depth (38 layers, 12 x
+     (``lru``, ``lru``, ``local``) + (``lru``, ``lru``), d 4096, MQA at
+     head dim 256, window 2048, shorter than S, so the window masks keys),
+     B=2 x S=4096, 3 steps: no kernel launch (no ``attn`` layer), one step
+     profiled, the time of one ``lru_block`` and of its odd-even scan with
+     their shares of the step over all 26 ``lru`` layers
+     (``recurrentgemma_mixers``), and the ``local`` layers' attention time
+     and share (``recurrentgemma_attention``); then
+     ``recurrentgemma_window``: the first ``local`` sublayer of that final
+     backbone in f32, B=1, S=4096, position 0 of its input changed: the
+     largest change of its output at positions 2048-4095 must be exactly 0
+     and at some position in 1-2047 not 0; then
+     ``recurrentgemma_full_path``: the FR step of phase 7 on
+     recurrentgemma-9b at full width, B=1 x S=4096, depth reckoned from the
+     measured peaks of 5- and 8-layer cuts and rounded down to the pattern
+     (``recurrentgemma_full_reckon``; no ``ssd`` layer, so
+     ``recurrentgemma_full_exponents`` keeps the whole draw), which must
+     move layer 0's ``lru/wx``, ``lru/lambda``, ``lru/conv_w`` and the
+     first ``local`` layer's ``attn/wq`` (``recurrentgemma_full_moved``);
   12. serving, ROADMAP §1 items 3(a) to 3(d): ``decode_check``,
      one layer's decode step at full width, f32, on the card against the
      CPU (output and v at 1e-4, the written k slot at 1e-3 beside rope's
@@ -139,15 +158,20 @@ Phases, each printing its numbers on lines of their own:
      128), B=4, one step from a seeded state (output and every state leaf
      at 1e-4); ``cross``, llama-3.2-vision-90b's cross layer (64 heads, kv
      8, head dim 128), B=2, ``_cross_decode`` over a seeded 1600-slot cross
-     cache (output at 1e-4, the cache bit for bit unchanged);
+     cache (output at 1e-4, the cache bit for bit unchanged); ``lru``,
+     recurrentgemma-9b's ``lru`` sublayer (d 4096, its MLP too), B=2, a
+     256-token prefill from the zero state and 8 decode steps (every
+     output, and ``h`` and ``conv`` after the last, at 1e-4);
      ``serve_check`` (granite-3-8b, B=4, 2048 tokens),
      ``gemma2_serve_check`` (gemma2-9b, B=2, 4608 tokens, so every local
      ring has wrapped), ``mamba2_serve_check`` (mamba2-780m, B=4, 2048
      tokens, its position in the cache's ``step``), ``whisper_serve_check``
      (whisper-base, B=8, 384 tokens over the launcher's stub frames [8,
-     1500, 512]) and ``vision_serve_check`` (llama-3.2-vision-90b cut to
+     1500, 512]), ``vision_serve_check`` (llama-3.2-vision-90b cut to
      one superblock, B=2, 2048 tokens over a stub ``cross_kv`` [2, 1600,
-     8192]), each model at full width and, but for vision, depth, the
+     8192]) and ``recurrentgemma_serve_check`` (recurrentgemma-9b, B=2,
+     4608 tokens, so every local ring has wrapped, beside 26 RG-LRU
+     states), each model at full width and, but for vision, depth, the
      frontend fed to prefill and to the forward alike: ``prefill`` of
      all tokens but the last and one ``decode_step``, their logits against
      ``forward`` + ``lm_logits`` at the last two positions, in f32
@@ -156,8 +180,8 @@ Phases, each printing its numbers on lines of their own:
      against the bf16 forward; argmax agreement printed), then a greedy
      step under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
      raises); ``serve_path``, ``gemma2_serve_path``,
-     ``mamba2_serve_path``, ``whisper_serve_path`` and
-     ``vision_serve_path``, the serving launcher
+     ``mamba2_serve_path``, ``whisper_serve_path``, ``vision_serve_path``
+     and ``recurrentgemma_serve_path``, the serving launcher
      ``repro_torch.launch.serve`` on the same cases with 32 generated
      tokens (``serve.main``; vision, cut, through ``serve.serve``): prefill
      seconds, each decode step by CUDA events, tok/s, the peaks beside the
@@ -165,9 +189,11 @@ Phases, each printing its numbers on lines of their own:
      3.35 TB/s; whisper's counts its decoder's params, not its encoder's,
      and the self and cross caches), no kernel launched, every cache
      ``len`` (mamba2's ``step``) at prompt + 31, each ring holding the last
-     4096 positions, the params unchanged, and one decode step profiled
-     (``serve_profile``, ``gemma2_serve_profile``, ``mamba2_serve_profile``,
-     ``whisper_serve_profile`` and ``vision_serve_profile`` lines);
+     positions of its window, the params unchanged, and one decode step
+     profiled (``serve_profile``, ``gemma2_serve_profile``,
+     ``mamba2_serve_profile``, ``whisper_serve_profile``,
+     ``vision_serve_profile`` and ``recurrentgemma_serve_profile``
+     lines);
   13. ``resume_path``: duplex at full width, depth cut to 4 layers, flash
      on, B=2 x S=4096: 4 steps straight; then 2 steps saving a checkpoint
      every 2 into a directory that is removed afterwards, whose restored
@@ -180,7 +206,7 @@ Phases, each printing its numbers on lines of their own:
      ordering row, the wall time;
   15. one JSON line with every kernel's numbers, the card line again, and
      the last line {"ok": true, "device": {...}}.
-Each of the paths 4-14 (in 12, the five ``*serve_path`` runs) zeroes every
+Each of the paths 4-14 (in 12, the six ``*serve_path`` runs) zeroes every
 kernel's launch count just before it and reads the counts just after.
 Any failure raises and the exit code is not 0.  Without a CUDA device it
 exits with code 2 before printing any result.
@@ -869,21 +895,29 @@ def routing(params, x, mcfg, policy):
     return moe.route(gates, mcfg.top_k, cap)[2], cap, xg.shape[1]
 
 
+def kind_layers(cfg, kind: str) -> int:
+    """The layers of ``kind`` in ``cfg``'s stack: the pattern's times
+    ``n_rep`` and the remainder's."""
+    return cfg.n_rep * sum(sp.kind == kind for sp in cfg.pattern) + \
+        sum(sp.kind == kind for sp in cfg.remainder)
+
+
 def flash_layers(cfg) -> int:
     """The layers that run the flash kernel: the ``attn`` ones of ``cfg``'s
     own stack (``local`` layers keep their window on the blockwise path and
     ``cross`` layers are never flash, as the reference's; an encoder,
     ``cfg.encoder``, keeps ``use_flash`` off)."""
-    return cfg.n_rep * sum(s.kind == "attn" for s in cfg.pattern) + \
-        sum(s.kind == "attn" for s in cfg.remainder)
+    return kind_layers(cfg, "attn")
 
 
 def run_main_path(arch: str = "granite-3-8b", label: str = "main"):
     """The duplex step through the launcher at full width and depth, B=2,
     S=4096, 3 steps: granite-3-8b (``main``), granite-moe-1b-a400m
     (``moe``), gemma2-9b (``gemma2``), starcoder2-7b (``starcoder2``),
-    mamba2-780m (``mamba2``) or whisper-base (``whisper``: 6 encoder and 12
-    decoder layers, the launcher's stub frames [2, 1500, 512] in bf16).
+    mamba2-780m (``mamba2``), whisper-base (``whisper``: 6 encoder and 12
+    decoder layers, the launcher's stub frames [2, 1500, 512] in bf16) or
+    recurrentgemma-9b (``recurrentgemma``: 38 layers, 26 ``lru`` and 12
+    ``local`` with a 2048 window, shorter than S).
     Returns the path's numbers and its run (entry, configs, final state,
     batches), which the caller reads further and then drops, so that the
     next path's peak stands alone."""
@@ -1031,7 +1065,9 @@ def report_attention_layers(run: dict, label: str) -> None:
     as the reference's, and ``attn`` layers run the flash kernel.  whisper:
     the encoder's self-attention over the frames (non-causal, blockwise
     f32), the decoder's ``cross`` layer (the tokens over the encoder's
-    output, blockwise f32) and its ``attn`` layer (causal, flash)."""
+    output, blockwise f32) and its ``attn`` layer (causal, flash).
+    recurrentgemma-9b: its ``local`` layers (window 2048, MQA at head dim
+    256), blockwise f32."""
     from repro_torch.models import encdec, layers as L, transformer as tr
     cfg, policy = run["cfg"], run["policy"]
     backbone = run["state"]["backbone"]
@@ -1058,7 +1094,7 @@ def report_attention_layers(run: dict, label: str) -> None:
                     else "blockwise f32"
                     if max(u.shape[1], keys) > acfg.blockwise_threshold
                     else "full f32")
-            n = c.n_rep * sum(sp.kind == spec.kind for sp in c.pattern)
+            n = kind_layers(c, spec.kind)
             rows[prefix + spec.kind] = {
                 "core": core, "window": acfg.window, "queries": u.shape[1],
                 "keys": keys, "causal": acfg.causal and kv_x is None,
@@ -1086,35 +1122,42 @@ def report_attention_layers(run: dict, label: str) -> None:
           flush=True)
 
 
-def report_ssd_mixers(run: dict, label: str) -> None:
-    """Where an SSD model's duplex step goes: the first layer's
-    ``ssd_block`` on the normed embedding of the path's first batch, and the
-    chunked scan inside it (``_ssd_chunked``, on the inputs that block
-    gives it), each timed alone with CUDA events, times the layer count,
-    over the step time (``<label>_mixers`` line)."""
-    from repro_torch.models import ssm, transformer as tr
+def report_mixers(run: dict, label: str) -> None:
+    """Where a recurrent model's duplex step goes: the first layer's mixer
+    block on the normed embedding of the path's first batch, and the scan
+    inside it, each timed alone with CUDA events, times the count of layers
+    of its kind (the pattern's and the remainder's), over the step time
+    (``<label>_mixers`` line).  mamba2-780m: ``ssd_block`` and its chunked
+    scan ``ssm._ssd_chunked``; recurrentgemma-9b: ``lru_block`` and its
+    odd-even scan ``hybrid._scan`` (over the gates the block gives it)."""
+    from repro_torch.models import hybrid, ssm, transformer as tr
     cfg, policy = run["cfg"], run["policy"]
     backbone = run["state"]["backbone"]
     sub = tr._index(backbone["stack"], 0)["sub0"]
-    scfg = tr._ssd_cfg(cfg)
+    kind = cfg.pattern[0].kind
+    mod, block, scan_name, mcfg = {
+        "ssd": (ssm, ssm.ssd_block, "_ssd_chunked", tr._ssd_cfg(cfg)),
+        "lru": (hybrid, hybrid.lru_block, "_scan", tr._lru_cfg(cfg))}[kind]
     tokens = run["batches"][0]["tokens"]
     b, s = tokens.shape
     positions = torch.arange(s, device="cuda").expand(b, s)
-    n = cfg.n_rep * sum(sp.kind == "ssd" for sp in cfg.pattern)
+    n = kind_layers(cfg, kind)
     step_s = min(run["step_times"][1:])
     scan = []
     with torch.no_grad():
         u = tr._norm(cfg, sub["norm"], tr.embed_tokens(backbone, cfg, tokens,
                                                        positions, policy))
-        with first_call(ssm, "_ssd_chunked", scan):
-            ssm.ssd_block(sub["ssd"], u, scfg, policy=policy)
-        block_ms = time_ms(lambda: ssm.ssd_block(sub["ssd"], u, scfg,
-                                                 policy=policy), 5)
-        scan_ms = time_ms(lambda: ssm._ssd_chunked(*scan[0]), 5)
+        with first_call(mod, scan_name, scan):
+            block(sub[kind], u, mcfg, policy=policy)
+        block_ms = time_ms(lambda: block(sub[kind], u, mcfg,
+                                         policy=policy), 5)
+        scan_fn = getattr(mod, scan_name)
+        scan_ms = time_ms(lambda: scan_fn(*scan[0]), 5)
+    names = {"ssd": ("ssd_block", "ssd_chunked_scan"),
+             "lru": ("lru_block", "lru_scan")}[kind]
     rows = {name: {"layers": n, "ms": ms, "share_of_step": n * ms / 1e3 /
                    step_s}
-            for name, ms in (("ssd_block", block_ms),
-                             ("ssd_chunked_scan", scan_ms))}
+            for name, ms in zip(names, (block_ms, scan_ms))}
     print(f"{label}_mixers: step_s {step_s!r} {json.dumps(rows)}",
           flush=True)
 
@@ -1512,27 +1555,41 @@ def first_layers(state: dict, n: int) -> dict:
         for p, t in tree_flatten(state)])
 
 
-def reckon_full_depth(arch: str, label: str) -> tuple:
-    """The FR depth of an SSD model, as (layers drawn at init, layers kept).
-    Drawn: the deepest cut whose peak, reckoned as a line through two
-    shallow cuts' measured peaks (init and two steps each, at the path's B
-    and S), stays under FR_PEAK_LIMIT (``<label>_reckon`` line).  Kept: at
-    that cut's init (``run_full_path``'s seed) and first batch, each layer's
-    largest masked exponent is read (``<label>_exponents`` line); past
-    log(f32 max) the exp above the diagonal is inf, and the reference's
-    ``where`` after the exp makes the backward NaN there (a zero cotangent
-    times an infinite derivative), in JAX as here.  The same draw is kept up
-    to the first layer that passes it; the layers kept see the same inputs,
-    so their exponents stay as read."""
+def valid_depth(cfg, n: int) -> int:
+    """The deepest layer count of ``cfg``'s shape at most ``n``: its
+    remainder and a whole number, at least one, of pattern repeats (0 if
+    none fits)."""
+    reps = max(n - len(cfg.remainder), 0) // len(cfg.pattern)
+    return len(cfg.remainder) + reps * len(cfg.pattern) if reps else 0
+
+
+def reckon_full_depth(arch: str, label: str, cuts: tuple = (2, 4),
+                      batch_size: int = 4, seq: int = 1024) -> tuple:
+    """The FR depth of a model at full width, as (layers drawn at init,
+    layers kept).  Drawn: the deepest valid cut (``valid_depth``) whose
+    peak, reckoned as a line through two shallow cuts' measured peaks
+    (``cuts``, each valid; init and two steps each, at the path's B and
+    S), stays under FR_PEAK_LIMIT (``<label>_reckon`` line).  Kept, for an
+    SSD model: at that cut's init (``run_full_path``'s seed) and first
+    batch, each ``ssd`` layer's largest masked exponent is read
+    (``<label>_exponents`` line); past log(f32 max) the exp above the
+    diagonal is inf, and the reference's ``where`` after the exp makes the
+    backward NaN there (a zero cotangent times an infinite derivative), in
+    JAX as here.  The same draw is kept up to the first layer that passes
+    it; the layers kept see the same inputs, so their exponents stay as
+    read.  A model with no ``ssd`` layer keeps the whole draw, and its line
+    says so."""
     from repro_torch.models import layers as L, registry
     from repro_torch.train import train_step as ts
     entry = registry.get(arch)
     policy = L.Policy(compute_dtype=torch.bfloat16)
     tcfg = ts.TrainConfig(mode="full")
-    batch_size, seq = 4, 1024           # run_full_path's B and S
     batch = cuda_batch(entry.full, seq, batch_size, 0)
     peaks = {}
-    for n in (2, 4):
+    for n in cuts:
+        if valid_depth(entry.full, n) != n:
+            raise AssertionError(f"{label}: a cut of {n} layers is not a "
+                                 f"depth of {arch}'s pattern")
         cfg = dc.replace(entry.full, n_layers=n).validate()
         step = ts.make_train_step(entry, cfg, tcfg, policy)
         torch.cuda.empty_cache()
@@ -1547,25 +1604,30 @@ def reckon_full_depth(arch: str, label: str) -> tuple:
     (n1, p1), (n2, p2) = sorted(peaks.items())
     per_layer = (p2 - p1) / (n2 - n1)
     fixed = p1 - n1 * per_layer
-    depth = min(entry.full.n_layers,
-                int((FR_PEAK_LIMIT - fixed) // per_layer))
+    depth = valid_depth(entry.full, min(
+        entry.full.n_layers, int((FR_PEAK_LIMIT - fixed) // per_layer)))
     print(f"{label}_reckon: batch {batch_size} seq {seq} peaks_bytes "
           f"{json.dumps(peaks)} per_layer_bytes {per_layer!r} fixed_bytes "
           f"{fixed!r} limit_bytes {FR_PEAK_LIMIT!r} depth {depth} of "
-          f"{entry.full.n_layers} reckoned_peak_bytes "
-          f"{fixed + depth * per_layer!r}", flush=True)
+          f"{entry.full.n_layers} (rounded down to the pattern) "
+          f"reckoned_peak_bytes {fixed + depth * per_layer!r}", flush=True)
     cfg = dc.replace(entry.full, n_layers=depth).validate()
-    st = ts.init_state(torch.Generator(device="cuda").manual_seed(0),
-                       entry, cfg, tcfg, policy, device="cuda")
-    exps = masked_exponents(entry, cfg, policy, st["backbone"],
-                            batch["tokens"])
-    del st
-    torch.cuda.empty_cache()
+    n_ssd = kind_layers(cfg, "ssd")
+    exps = []
+    if n_ssd:
+        st = ts.init_state(torch.Generator(device="cuda").manual_seed(0),
+                           entry, cfg, tcfg, policy, device="cuda")
+        exps = masked_exponents(entry, cfg, policy, st["backbone"],
+                                batch["tokens"])
+        del st
+        torch.cuda.empty_cache()
     over = [i for i, e in enumerate(exps) if e > LOG_F32_MAX]
     kept = over[0] if over else depth
-    print(f"{label}_exponents: depth {depth} log_f32_max {LOG_F32_MAX!r} "
-          f"max_masked_exponent_by_layer {json.dumps(exps)} overflow_layers "
-          f"{over} kept {kept}", flush=True)
+    print(f"{label}_exponents: depth {depth} ssd_layers {n_ssd} "
+          f"log_f32_max {LOG_F32_MAX!r} max_masked_exponent_by_layer "
+          f"{json.dumps(exps)} overflow_layers {over} kept {kept}"
+          + ("" if n_ssd else " (no ssd layer: no masked exponent, the "
+             "whole draw is kept)"), flush=True)
     if not kept:
         raise AssertionError(f"{label}: layer 0's masked exponent overflows "
                              f"f32; no depth is finite")
@@ -1592,8 +1654,12 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
     leaves moved; ``whisper_full``: whisper-base whole, B=4, S=1024, with
     the launcher's stub frames, which also checks that layer 0's encoder
     query projection, decoder cross-layer key projection (which reads only
-    the encoder's output) and that layer's MLP input moved.  ``duplex`` is
-    the numbers of the same model's duplex path, whose peak is printed
+    the encoder's output) and that layer's MLP input moved;
+    ``recurrentgemma_full``: recurrentgemma-9b at full width, B=1, S=4096
+    (past its 2048 window), at the depth ``reckon_full_depth`` gives, which
+    also checks that layer 0's RG-LRU input projection, Λ and conv and the
+    first ``local`` layer's query projection moved.  ``duplex`` is the
+    numbers of the same model's duplex path, whose peak is printed
     beside."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.train import loop_step, stub_frontend
@@ -1607,15 +1673,17 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
     tcfg = ts.TrainConfig(mode="full")
     step = ts.make_train_step(entry, cfg, tcfg, policy)
     moe, ssm = cfg.family == "moe", cfg.family == "ssm"
-    encdec = cfg.encoder is not None
+    hybrid, encdec = cfg.family == "hybrid", cfg.encoder is not None
     fe = stub_frontend(entry, cfg, batch_size, policy.compute_dtype, "cuda")
     initial = {}
 
     def watched(backbone):
         """Leaves the FR gradient must reach: the MoE router and experts
         (stacked over the layers), layer 0's SSD input projection, decay,
-        step bias and conv, or layer 0's encoder ``attn/wq`` and decoder
-        cross layer's ``attn/wk`` and ``mlp/wi``."""
+        step bias and conv, layer 0's RG-LRU ``wx``, Λ and conv and the
+        first ``local`` layer's ``attn/wq``, or layer 0's encoder
+        ``attn/wq`` and decoder cross layer's ``attn/wk`` and
+        ``mlp/wi``."""
         if encdec:
             enc = tr._index(backbone["encoder"]["stack"], 0)["sub0"]
             i = [s.kind for s in cfg.pattern].index("cross")
@@ -1632,6 +1700,13 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
         if ssm:
             return {k: tree_checksum(tr._index({k: sub["ssd"][k]}, 0))
                     for k in ("x_proj", "A_log", "dt_bias", "conv_x")}
+        if hybrid:
+            i = [s.kind for s in cfg.pattern].index("local")
+            local = tr._index(backbone["stack"], 0)[f"sub{i}"]
+            return {**{f"sub0/lru/{k}": tree_checksum(
+                           tr._index({k: sub["lru"][k]}, 0))
+                       for k in ("wx", "lambda", "conv_w")},
+                    f"sub{i}/attn/wq": tree_checksum(local["attn"]["wq"])}
         return {}
 
     def init_fn():
@@ -1639,7 +1714,7 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
             torch.Generator(device="cuda").manual_seed(0), entry,
             cfg if drawn is None else dc.replace(cfg, n_layers=drawn),
             tcfg, policy, device="cuda")
-        if drawn is not None:
+        if drawn not in (None, cfg.n_layers):
             st = first_layers(st, cfg.n_rep)
         initial["checksum"] = tree_checksum(st["backbone"])
         initial["params"] = count_params(st["backbone"])
@@ -1688,8 +1763,9 @@ def run_full_path(duplex: dict, arch: str = "granite-3-8b",
     batch = cuda_batch(cfg, seq, batch_size, 0, fe)
     moved = {k: v != initial["watched"][k]
              for k, v in watched(report.state["backbone"]).items()}
-    if ssm or encdec:
-        where = "stack/sub0/ssd layer 0" if ssm else "layer 0"
+    if ssm or hybrid or encdec:
+        where = "layer 0" if encdec else \
+            "stack/sub0/ssd layer 0" if ssm else "stack layer 0"
         print(f"{label}_moved: {where} changed {json.dumps(moved)}",
               flush=True)
         if not all(moved.values()):
@@ -1889,18 +1965,68 @@ def vision_causality(run: dict, position: int = 4000) -> None:
                              f"{with_fe}")
 
 
+def window_gate(run: dict, label: str, seq: int = 4096) -> dict:
+    """A ``local`` layer's window at full width on the card: the first
+    ``local`` sublayer of the path's final (frozen) backbone, cast to f32,
+    over a seeded f32 input [1, ``seq``, d], and the same input with
+    position 0 changed; the largest change of the sublayer's output at
+    positions ``window``..``seq - 1`` must be exactly 0 (those queries'
+    windows exclude key 0), and at some position in 1..``window - 1`` not
+    0 (``<label>_window`` line, with the sublayer's time)."""
+    from repro_torch.models import layers as L, transformer as tr
+    from repro_torch.utils import cast_tree
+    cfg = run["cfg"]
+    i = [sp.kind for sp in cfg.pattern].index("local")
+    spec, w = cfg.pattern[i], cfg.window
+    sub = cast_tree(tr._index(run["state"]["backbone"]["stack"], 0)[
+        f"sub{i}"], torch.float32)
+    pol = L.Policy(compute_dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((1, seq, cfg.d_model), generator=gen, device="cuda")
+    moved = x.clone()
+    moved[:, 0] += torch.randn((cfg.d_model,), generator=gen, device="cuda")
+    positions = torch.arange(seq, device="cuda")[None]
+
+    def apply(h):
+        return tr._sub_apply(sub, h, spec, cfg, policy=pol, bfp=L.NO_BFP,
+                             cross_kv=None, positions=positions)[0]
+
+    with torch.no_grad():
+        change = (apply(moved) - apply(x)).abs().amax(dim=(0, 2))
+        row = {"sublayer": f"stack/sub{i}", "kind": spec.kind, "window": w,
+               "x": list(x.shape), "changed_position": 0,
+               "max_change_inside_window": float(change[1:w].max()),
+               "max_change_past_window": float(change[w:].max()),
+               "last_moved_position": int(change.nonzero().max()),
+               "sublayer_f32_ms": time_ms(lambda: apply(x), 5)}
+    print(f"{label}_window " + json.dumps(row), flush=True)
+    if row["max_change_past_window"] != 0.0:
+        raise AssertionError(f"{label}_window: position 0 moved outputs "
+                             f"past the window by "
+                             f"{row['max_change_past_window']}")
+    if not row["max_change_inside_window"] > 0:
+        raise AssertionError(f"{label}_window: position 0 moved no output "
+                             f"inside the window")
+    del sub, x, moved, change
+    torch.cuda.empty_cache()
+    return row
+
+
 # Serving: granite-3-8b at B=4 with a 2048-token prompt, gemma2-9b at B=2
 # with a 4608-token prompt, past its 4096 window, so that every local ring
 # wraps, mamba2-780m at B=4 with a 2048-token prompt, whisper-base at B=8
 # with a 384-token prompt over 1500 stub frames, and llama-3.2-vision-90b,
 # cut to one superblock, at B=2 with a 2048-token prompt over a stub
-# cross_kv of 1600; 32 generated tokens give max_len prompt + 32 + 8, as
-# the launcher reckons it (2088; 4648; mamba2's state has no length; 424,
-# under whisper's 448-position decoder context).
+# cross_kv of 1600, and recurrentgemma-9b at B=2 with a 4608-token prompt,
+# past its 2048 window, so that every local ring wraps; 32 generated tokens
+# give max_len prompt + 32 + 8, as the launcher reckons it (2088; 4648;
+# mamba2's state has no length; 424, under whisper's 448-position decoder
+# context; 4648).
 SERVE_GEN = 32
 SERVE_CASES = {"granite-3-8b": (4, 2048), "gemma2-9b": (2, 4608),
                "mamba2-780m": (4, 2048), "whisper-base": (8, 384),
-               "llama-3.2-vision-90b": (2, 2048)}
+               "llama-3.2-vision-90b": (2, 2048),
+               "recurrentgemma-9b": (2, 4608)}
 DECODE_TOL = 1e-4
 # k is cached after rope, whose angle at position p is p x a frequency
 # that the card's exp and the CPU's may round one ulp apart (about 1.2e-4
@@ -2085,6 +2211,69 @@ def _ssd_decode_case(batch: int = 4) -> dict:
     return row
 
 
+def _lru_decode_case(batch: int = 2, prompt: int = 256,
+                     steps: int = 8) -> dict:
+    """``decode_check lru``: recurrentgemma-9b's first ``lru`` sublayer at
+    full width (norm, ``lru_block`` at d 4096, lru width 4096, then its
+    gelu MLP, d_ff 12,288), f32, ``batch`` rows, seeded params and inputs:
+    ``transformer._sub_prefill`` of ``prompt`` tokens from the zero state,
+    then ``steps`` decode steps (``_sub_decode``), each writing the state
+    in place, on the card and on the CPU: every output at ``DECODE_TOL``,
+    and the state leaves ``h`` and ``conv`` after the last step.  The
+    card's step is timed by CUDA events (each call advances the state)."""
+    from repro_torch.models import layers as L, registry, transformer as tr
+    from repro_torch.utils import tree_map
+    cfg = registry.get("recurrentgemma-9b").full
+    spec = cfg.pattern[0]
+    gen = torch.Generator().manual_seed(10)
+    params = tr._sub_init(gen, cfg, spec)
+    x = torch.randn((batch, prompt + steps, cfg.d_model), generator=gen)
+    pol = L.Policy(compute_dtype=torch.float32)
+
+    def run(p, x_):
+        c = tr._sub_cache_init(cfg, spec, batch, prompt + steps,
+                               torch.float32, device=x_.device)
+        outs = [tr._sub_prefill(p, x_[:, :prompt], spec, cfg, c,
+                                policy=pol, positions=None, cross_kv=None)]
+        for t in range(prompt, prompt + steps):
+            outs.append(tr._sub_decode(p, x_[:, t:t + 1], spec, cfg, c,
+                                       policy=pol))
+        return outs, c
+
+    card = tree_map(lambda t: t.to("cuda", copy=True), {"p": params, "x": x})
+    with torch.inference_mode():
+        got, gc = run(card["p"], card["x"])
+        t0 = time.perf_counter()
+        want, wc = run(params, x)
+        cpu_s = time.perf_counter() - t0
+        row = {"case": "lru", "arch": cfg.name, "x": list(x.shape),
+               "prompt": prompt, "steps": steps,
+               "cache": {k: list(t.shape) for k, t in wc.items()},
+               "tol": DECODE_TOL,
+               "prefill_max_abs_err": close_gate(
+                   "decode_check", "lru prefill", got[0].cpu(), want[0],
+                   DECODE_TOL),
+               "decode_max_abs_err": max(
+                   close_gate("decode_check", f"lru step {i}", g.cpu(), w,
+                              DECODE_TOL)
+                   for i, (g, w) in enumerate(zip(got[1:], want[1:])))}
+        for k in sorted(wc):
+            if gc[k].dtype != wc[k].dtype:
+                raise AssertionError(f"decode_check lru: {k} is "
+                                     f"{gc[k].dtype}, {wc[k].dtype} on the "
+                                     f"CPU")
+            row[f"{k}_max_abs_err"] = close_gate(
+                "decode_check", f"lru {k}", gc[k].cpu(), wc[k], DECODE_TOL)
+        last = card["x"][:, -1:]
+        row["card_ms"] = time_ms(lambda: tr._sub_decode(
+            card["p"], last, spec, cfg, gc, policy=pol), 10)
+    row["cpu_s"] = cpu_s
+    print("decode_check lru " + json.dumps(row), flush=True)
+    del card, gc, got
+    torch.cuda.empty_cache()
+    return row
+
+
 def _cross_decode_case(batch: int = 2, slots: int = 1600) -> dict:
     """``decode_check cross``: llama-3.2-vision-90b's ``cross`` layer at full
     width (d 8192, 64 heads, kv 8, head dim 128), f32, ``batch`` rows, one
@@ -2146,10 +2335,12 @@ def decode_check() -> list:
     overwrites slot 512, the oldest, and masks nothing else; ``ssd``,
     mamba2-780m's block, B=4, from a seeded state (``_ssd_decode_case``);
     ``cross``, llama-3.2-vision-90b's cross layer, B=2, over a 1600-slot
-    cross cache (``_cross_decode_case``)."""
+    cross cache (``_cross_decode_case``); ``lru``, recurrentgemma-9b's
+    ``lru`` sublayer, B=2, a 256-token prefill and 8 steps
+    (``_lru_decode_case``)."""
     return [_decode_case("attn", "granite-3-8b", 0, 4, 2047),
             _decode_case("ring", "gemma2-9b", 0, 2, 4608),
-            _ssd_decode_case(), _cross_decode_case()]
+            _ssd_decode_case(), _cross_decode_case(), _lru_decode_case()]
 
 
 def serve_check(arch: str, label: str) -> dict:
@@ -2579,7 +2770,7 @@ def main() -> int:
     starcoder2, run = run_main_path("starcoder2-7b", label="starcoder2")
     del run
     mamba2, run = run_main_path("mamba2-780m", label="mamba2")
-    report_ssd_mixers(run, "mamba2")
+    report_mixers(run, "mamba2")
     del run
     drawn, kept = reckon_full_depth("mamba2-780m", "mamba2_full")
     run_full_path(mamba2, "mamba2-780m", kept, label="mamba2_full",
@@ -2591,6 +2782,16 @@ def main() -> int:
     vision, run = run_vision_path()
     vision_causality(run)
     del run
+    rgemma, run = run_main_path("recurrentgemma-9b", label="recurrentgemma")
+    report_mixers(run, "recurrentgemma")
+    report_attention_layers(run, "recurrentgemma")
+    window_gate(run, "recurrentgemma")
+    del run
+    drawn, kept = reckon_full_depth("recurrentgemma-9b", "recurrentgemma_full",
+                                    cuts=(5, 8), batch_size=1, seq=4096)
+    run_full_path(rgemma, "recurrentgemma-9b", kept,
+                  label="recurrentgemma_full", batch_size=1, seq=4096,
+                  drawn=drawn)
     decode_check()
     serve_check("granite-3-8b", "serve_check")
     serve_check("gemma2-9b", "gemma2_serve_check")
@@ -2602,6 +2803,9 @@ def main() -> int:
     whisper_serve = serve_path("whisper-base", "whisper_serve_path")
     serve_check("llama-3.2-vision-90b", "vision_serve_check")
     vision_serve = serve_path("llama-3.2-vision-90b", "vision_serve_path")
+    serve_check("recurrentgemma-9b", "recurrentgemma_serve_check")
+    rgemma_serve = serve_path("recurrentgemma-9b",
+                              "recurrentgemma_serve_path")
     run_resume_path()
     run_arms()
 
@@ -2621,11 +2825,14 @@ def main() -> int:
                              "mamba2_path": mamba2["launches"],
                              "whisper_path": whisper["launches"],
                              "vision_path": vision["launches"],
+                             "recurrentgemma_path": rgemma["launches"],
                              "serve_path": serve["launches"],
                              "gemma2_serve_path": gemma2_serve["launches"],
                              "mamba2_serve_path": mamba2_serve["launches"],
                              "whisper_serve_path": whisper_serve["launches"],
-                             "vision_serve_path": vision_serve["launches"]},
+                             "vision_serve_path": vision_serve["launches"],
+                             "recurrentgemma_serve_path":
+                                 rgemma_serve["launches"]},
         **{name: {k: row[k] for k in (
             "q", "kv", "softcap", "max_abs_err", "kernel_ms", "plain_ms",
             "bound_ms", "bound_by", "library", "library_ms",

@@ -11,6 +11,8 @@ greedy decode loop.
         --preset smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
         --preset smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma-9b --preset smoke --device cpu
 
 Counterpart of ``repro/launch/serve.py``.  Runs on ``cuda`` unless
 ``--device cpu`` is given; a CUDA request without a card raises.  There is
@@ -25,9 +27,11 @@ the cross layers' keys and values.  The cache holds ``prompt + gen + 8``
 tokens; a ``local`` layer whose window is shorter (gemma2-9b's 4096 past a
 4088-token prompt, its smoke config's 8) keeps a ring of ``window`` slots;
 an ``ssd`` layer (mamba2-780m) keeps its state and the cache a ``step``
-counter, whatever the length.  ``main`` parses the arguments and calls
-``serve``, which a caller can give a config of its own (a model cut in
-depth).
+counter, whatever the length; an ``lru`` layer (recurrentgemma-9b) keeps
+its RG-LRU state beside the rings of its ``local`` layers (the default
+32-token prompt passes its smoke window of 8, so they wrap).  ``main``
+parses the arguments and calls ``serve``, which a caller can give a config
+of its own (a model cut in depth).
 """
 from __future__ import annotations
 

@@ -1,14 +1,13 @@
 """Architecture registry: --arch <id> → configs + model API.
 
-Counterpart of ``repro/models/registry.py``.  Every entry exposes the same
-API (``init_params``/``forward``/``lm_logits``, and for serving
-``init_cache``/``prefill``/``decode_step``) whatever its family:
-whisper-base dispatches to the enc-dec composition (``models/encdec.py``),
-everything else to the generic stack.  The port trains the dense, MoE,
-local-attention, Mamba-2, audio (whisper-base) and vision-language
-(llama-3.2-vision-90b) archs, and serves each of them; recurrentgemma-9b
-raises ``NotImplementedError`` for everything, naming ROADMAP item
-2(c)-ii (its RG-LRU block, ``models/hybrid.py``, is not in the stack yet).
+Counterpart of ``repro/models/registry.py``, with the same ten archs.
+Every entry exposes the same API (``init_params``/``forward``/
+``lm_logits``, and for serving ``init_cache``/``prefill``/``decode_step``)
+whatever its family: whisper-base dispatches to the enc-dec composition
+(``models/encdec.py``), everything else to the generic stack.  The port
+trains and serves each of them: the dense, MoE, local-attention, Mamba-2,
+hybrid RG-LRU (recurrentgemma-9b), audio (whisper-base) and
+vision-language (llama-3.2-vision-90b) archs.
 """
 from __future__ import annotations
 
@@ -17,8 +16,8 @@ from typing import Optional
 
 from repro_torch.configs import (gemma2_9b, granite_3_8b, granite_moe_1b,
                                  llama32_vision_90b, llama4_maverick,
-                                 mamba2_780m, qwen2_72b, starcoder2_7b,
-                                 whisper_base)
+                                 mamba2_780m, qwen2_72b, recurrentgemma_9b,
+                                 starcoder2_7b, whisper_base)
 from repro_torch.configs.common import ModelConfig
 from repro_torch.models import encdec, transformer
 
@@ -53,22 +52,13 @@ ARCHS: dict[str, ArchEntry] = {
         ("gemma2-9b", gemma2_9b, transformer),
         ("starcoder2-7b", starcoder2_7b, transformer),
         ("mamba2-780m", mamba2_780m, transformer),
+        ("recurrentgemma-9b", recurrentgemma_9b, transformer),
         ("whisper-base", whisper_base, encdec),
         ("llama-3.2-vision-90b", llama32_vision_90b, transformer))
 }
 
-# Architectures of the JAX registry that the port does not cover yet, by
-# the layer kind they miss.
-NOT_PORTED: dict[str, str] = {
-    "recurrentgemma-9b": transformer.roadmap_item("lru"),
-}
-
 
 def get(name: str) -> ArchEntry:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet: "
-            f"{NOT_PORTED[name]}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]

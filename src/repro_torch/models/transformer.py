@@ -4,31 +4,33 @@ forward, and serving (``prefill`` + ``decode_step`` with a KV cache).
 Counterpart of ``repro/models/transformer.py``.  The repeating layer
 pattern's params are stacked on a leading ``n_rep`` axis (the JAX package's
 scan layout, ``params["stack"]["sub<i>"]``) and the forward walks it with a
-Python loop; remainder layers run unrolled.  The forward covers ``attn``,
-``local`` (sliding-window) and ``cross`` layers with dense or MoE channel
-mixers, and ``ssd`` (Mamba-2) layers; the ``lru`` kind raises
-``NotImplementedError``: its block, ``models/hybrid.py``, is not wired in
-yet.  A ``cross`` layer attends to
+Python loop; remainder layers run unrolled.  The forward covers every
+layer kind of the reference: ``attn``, ``local`` (sliding-window) and
+``cross`` layers with dense or MoE channel mixers, ``ssd`` (Mamba-2,
+``models/ssm.py``) and ``lru`` (Griffin's RG-LRU, ``models/hybrid.py``)
+layers; an unknown kind raises ``ValueError``, as the reference's
+``_sub_init`` does.  A ``cross`` layer attends to
 ``frontend["cross_kv"]`` (stub image embeddings, or the encoder's output in
 ``models/encdec.py``) without rope and without a causal mask; given no
 frontend it attends to its own input, non-causally, as the reference's
-does.  Serving covers every ported kind (``attn``, ``local``, ``cross``
-and ``ssd``) with any channel mixer.  The cache tree is the
-reference's leaf for leaf, ``{"stack": {"sub<i>": {...}}, "rem": {...}}``:
-an ``attn`` or ``local`` layer holds ``"k", "v": [n_rep, B, size, KV, hd]``
-and ``"len": [n_rep]`` int32, ``size`` being ``max_len``, or for a
-``local`` layer ``min(window, max_len)``; a ``local`` layer's cache also
-has ``pos`` (``[n_rep, size]`` int32, the position held in each slot, -1
-for none) in ``init_cache`` always and in ``prefill`` when its window is
-shorter than ``max_len``, and then it is a ring buffer written at slot
-``len % size``.  An ``ssd`` layer holds its Mamba-2 state, ``"h": [n_rep,
-B, H, P, N]`` f32 and ``"conv_x"/"conv_b"/"conv_c": [n_rep, B, K-1, C]``.
-A ``cross`` layer holds the keys and values of its frontend, ``"k", "v":
-[n_rep, B, T, KV, hd]``, with no rope and no ``len``: ``T`` is the
-frontend's length after ``prefill``, ``max(n_frontend_tokens, 1)`` in
-``init_cache``; decode only reads it.  A cache with no ``attn`` or
-``local`` layer carries the position in a top-level ``"step"`` (0-d
-int32).  A decode step updates the cache in place.
+does.  Serving covers every kind with any channel mixer.  The cache tree
+is the reference's leaf for leaf, ``{"stack": {"sub<i>": {...}}, "rem":
+{...}}``: an ``attn`` or ``local`` layer holds ``"k", "v": [n_rep, B,
+size, KV, hd]`` and ``"len": [n_rep]`` int32, ``size`` being ``max_len``,
+or for a ``local`` layer ``min(window, max_len)``; a ``local`` layer's
+cache also has ``pos`` (``[n_rep, size]`` int32, the position held in each
+slot, -1 for none) in ``init_cache`` always and in ``prefill`` when its
+window is shorter than ``max_len``, and then it is a ring buffer written at
+slot ``len % size``.  An ``ssd`` layer holds its Mamba-2 state, ``"h":
+[n_rep, B, H, P, N]`` f32 and ``"conv_x"/"conv_b"/"conv_c": [n_rep, B,
+K-1, C]``; an ``lru`` layer its RG-LRU state, ``"h": [n_rep, B, W]`` f32
+and ``"conv": [n_rep, B, K-1, W]``.  A ``cross`` layer holds the keys and
+values of its frontend, ``"k", "v": [n_rep, B, T, KV, hd]``, with no rope
+and no ``len``: ``T`` is the frontend's length after ``prefill``,
+``max(n_frontend_tokens, 1)`` in ``init_cache``; decode only reads it.  A
+cache with no ``attn`` or ``local`` layer carries the position in a
+top-level ``"step"`` (0-d int32).  A decode step updates the cache in
+place.
 """
 from __future__ import annotations
 
@@ -38,33 +40,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.common import LayerSpec, ModelConfig
-from repro_torch.models import layers as L, moe as moe_mod, ssm
+from repro_torch.models import hybrid, layers as L, moe as moe_mod, ssm
 
-_PORTED_KINDS = ("attn", "local", "cross", "ssd")
-_PORTED_MLPS = ("dense", "moe", "none")
-# the ROADMAP §1 'Modules to port' item that ports each layer kind still
-# missing; the registry names an unported arch's item through it too
-KIND_ITEMS = {"lru": "2(c)-ii (recurrentgemma-9b in the stack; the RG-LRU "
-                      "layer itself is models/hybrid.py)"}
-
-
-def roadmap_item(kind: str) -> str:
-    return ("ROADMAP §1 'Modules to port' item "
-            + KIND_ITEMS.get(kind, "2, 'The other layer kinds'"))
+_KINDS = ("attn", "local", "cross", "ssd", "lru")
+_MLPS = ("dense", "moe", "none")
+_STATE_KINDS = ("ssd", "lru")      # a recurrent state, not a KV cache
 
 
 def _check_spec(spec: LayerSpec):
-    if spec.kind not in _PORTED_KINDS or spec.mlp not in _PORTED_MLPS:
-        raise NotImplementedError(
-            f"layer {spec} is not ported to repro_torch yet "
-            f"({roadmap_item(spec.kind)})")
-
-
-def _check_serving(cfg: ModelConfig):
-    """Serving covers every ported kind; raise for any other (``lru``,
-    whose decode comes with its layer)."""
-    for spec in cfg.pattern + cfg.remainder:
-        _check_spec(spec)
+    if spec.kind not in _KINDS:
+        raise ValueError(spec.kind)
+    if spec.mlp not in _MLPS:
+        raise ValueError(spec.mlp)
 
 
 def _norm_init(cfg: ModelConfig, d: int, **kw) -> dict:
@@ -107,6 +94,12 @@ def _ssd_cfg(cfg: ModelConfig) -> ssm.SSDConfig:
         expand=cfg.ssm_expand, conv_width=cfg.conv_width, chunk=cfg.ssm_chunk)
 
 
+def _lru_cfg(cfg: ModelConfig) -> hybrid.LRUConfig:
+    return hybrid.LRUConfig(d_model=cfg.d_model, lru_width=cfg.lru_width,
+                            conv_width=cfg.conv_width,
+                            scan_chunk=cfg.lru_scan_chunk)
+
+
 def _moe_cfg(cfg: ModelConfig) -> moe_mod.MoEConfig:
     return moe_mod.MoEConfig(
         d_model=cfg.d_model, d_ff=cfg.d_ff, n_experts=cfg.n_experts,
@@ -133,6 +126,8 @@ def _sub_init(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
     p: dict = {"norm": _norm_init(cfg, cfg.d_model, **kw)}
     if spec.kind == "ssd":
         p["ssd"] = ssm.ssd_init(gen, _ssd_cfg(cfg), **kw)
+    elif spec.kind == "lru":
+        p["lru"] = hybrid.lru_init(gen, _lru_cfg(cfg), **kw)
     else:
         p["attn"] = L.attn_init(gen, attn_cfg_for(cfg, spec), **kw)
         if cfg.post_norm:
@@ -174,6 +169,9 @@ def _sub_apply(p, h, spec, cfg, *, policy, bfp, cross_kv, positions):
     if spec.kind == "ssd":
         y, _ = ssm.ssd_block(p["ssd"], u, _ssd_cfg(cfg), policy=policy,
                              bfp=bfp)
+    elif spec.kind == "lru":
+        y, _ = hybrid.lru_block(p["lru"], u, _lru_cfg(cfg), policy=policy,
+                                bfp=bfp)
     else:
         kv = cross_kv if spec.kind == "cross" else None
         y = L.attention_layer(p["attn"], u, attn_cfg_for(cfg, spec),
@@ -289,8 +287,8 @@ def lm_logits(params, cfg: ModelConfig, hidden: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# serving: prefill + decode with caches (``attn``, ``local``, ``cross``,
-# ``ssd``)
+# serving: prefill + decode with caches (``attn``, ``local``, ``cross``) and
+# recurrent states (``ssd``, ``lru``)
 # --------------------------------------------------------------------------
 
 def _ring_size(cfg: ModelConfig, spec: LayerSpec, max_len: int) -> int:
@@ -307,16 +305,20 @@ def _sub_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
     filled with -1 (whatever its size, as the reference's does); a
     ``cross`` layer's k and v hold ``cross_len`` frontend positions, by
     default ``max(n_frontend_tokens, 1)`` (the reference's dry-run
-    stand-in), and no ``len``; an ``ssd`` layer's is
-    ``ssm.ssd_state_init``'s on ``lead`` (``h`` f32, the conv states in
-    ``dtype``)."""
+    stand-in), and no ``len``; an ``ssd`` or ``lru`` layer's is
+    ``ssm.ssd_state_init``'s or ``hybrid.lru_state_init``'s on ``lead``
+    (``h`` f32, the conv states in ``dtype``)."""
     if spec.kind == "cross":
         t = max(cfg.n_frontend_tokens, 1) if cross_len is None else cross_len
         shape = (*lead, batch, t, cfg.n_kv, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
-    if spec.kind == "ssd":
-        base = ssm.ssd_state_init(_ssd_cfg(cfg), batch, dtype, device="meta")
+    if spec.kind in _STATE_KINDS:
+        base = (ssm.ssd_state_init(_ssd_cfg(cfg), batch, dtype,
+                                   device="meta")
+                if spec.kind == "ssd" else
+                hybrid.lru_state_init(_lru_cfg(cfg), batch, dtype,
+                                      device="meta"))
         return {k: torch.zeros((*lead, *t.shape), dtype=t.dtype,
                                device=device) for k, t in base.items()}
     size = _ring_size(cfg, spec, max_len)
@@ -336,7 +338,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     layer is ``attn`` or ``local``.  ``cross_len`` sizes the ``cross``
     layers' k and v (``prefill`` passes its frontend's length); by default
     ``max(n_frontend_tokens, 1)``."""
-    _check_serving(cfg)
+    for spec in cfg.pattern + cfg.remainder:
+        _check_spec(spec)
     kw = dict(device=device, cross_len=cross_len)
     cache = {"stack": {f"sub{i}": _sub_cache_init(
                  cfg, spec, batch, max_len, dtype, lead=(cfg.n_rep,), **kw)
@@ -362,13 +365,20 @@ def _layers(params, cache, cfg: ModelConfig):
         yield params["rem"][f"sub{i}"], cache["rem"][f"sub{i}"], spec
 
 
-def _ssd_serve(p, h, spec, cfg, cache, *, policy):
-    """An ``ssd`` sublayer over h [B, S, D] from the state in ``cache``
-    (zero at prefill), which it overwrites in place with the state after
-    the last token; the conv states land in the leaves' dtype.  Returns
-    h."""
-    y, st = ssm.ssd_block(p["ssd"], _norm(cfg, p["norm"], h), _ssd_cfg(cfg),
-                          policy=policy, state=cache)
+def _state_serve(p, h, spec, cfg, cache, *, policy):
+    """An ``ssd`` or ``lru`` sublayer over h [B, S, D] from the state in
+    ``cache`` (zero at prefill), which it overwrites in place with the
+    state after the last token: ``ssm.ssd_block`` or ``hybrid.lru_block``
+    (at S=1, ``_rg_lru``'s one-step recurrence).  The new conv states land
+    in the leaves' dtype, where the reference returns them in the compute
+    dtype (``decode_step``).  Returns h."""
+    u = _norm(cfg, p["norm"], h)
+    if spec.kind == "ssd":
+        y, st = ssm.ssd_block(p["ssd"], u, _ssd_cfg(cfg), policy=policy,
+                              state=cache)
+    else:
+        y, st = hybrid.lru_block(p["lru"], u, _lru_cfg(cfg), policy=policy,
+                                 state=cache)
     for k, t in st.items():
         cache[k].copy_(t)
     h, _ = _apply_mlp(p, h + y, spec, cfg, policy, L.NO_BFP)
@@ -376,18 +386,18 @@ def _ssd_serve(p, h, spec, cfg, cache, *, policy):
 
 
 def _sub_prefill(p, h, spec, cfg, cache, *, policy, positions, cross_kv):
-    """Sublayer forward that fills its cache.  An ``ssd`` layer runs its
-    block from the zero state and keeps the state after the prompt.  An
-    ``attn`` or ``local`` layer writes its k (after rope) and v and sets
-    ``len`` to S: slots ``[0, S)``, or for a ring (a cache with ``pos``)
-    the last ``min(size, S)`` tokens at slots ``t % size``, with their
-    positions in ``pos``.  A ``cross`` layer attends to ``cross_kv``
+    """Sublayer forward that fills its cache.  An ``ssd`` or ``lru`` layer
+    runs its block from the zero state and keeps the state after the
+    prompt.  An ``attn`` or ``local`` layer writes its k (after rope) and v
+    and sets ``len`` to S: slots ``[0, S)``, or for a ring (a cache with
+    ``pos``) the last ``min(size, S)`` tokens at slots ``t % size``, with
+    their positions in ``pos``.  A ``cross`` layer attends to ``cross_kv``
     [B, T, D] (no rope, no mask) and writes the k and v it projected from
     it, the reference's ``dense(wk|wv, cross_kv)``.  Blockwise when the
     queries or keys pass ``blockwise_threshold``, full below, never flash
     (as the reference's).  Returns h."""
-    if spec.kind == "ssd":
-        return _ssd_serve(p, h, spec, cfg, cache, policy=policy)
+    if spec.kind in _STATE_KINDS:
+        return _state_serve(p, h, spec, cfg, cache, policy=policy)
     acfg = attn_cfg_for(cfg, spec)
     b, s, _ = h.shape
     u = _norm(cfg, p["norm"], h)
@@ -444,10 +454,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     of ``window`` slots (with ``pos``); one whose window reaches ``max_len``
     caches all ``max_len`` slots, without ``pos``, as the reference's
     prefill does (its ``init_cache`` gives that layer a ``pos`` leaf).  An
-    ``ssd`` layer's conv states are in the compute dtype, not
+    ``ssd`` or ``lru`` layer's conv states are in the compute dtype, not
     ``cache_dtype`` (its ``h`` is f32), and ``step`` is S, as the
     reference's prefill returns them."""
-    _check_serving(cfg)
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
@@ -468,7 +477,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     for c in (*cache["stack"].values(), *cache["rem"].values()):
         if "pos" in c and c["k"].shape[-3] == max_len:
             del c["pos"]
-        for k in ("conv_x", "conv_b", "conv_c"):
+        for k in ("conv_x", "conv_b", "conv_c", "conv"):
             if k in c:
                 c[k] = c[k].to(policy.compute_dtype)
     if "step" in cache:
@@ -521,8 +530,9 @@ def _cross_decode(p_attn, u, cache: dict, acfg: L.AttnConfig, *, policy):
 def _sub_decode(p, h, spec, cfg, cache, *, policy):
     """One-token sublayer step; updates ``cache`` in place (a ``cross``
     cache is only read).  Returns h."""
-    if spec.kind == "ssd":
-        return _ssd_serve(p, h, spec, cfg, cache, policy=policy)
+    _check_spec(spec)
+    if spec.kind in _STATE_KINDS:
+        return _state_serve(p, h, spec, cfg, cache, policy=policy)
     u = _norm(cfg, p["norm"], h)
     acfg = attn_cfg_for(cfg, spec)
     if spec.kind == "cross":
@@ -550,14 +560,14 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
     steps while it has an ``attn`` layer (or a ``local`` one without a
     ring): the next write to slot M raises (``IndexError`` on the CPU, a
     device-side assert on the card), where the reference clamps it onto
-    slot M - 1.  A ring's slot is ``len % size``, and an ``ssd`` layer's
-    state has no length: neither fills, so a cache of only ``ssd`` (and
-    ring) layers has no limit; a ``cross`` cache is read, never written.
-    An ``ssd`` layer's new conv states are
-    written in the leaves' dtype, where the reference returns them in the
-    compute dtype (only a cache of another dtype than the compute's, as
-    neither launcher makes, sees the rounding)."""
-    _check_serving(cfg)
+    slot M - 1.  A ring's slot is ``len % size``, and an ``ssd`` or
+    ``lru`` layer's state has no length: neither fills, so a cache of only
+    such layers (and rings, as recurrentgemma-9b's) has no limit; a
+    ``cross`` cache is read, never written.
+    An ``ssd`` or ``lru`` layer's new conv states are written in the
+    leaves' dtype, where the reference returns them in the compute dtype
+    (only a cache of another dtype than the compute's, as neither launcher
+    makes, sees the rounding)."""
     b = tokens.shape[0]
     pos = cache["step"].clone() if "step" in cache else \
         _first_len(cfg, cache)
@@ -575,7 +585,9 @@ def _first_len(cfg: ModelConfig, cache: dict) -> torch.Tensor:
     """A copy of the first ``attn`` or ``local`` cache's ``len`` (0-d, on the
     device; in the stack, then in the remainder): the layers advance theirs
     in place as the step runs.  It counts tokens, never a ring's slot.  A
-    cache with no such layer carries ``step`` instead."""
+    cache with no such layer carries ``step`` instead; a hybrid stack
+    (recurrentgemma-9b: ``lru``, ``lru``, ``local``) reads its first
+    ``local`` layer."""
     for i, spec in enumerate(cfg.pattern if cfg.n_rep else ()):
         if spec.kind in ("attn", "local"):
             return cache["stack"][f"sub{i}"]["len"][0].clone()

@@ -123,15 +123,21 @@ def test_local_attention_archs_step_on_cpu(arch):
     assert tf.flash_attention.launches == before
 
 
-@pytest.mark.parametrize("mode", ["duplex", "full"])
-def test_mamba2_steps_on_cpu_launch_no_kernel(mode):
-    """mamba2 (attention-free) through the launcher on the CPU, in both
+@pytest.mark.parametrize(
+    "arch,mode", [("mamba2-780m", "duplex"), ("mamba2-780m", "full"),
+                  ("recurrentgemma-9b", "duplex"),
+                  ("recurrentgemma-9b", "full")],
+    ids=["duplex", "full", "recurrentgemma-9b-duplex",
+         "recurrentgemma-9b-full"])
+def test_mamba2_steps_on_cpu_launch_no_kernel(arch, mode):
+    """mamba2 (attention-free) and recurrentgemma (lru layers and windowed
+    local ones, no ``attn`` layer) through the launcher on the CPU, in both
     modes: finite losses, the backbone frozen in duplex and trained in
-    full mode, and no kernel launched (its step reaches none)."""
+    full mode, and no kernel launched (their steps reach none)."""
     counters = (tf.flash_attention, bm.bfp_matmul, bq.bfp_quantize,
                 bq.bfp_matmul_packed)
     before = [f.launches for f in counters]
-    out = train.main(["--arch", "mamba2-780m", "--preset", "smoke",
+    out = train.main(["--arch", arch, "--preset", "smoke",
                       "--mode", mode, "--steps", "2", "--seq", "20",
                       "--batch", "2", "--device", "cpu", "--log-every", "1"])
     report = out["report"]

@@ -1,4 +1,5 @@
-"""Serving in the port (``attn``, ``local``, ``cross`` and ``ssd`` layers):
+"""Serving in the port (``attn``, ``local``, ``cross``, ``ssd`` and ``lru``
+layers):
 ``layers.attention_decode``, ``transformer.{init_cache, prefill,
 decode_step, _ring_decode, _cross_decode}``, ``encdec.{init_cache,
 prefill, decode_step}``, ``train.serve_step`` and ``launch.serve`` against
@@ -11,19 +12,20 @@ cache ``len``, ``pos`` and ``step`` exact; bf16 compute with a bf16 cache at
 2e-2; the counterparts of ``tests/test_arch_smoke.py``'s prefill/decode
 checks at their 2e-3.  The archs are the five whose layers are all
 ``attn``, gemma2-9b (``local`` and ``attn``), mamba2-780m (``ssd`` only, so
-its cache carries ``step``), whisper-base (the encoder-decoder: 12 stub
+its cache carries ``step``), recurrentgemma-9b (``lru`` states and
+``local`` rings), whisper-base (the encoder-decoder: 12 stub
 frames, sinusoidal positions, ``cross`` layers over the encoder's output)
 and llama-3.2-vision-90b (a stub ``cross_kv`` of 8 patch embeddings):
 gemma2's smoke window of 8 is shorter than the 11-token prompt, so its ring
 has wrapped at prefill and keeps wrapping as it decodes; with the window at
 32, past ``MAX_LEN``, its ``local`` layers keep a plain cache; ``local+ssd``
 is gemma2's widths with an ``ssd`` layer after the ``local`` one (a ring
-and an SSD state, no ``step``).  The ``lru`` kind raises naming its
-ROADMAP item, 2(c)-ii (recurrentgemma-9b in the stack: the RG-LRU layer,
-``models/hybrid.py``, is ported but not wired in)."""
+and an SSD state, no ``step``); ``lru`` is granite's widths with
+``lru`` layers alone (RG-LRU states and a ``step``).  recurrentgemma-9b's
+smoke window of 8 is shorter than the 11-token prompt too, so its rings
+wrap, beside the state of four ``lru`` layers."""
 import dataclasses as dc
 import math
-import re
 
 import jax
 import jax.numpy as jnp
@@ -52,16 +54,19 @@ SMOKE_TOL = dict(rtol=2e-3, atol=2e-3)     # tests/test_arch_smoke.py
 CROSS_ARCHS = ["whisper-base", "llama-3.2-vision-90b"]
 ARCHS = ["granite-3-8b", "qwen2-72b", "starcoder2-7b",
          "granite-moe-1b-a400m", "llama4-maverick-400b-a17b", "gemma2-9b",
-         "mamba2-780m", *CROSS_ARCHS]
+         "mamba2-780m", "recurrentgemma-9b", *CROSS_ARCHS]
 B, S, MAX_LEN, STEPS = 2, 11, 20, 6
 # parity models beside the archs, each an arch's smoke config with fields
 # replaced (given the package's LayerSpec): gemma2-9b with its window past
-# MAX_LEN, so its local layers keep no ring; and gemma2's widths with an
-# ssd layer (mamba2's smoke state) after the local one
+# MAX_LEN, so its local layers keep no ring; gemma2's widths with an ssd
+# layer (mamba2's smoke state) after the local one; and granite's widths
+# with lru layers alone
 VARIANTS = {"gemma2-9b-window32": ("gemma2-9b", lambda spec: dict(window=32)),
             "local+ssd": ("gemma2-9b", lambda spec: dict(
                 pattern=(spec("local", "dense"), spec("ssd", "none")),
-                ssm_state=16, ssm_headdim=8, ssm_chunk=8))}
+                ssm_state=16, ssm_headdim=8, ssm_chunk=8)),
+            "lru": ("granite-3-8b", lambda spec: dict(
+                pattern=(spec("lru", "none"),), lru_width=32))}
 # 4-query and 5-key chunks: the 11-token prompt pads on both axes (and
 # whisper's 12 frames and vision's 8 patch embeddings the key axis)
 BLOCKWISE = dict(blockwise_threshold=4, q_chunk=4, kv_chunk=5)
@@ -381,20 +386,60 @@ def assert_leaves_rel_fro(got, want, tol):
             assert err <= tol, (path, err)
 
 
+# Models whose bf16 floor lies past the fixed 2e-2: recurrentgemma's smoke
+# stack is five layers deep and each sublayer moves the residual stream by
+# about its norm, so JAX's own bf16 prefill cache drifts past 2e-2 from its
+# f32 one by the last lru layers, and the port's about as far; two bf16
+# paths that round apart then differ by more than 2e-2 there.  These take
+# the card's derived gate (chip_smoke.py's ``serve_check``) instead.
+FLOOR_GATED = {"recurrentgemma-9b"}
+BF16_FLOOR_RATIO = 1.1
+
+
+def _floats(tree) -> np.ndarray:
+    """Every float leaf of a numpy tree, by path, as one f32 vector."""
+    flat = dict(tree_flatten(tree))
+    return np.concatenate([np.asarray(flat[p], np.float32).ravel()
+                           for p in sorted(flat)
+                           if not np.issubdtype(flat[p].dtype, np.integer)])
+
+
+def assert_within_bf16_floor(got, want_bf16, want_f32):
+    """The port's bf16 result's relative Frobenius error against JAX's f32
+    one at most ``BF16_FLOOR_RATIO`` times JAX's bf16 result's, over the
+    whole tree (all float leaves as one vector)."""
+    g = _floats(bridge.to_numpy(got))
+    b, f = (_floats(jax.tree_util.tree_map(np.asarray, t))
+            for t in (want_bf16, want_f32))
+    ours = np.linalg.norm(g - f) / np.linalg.norm(f)
+    floor = np.linalg.norm(b - f) / np.linalg.norm(f)
+    assert ours <= BF16_FLOOR_RATIO * floor, (ours, floor)
+
+
 def test_bf16_prefill_and_decode_match_jax(model):
     """bf16 compute with a bf16 cache, the same tokens fed to both sides:
     logits elementwise at 2e-2, each cache leaf by relative Frobenius error
     at 2e-2.  (Each framework rounds its own f32 sums to bf16, and the
     residual stream carries those one-ulp flips to the next layer: cached
     k/v values near 3 then differ by two bf16 ulps, 0.03, past an
-    elementwise 2e-2, on a few of 1,920 elements; layer 0's are equal.)"""
+    elementwise 2e-2, on a few of 1,920 elements; layer 0's are equal.)  A
+    model of ``FLOOR_GATED`` holds its logits and cache after prefill and
+    after the last step within ``BF16_FLOOR_RATIO`` of JAX's bf16 distance
+    from JAX's f32 instead of the cache leaves' 2e-2."""
     tcfg, jp, tp = model["tcfg"], model["jp"], model["tp"]
     tokens = model["tokens"]
+    floor = model["name"] in FLOOR_GATED
     jpre = _jax_prefill(model, tokens[:, :S], JBF, jnp.bfloat16)
     tpre = _port_prefill(model, tokens[:, :S], TBF, torch.bfloat16)
     np.testing.assert_allclose(_np(tpre["logits"]),
                                _np(jpre["logits"]), **BF16_TOL)
-    assert_leaves_rel_fro(tpre["cache"], jpre["cache"], 2e-2)
+    if floor:
+        f32 = _jax_prefill(model, tokens[:, :S], JP32, jnp.float32)
+        for key in ("logits", "cache"):
+            assert_within_bf16_floor(tpre[key], jpre[key], f32[key])
+        fdec, fc = _jax_decode(model, JP32), f32["cache"]
+    else:
+        assert_leaves_rel_fro(tpre["cache"], jpre["cache"], 2e-2)
     jdec = _jax_decode(model, JBF)
     jc, tc = jpre["cache"], tpre["cache"]
     for t in range(S, S + STEPS):
@@ -402,7 +447,13 @@ def test_bf16_prefill_and_decode_match_jax(model):
         tl, tc = model["tmod"].decode_step(tp, tcfg, torch.from_numpy(
             tokens[:, t:t + 1]), tc, policy=TBF)
         np.testing.assert_allclose(_np(tl), _np(jl), **BF16_TOL)
-    assert_leaves_rel_fro(tc, jc, 2e-2)
+        if floor:
+            fl, fc = fdec(jp, tokens[:, t:t + 1], fc)
+    if floor:
+        assert_within_bf16_floor(tl, jl, fl)
+        assert_within_bf16_floor(tc, jc, fc)
+    else:
+        assert_leaves_rel_fro(tc, jc, 2e-2)
     assert _dtypes(tc) == _dtypes(jc)
     assert "bfloat16" in _dtypes(tc).values()
 
@@ -502,13 +553,17 @@ def test_prefill_cache_dtypes_match_jax(name):
     assert_trees_close(got["cache"], want["cache"], BF16_TOL)
 
 
-def test_ssd_decode_keeps_the_leaf_dtype_where_jax_takes_the_compute_dtype():
+@pytest.mark.parametrize("name", ["mamba2-780m", "lru"])
+def test_ssd_decode_keeps_the_leaf_dtype_where_jax_takes_the_compute_dtype(
+        name):
     """Pinned divergence (ROADMAP §3): a zero bf16 ``init_cache`` decoded
-    one step under f32 compute.  JAX's step returns the conv states in f32;
-    the port writes them in place, so its leaves stay bf16 and hold JAX's
-    values rounded to bf16 (one bf16 ulp, past the f32 2e-5).  The logits
-    and ``h`` (f32 on both sides) agree at 2e-5, ``step`` exactly."""
-    m = _load_model("mamba2-780m")
+    one step under f32 compute.  JAX's step returns the conv states (an
+    ``ssd`` layer's ``conv_x``/``conv_b``/``conv_c``, an ``lru`` layer's
+    ``conv``) in f32; the port writes them in place, so its leaves stay
+    bf16 and hold JAX's values rounded to bf16 (one bf16 ulp, past the f32
+    2e-5).  The logits and ``h`` (f32 on both sides) agree at 2e-5,
+    ``step`` exactly."""
+    m = _load_model(name)
     jcfg, tcfg = m["jcfg"], m["tcfg"]
     nxt = m["tokens"][:, :1]
     jl, jc = _jax_decode(m, JP32)(
@@ -523,7 +578,7 @@ def test_ssd_decode_keeps_the_leaf_dtype_where_jax_takes_the_compute_dtype():
     got = dict(tree_flatten(tc))
     for path, w in tree_flatten(jc):
         w = np.asarray(w)
-        if "/conv_" in path:
+        if path.split("/")[-1].startswith("conv"):
             assert (jd[path], td[path]) == ("float32", "bfloat16"), path
             rounded = torch.tensor(w).to(torch.bfloat16).float()
             torch.testing.assert_close(got[path].float(), rounded,
@@ -662,16 +717,18 @@ def granite():
     return _prefilled("granite-3-8b", 8)
 
 
-# gemma2's 10-token prompt has wrapped its ring of 8 slots; mamba2's
-# position is its cache's step; whisper's decode adds the sinusoidal
-# embedding at a position read on the device
+# gemma2's and recurrentgemma's 10-token prompts have wrapped their rings
+# of 8 slots; mamba2's position is its cache's step; whisper's decode adds
+# the sinusoidal embedding at a position read on the device
 @pytest.fixture(scope="module", params=[("granite-3-8b", 8),
                                         ("gemma2-9b", 10),
                                         ("mamba2-780m", 8),
+                                        ("recurrentgemma-9b", 10),
                                         ("whisper-base", 8),
                                         ("llama-3.2-vision-90b", 8)],
                 ids=["granite-3-8b", "gemma2-9b", "mamba2-780m",
-                     "whisper-base", "llama-3.2-vision-90b"])
+                     "recurrentgemma-9b", "whisper-base",
+                     "llama-3.2-vision-90b"])
 def served(request):
     return _prefilled(*request.param)
 
@@ -946,18 +1003,16 @@ def test_quickstart_trains_then_decodes():
     assert all(0 <= t < vocab for t in out["generated"])
 
 
-# configs of no registered arch: the lru kind on granite's widths (not in
-# the stack until item 2(c)-ii, which "2(c)" matches), and gemma2's widths
-# with an ssd layer after the local one (``VARIANTS``)
-MIXES = {"lru": lambda: dc.replace(
-             treg.get("granite-3-8b").smoke,
-             pattern=(ttr.LayerSpec("lru", "none"),), ssm_state=16,
-             lru_width=32),
-         "local+ssd": lambda: dc.replace(
-             treg.get("gemma2-9b").smoke,
-             **VARIANTS["local+ssd"][1](ttr.LayerSpec))}
-ARCH_ITEMS = {"lru": "2(c)"}
+# configs of no registered arch (``VARIANTS``): gemma2's widths with an ssd
+# layer after the local one, and granite's widths with lru layers alone
+MIXES = ("local+ssd", "lru")
 ENTRY_POINTS = ("init_cache", "prefill", "decode_step", "launcher")
+
+
+def _mix(name: str):
+    """The port's config of a mix."""
+    arch, kw = VARIANTS[name]
+    return dc.replace(treg.get(arch).smoke, **kw(ttr.LayerSpec))
 
 
 def _cases(archs) -> list:
@@ -966,35 +1021,40 @@ def _cases(archs) -> list:
             if not (arch in MIXES and where == "launcher")]
 
 
-UNPORTED = _cases(ARCH_ITEMS)
 # the configs whose serving item 3(c) ported: they raised before it
 SSD_SERVED = _cases(("mamba2-780m", "local+ssd"))
+# the configs whose serving item 2(c)-ii ported: they raised before it
+LRU_SERVED = _cases(("recurrentgemma-9b", "lru"))
 # the archs whose serving item 3(d) ported: they raised before it
 CROSS_SERVED = _cases(CROSS_ARCHS)
 
 
-@pytest.mark.parametrize("arch,where", SSD_SERVED,
-                         ids=[f"{a}-{w}" for a, w in SSD_SERVED])
-def test_ssd_serving_entry_point_runs(arch, where):
-    """Each entry point serves an ``ssd`` layer: ``init_cache`` gives each
-    layer its zero state (and ``step`` only without a ``local`` layer),
-    ``prefill`` and ``decode_step`` (from that zero cache) give finite
-    logits and advance the position, and the launcher serves mamba2-780m
-    at its defaults (32-token prompts, 16 tokens)."""
+def _state_entry_point_runs(arch: str, where: str, kind: str):
+    """One entry point serving ``kind`` (``ssd`` or ``lru``) layers:
+    ``init_cache`` gives each its zero state (and ``step`` only without an
+    ``attn`` or ``local`` layer), ``prefill`` and ``decode_step`` (from
+    that zero cache) give finite logits, advance the position and move
+    every state's ``h``; the launcher serves the arch at its defaults
+    (32-token prompts, 16 tokens)."""
     if where == "launcher":
         out = serve.main(["--arch", arch, "--device", "cpu"])
         assert out["tokens"].shape == (4, 16)
         assert set(_lens(out["cache"])) == {32 + 16 - 1}
         return
-    module, cfg = (ttr, MIXES[arch]()) if arch in MIXES else \
+    module, cfg = (ttr, _mix(arch)) if arch in MIXES else \
         (treg.get(arch).module, treg.get(arch).smoke)
-    ssd = [f"sub{i}" for i, sp in enumerate(cfg.pattern) if sp.kind == "ssd"]
+    specs = [("stack", i, sp) for i, sp in enumerate(cfg.pattern)] + \
+        [("rem", i, sp) for i, sp in enumerate(cfg.remainder)]
     cache = module.init_cache(cfg, 1, 8, torch.float32, device="cpu")
-    assert ("step" in cache) == (arch not in MIXES)
-    for key in ssd:
-        assert sorted(cache["stack"][key]) == ["conv_b", "conv_c", "conv_x",
-                                               "h"]
-        assert not any(t.any() for t in cache["stack"][key].values())
+    states = [cache[g][f"sub{i}"] for g, i, sp in specs if sp.kind == kind]
+    assert states
+    attends = any(sp.kind in ("attn", "local") for _, _, sp in specs)
+    assert ("step" in cache) == (not attends)
+    want = {"ssd": ["conv_b", "conv_c", "conv_x", "h"],
+            "lru": ["conv", "h"]}[kind]
+    for c in states:
+        assert sorted(c) == want
+        assert not any(t.any() for t in c.values())
     if where == "init_cache":
         return
     params = module.init_params(torch.Generator().manual_seed(0), cfg)
@@ -1009,7 +1069,26 @@ def test_ssd_serving_entry_point_runs(arch, where):
         held = 1
     assert torch.isfinite(logits[..., :cfg.vocab]).all()
     assert set(_lens(cache)) == {held}
-    assert all(cache["stack"][key]["h"].any() for key in ssd)
+    assert all(cache[g][f"sub{i}"]["h"].any() for g, i, sp in specs
+               if sp.kind == kind)
+
+
+@pytest.mark.parametrize("arch,where", SSD_SERVED,
+                         ids=[f"{a}-{w}" for a, w in SSD_SERVED])
+def test_ssd_serving_entry_point_runs(arch, where):
+    """Each entry point serves an ``ssd`` layer (mamba2-780m, and the
+    ``local+ssd`` mix, whose ring gives the position)."""
+    _state_entry_point_runs(arch, where, "ssd")
+
+
+@pytest.mark.parametrize("arch,where", LRU_SERVED,
+                         ids=[f"{a}-{w}" for a, w in LRU_SERVED])
+def test_lru_serving_entry_point_runs(arch, where):
+    """Each entry point serves an ``lru`` layer: recurrentgemma-9b (four
+    ``lru`` states in the stack and the remainder beside a ``local`` ring,
+    no ``step``) and the ``lru`` mix (``lru`` layers alone, so a
+    ``step``)."""
+    _state_entry_point_runs(arch, where, "lru")
 
 
 @pytest.mark.parametrize("arch,where", CROSS_SERVED,
@@ -1055,23 +1134,3 @@ def test_cross_serving_entry_point_runs(arch, where):
         held = 1
     assert torch.isfinite(logits[..., :cfg.vocab]).all()
     assert set(_lens(cache)) == {held}
-
-
-@pytest.mark.parametrize("arch,where", UNPORTED,
-                         ids=[f"{a}-{w}" for a, w in UNPORTED])
-def test_unported_serving_raises_naming_the_roadmap(arch, where):
-    """Nothing falls back: each entry point raises before any compute."""
-    match = rf"ROADMAP .* item {re.escape(ARCH_ITEMS[arch])}"
-    tok = torch.zeros((1, 4), dtype=torch.int32)
-    if where == "launcher":
-        call = lambda: serve.main(["--arch", arch, "--device", "cpu"])  # noqa
-    else:
-        module, cfg = (ttr, MIXES[arch]()) if arch in MIXES else \
-            (treg.get(arch).module, treg.get(arch).smoke)
-        call = {"init_cache": lambda: module.init_cache(
-                    cfg, 1, 8, torch.float32, device="cpu"),
-                "prefill": lambda: module.prefill({}, cfg, tok, max_len=8),
-                "decode_step": lambda: module.decode_step(
-                    {}, cfg, tok[:, :1], {})}[where]
-    with pytest.raises(NotImplementedError, match=match):
-        call()

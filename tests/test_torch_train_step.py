@@ -33,11 +33,13 @@ JP32 = JL.Policy(compute_dtype=jnp.float32)
 TP32 = TL.Policy(compute_dtype=torch.float32)
 ARCHS = ["granite-3-8b", "qwen2-72b", "granite-moe-1b-a400m",
          "llama4-maverick-400b-a17b", "gemma2-9b", "starcoder2-7b",
-         "mamba2-780m"]
+         "mamba2-780m", "recurrentgemma-9b"]
 # the archs of the slices after MoE: gemma2 (local + global layers,
-# softcaps, post-norms), starcoder2 (layernorm, ungated gelu MLP) and the
-# attention-free mamba2 (ssd layers)
-LATER_ARCHS = ["gemma2-9b", "starcoder2-7b", "mamba2-780m"]
+# softcaps, post-norms), starcoder2 (layernorm, ungated gelu MLP), the
+# attention-free mamba2 (ssd layers) and the hybrid recurrentgemma (lru
+# layers and windowed local ones)
+LATER_ARCHS = ["gemma2-9b", "starcoder2-7b", "mamba2-780m",
+               "recurrentgemma-9b"]
 
 
 def _configs(opt="sgd", bfp=None, microbatch=1, arch="granite-3-8b",
@@ -166,13 +168,14 @@ def test_trains_and_freezes_backbone():
 
 @pytest.mark.parametrize("arch,seed", [("granite-moe-1b-a400m", 7),
                                        ("gemma2-9b", 8), ("starcoder2-7b", 8),
-                                       ("mamba2-780m", 8)])
+                                       ("mamba2-780m", 8),
+                                       ("recurrentgemma-9b", 8)])
 def test_duplex_sgd_steps_match_jax(arch, seed):
     """3 duplex SGD steps: each step's loss, then the branch and optimizer
-    leaves; the frozen backbone (MoE, ssd layers and all) stays as it came
-    over.  The port's global layers run the flash path (the plain version
-    on the CPU), its local layers the windowed attention; JAX runs both
-    without flash."""
+    leaves; the frozen backbone (MoE, ssd and lru layers and all) stays as
+    it came over.  The port's global layers run the flash path (the plain
+    version on the CPU), its local layers the windowed attention; JAX runs
+    both without flash."""
     jside, tside = _configs("sgd", arch=arch)
     st_np = _jax_state(jside, seed=seed)
     batch = _batch(jside[1].vocab, seed=seed)

@@ -1,19 +1,20 @@
 """repro_torch.models.transformer against repro.models.transformer at 2e-5
 (the MoE aux loss at rtol 1e-5 / atol 1e-6) on the granite, qwen2,
-granite-moe, llama4, gemma2, starcoder2 and mamba2 smoke configs (the
-frontend archs, whisper-base and llama-3.2-vision-90b, are held in
-test_torch_encdec.py; their init structure and configs here).  gemma2
-alternates sliding-window ``local`` layers with global ``attn`` layers
-(softcaps, post-norms, gelu, embedding scale); starcoder2 has layernorm,
-qkv bias and an ungated gelu MLP; mamba2 is attention-free (``ssd`` layers
-with no channel mixer).
+granite-moe, llama4, gemma2, starcoder2, mamba2 and recurrentgemma smoke
+configs (the frontend archs, whisper-base and llama-3.2-vision-90b, are
+held in test_torch_encdec.py; their init structure and configs here).
+gemma2 alternates sliding-window ``local`` layers with global ``attn``
+layers (softcaps, post-norms, gelu, embedding scale); starcoder2 has
+layernorm, qkv bias and an ungated gelu MLP; mamba2 is attention-free
+(``ssd`` layers with no channel mixer); recurrentgemma repeats (``lru``,
+``lru``, ``local``) with an (``lru``, ``lru``) remainder, MQA and a window
+of 8, shorter than the 16-token inputs.
 
 The port runs with ``use_flash`` on and off; both are held against JAX with
 ``use_flash=False``: JAX's transformer cannot run its flash path on a CPU
 (``attn_cfg_for`` does not pass ``flash_interpret``).  The flash layer itself
 is held against JAX's flash path in interpret mode in test_torch_layers.py."""
 import dataclasses as dc
-import re
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +34,7 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 AUX_TOL = dict(rtol=1e-5, atol=1e-6)   # the stack-summed MoE aux loss
 ARCHS = ["granite-3-8b", "qwen2-72b", "granite-moe-1b-a400m",
          "llama4-maverick-400b-a17b", "gemma2-9b", "starcoder2-7b",
-         "mamba2-780m"]
+         "mamba2-780m", "recurrentgemma-9b"]
 # with the frontend archs, whose forward takes a stub frontend
 # (test_torch_encdec.py holds it); whisper's params are enc-dec
 ALL_ARCHS = ARCHS + ["whisper-base", "llama-3.2-vision-90b"]
@@ -156,20 +157,53 @@ def test_full_configs_are_copies():
             assert j == t, name
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-9b"])
-def test_unported_archs_raise_naming_the_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treg.get(name)
+@pytest.mark.parametrize("name", sorted(jreg.ARCHS) + ["no-such-arch"])
+def test_registry_holds_every_reference_arch(name):
+    """Every arch of ``repro.models.registry`` is in the port's registry,
+    under the same name; an unknown name raises ``KeyError``, as the
+    reference's ``get`` does."""
+    if name not in jreg.ARCHS:
+        with pytest.raises(KeyError):
+            jreg.get(name)
+        with pytest.raises(KeyError, match=name):
+            treg.get(name)
+        return
+    assert treg.get(name).name == name
+    assert treg.get(name).module.__name__.rsplit(".", 1)[1] == \
+        jreg.get(name).module.__name__.rsplit(".", 1)[1]
 
 
-@pytest.mark.parametrize("kind,item", [("lru", "2(c)")])
-def test_unported_layer_kind_raises(kind, item):
+@pytest.mark.parametrize("kind", ["lru", "no-such-kind"])
+def test_layer_kind_on_granite_widths(kind):
+    """The ``lru`` kind is in the stack: a pattern of lru layers with no
+    channel mixer on granite's smoke widths initialises leaf for leaf as
+    JAX's and runs forward as JAX's does.  A kind the reference does not
+    know raises ``ValueError``, as the reference's ``_sub_init`` does."""
+    jcfg = dc.replace(jreg.get("granite-3-8b").smoke,
+                      pattern=(jtr.LayerSpec(kind, "none"),), lru_width=32)
     cfg = dc.replace(treg.get("granite-3-8b").smoke,
-                     pattern=(ttr.LayerSpec(kind, "none"),), ssm_state=16,
-                     lru_width=32)
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP .* item {re.escape(item)}"):
-        ttr.init_params(torch.Generator().manual_seed(0), cfg)
+                     pattern=(ttr.LayerSpec(kind, "none"),), lru_width=32)
+    if kind != "lru":
+        with pytest.raises(ValueError, match=kind):
+            jtr.init_params(jax.random.PRNGKey(2), jcfg)
+        with pytest.raises(ValueError, match=kind):
+            ttr.init_params(torch.Generator().manual_seed(0), cfg)
+        with pytest.raises(ValueError, match=kind):
+            ttr.init_cache(cfg, 1, 8, device="cpu")
+        return
+    params = jax.tree_util.tree_map(
+        np.asarray, jtr.init_params(jax.random.PRNGKey(2), jcfg))
+    own = ttr.init_params(torch.Generator().manual_seed(0), cfg)
+    assert [(p, tuple(x.shape)) for p, x in tree_flatten(own)] == \
+        [(p, x.shape) for p, x in tree_flatten(params)]
+    assert sorted(own["stack"]["sub0"]) == ["lru", "norm"]
+    tokens = np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 12)).astype(np.int32)
+    want = jtr.forward(jax.tree_util.tree_map(jnp.asarray, params), jcfg,
+                       jnp.asarray(tokens), policy=JP32)["hidden"]
+    got = ttr.forward(bridge.to_torch(params, "cpu"), cfg,
+                      torch.from_numpy(tokens).long(), policy=TP32)["hidden"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_ssd_pattern_on_granite_widths_runs():
