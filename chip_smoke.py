@@ -204,10 +204,21 @@ Phases, each printing its numbers on lines of their own:
   14. ``arms``: ``repro_torch.bench.table2_accuracy`` on the card with the
      reference's step counts: each arm's validation loss and accuracy, the
      ordering row, the wall time;
-  15. one JSON line with every kernel's numbers, the card line again, and
+  15. ``ablations``: ``repro_torch.bench.fig21_ablations`` (Fig. 21: pool 8
+     against 4, a norm-free branch against a normed one) and
+     ``repro_torch.bench.bfp_fidelity`` (§III-E: rmse and bits of three
+     formats, transpose invariance, the 128x128 ``bfp_matmul`` kernel row,
+     BFP against f32 training) on the card at the reference's step counts;
+     ``fig21_row`` and ``bfp_fidelity_row`` lines and one JSON line for
+     each run with its wall time and launches; fig21 launches nothing,
+     bfp_fidelity exactly 4 products; the kernel row's product held against
+     the plain version, the rmse values against the same draw on the CPU
+     (rtol 1e-6), the bits exactly, the transpose difference exactly 0;
+  16. one JSON line with every kernel's numbers, the card line again, and
      the last line {"ok": true, "device": {...}}.
-Each of the paths 4-14 (in 12, the six ``*serve_path`` runs) zeroes every
-kernel's launch count just before it and reads the counts just after.
+Each of the paths 4-15 (in 12, the six ``*serve_path`` runs; in 15, each
+benchmark) zeroes every kernel's launch count just before it and reads the
+counts just after.
 Any failure raises and the exit code is not 0.  Without a CUDA device it
 exits with code 2 before printing any result.
 """
@@ -510,7 +521,7 @@ BFP_REPLACES = {
 BFP_MATMUL_CASES = [
     *[(f"{m}x{k}x{n}_{dt}", m, k, n, 32, 64, dt, 0, False)
       for m, k, n in [(32, 32, 32), (64, 96, 32), (100, 70, 36),
-                      (256, 128, 512)]
+                      (128, 128, 128), (256, 128, 512)]
       for dt in (torch.float32, torch.bfloat16)],
     *[(f"group{g}", 64, 64, 64, g, 64, torch.float32, 0, False)
       for g in (8, 16, 32)],
@@ -2698,13 +2709,108 @@ def run_arms() -> dict:
         "val": {arm: {"loss": l, "accuracy": a, "train_s": t}
                 for arm, (l, a, t) in results.items()},
         "wall_s": wall, "launches": counts}), flush=True)
-    for arm, (l, a, _) in results.items():
-        if not (math.isfinite(l) and 0.0 <= a <= 1.0):
-            raise AssertionError(f"arms: {arm} gave loss {l}, accuracy {a}")
+    check_arms("arms", results)
     if any(counts.values()):
         raise AssertionError(f"arms launched kernels {counts}; flash is off "
                              f"and the branch quantizes by fake-quant")
     return {"wall_s": wall}
+
+
+def check_arms(label: str, results: dict) -> None:
+    """Every arm's validation loss finite and accuracy in [0, 1]."""
+    for name, (l, a, _) in results.items():
+        if not (math.isfinite(l) and 0.0 <= a <= 1.0):
+            raise AssertionError(f"{label}: {name} gave loss {l}, accuracy "
+                                 f"{a}")
+
+
+def run_ablations() -> dict:
+    """Fig. 21's ablations and the 2D-BFP fidelity benchmark on the card, at
+    the reference's step counts, each with its own launch counts; returns
+    the fidelity kernel row's numbers at 128x128."""
+    from repro_torch.bench import bfp_fidelity, fig21_ablations
+    from repro_torch.core import bfp as cbfp
+    from repro_torch.kernels import bfp_matmul as bm
+    from repro_torch.kernels.bfp_common import qdq_block
+
+    zero_counts()
+    t0 = time.perf_counter()
+    rows, results = fig21_ablations.run("cuda")
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    for row in rows:
+        print(f"fig21_row {row}", flush=True)
+    # the same configuration trained twice: how far apart the card lands
+    twice = abs(results["fig21b/norm_free"][0] - results["fig21a/pool4"][0])
+    print("fig21: " + json.dumps({
+        "val": {name: {"loss": l, "accuracy": a, "train_s": t}
+                for name, (l, a, t) in results.items()},
+        "norm_free_minus_pool4_abs": twice, "wall_s": wall,
+        "launches": counts}), flush=True)
+    check_arms("fig21", results)
+    if any(counts.values()):
+        raise AssertionError(f"fig21 launched kernels {counts}; flash is off "
+                             f"and the branch quantizes by fake-quant")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    rows, values = bfp_fidelity.run("cuda")
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    for row in rows:
+        print(f"bfp_fidelity_row {row}", flush=True)
+    mm = values["matmul"]
+    print("bfp_fidelity: " + json.dumps({
+        "rmse": values["rmse"], "bits": values["bits"],
+        "transpose_max_diff": values["transpose_max_diff"],
+        "matmul": {k: mm[k] for k in ("route", "us", "max_abs_err")},
+        "training_parity": {name: {"loss": l, "accuracy": a, "train_s": t}
+                            for name, (l, a, t) in
+                            values["training_parity"].items()},
+        "wall_s": wall, "launches": counts}), flush=True)
+    check_arms("bfp_fidelity", values["training_parity"])
+    products = 1 + bfp_fidelity.MATMUL_ITERS     # one warm call
+    want = dict.fromkeys(counts, 0) | {
+        "bfp_matmul": products, "quantize_operand": 2 * products,
+        "gemm_tn": products}
+    if counts != want or mm["route"] != "cuda":
+        raise AssertionError(f"bfp_fidelity launched {counts} on route "
+                             f"{mm['route']}; expected {want}")
+    a = mm["a"]
+    err, rel = bfp_gate("bfp_fidelity 128", mm["out"],
+                        bm.bfp_matmul_plain(a, a, group=32))
+    x_cpu = values["x"].cpu()
+    for (group, mbits), name in zip(bfp_fidelity.RMSE_CASES,
+                                    values["rmse"]):
+        want_rmse = float(cbfp.quantization_rmse(x_cpu, group=group,
+                                                 mbits=mbits))
+        bits = cbfp.bfp_quantize(x_cpu, group=group,
+                                 mbits=mbits).bits_per_value
+        if not math.isclose(values["rmse"][name], want_rmse, rel_tol=1e-6,
+                            abs_tol=0.0) or values["bits"][name] != bits:
+            raise AssertionError(f"bfp_fidelity {name}: card rmse "
+                                 f"{values['rmse'][name]!r} bits "
+                                 f"{values['bits'][name]} against CPU "
+                                 f"{want_rmse!r} bits {bits}")
+    if values["transpose_max_diff"] != 0.0:
+        raise AssertionError(f"bfp_fidelity: Q(x.T) - Q(x).T max "
+                             f"{values['transpose_max_diff']}, not 0")
+
+    # the kernel row's product at 128x128 beside its plain version, the
+    # library's product of the quantized operands, and its bound
+    n = a.shape[0]
+    qa = qdq_block(a, 32, 5, 4).bfloat16()
+    row = {"mkn": [n, n, n], "ms": mm["us"] * 1e-3,
+           "plain_ms": time_ms(lambda: bm.bfp_matmul_plain(a, a, group=32),
+                               20),
+           "library_ms": time_ms(lambda: torch.matmul(qa, qa), 20),
+           "max_abs_err": err, "rel_fro_err": rel,
+           "launches": counts["bfp_matmul"],
+           **dict(zip(("bound_ms", "bound_by"), matmul_bound_ms(n, n, n, 4)))}
+    print("bfp_fidelity_time bfp_matmul: " + json.dumps(row), flush=True)
+    del values, mm, a, qa
+    torch.cuda.empty_cache()
+    return row
 
 
 def ptxas_lines(log: str) -> list[str]:
@@ -2808,6 +2914,7 @@ def main() -> int:
                               "recurrentgemma_serve_path")
     run_resume_path()
     run_arms()
+    fidelity = run_ablations()
 
     kernels = [{
         "name": "flash_attention", "route": "cuda",
@@ -2848,6 +2955,10 @@ def main() -> int:
                               flash_rows["whisper_mha_d64"]),
                              ("vision_shape", flash_rows["vision_h64"]))},
     }]
+    bfp["bfp_matmul"]["launches_by_path"] = {
+        "bfp_path": bfp["bfp_matmul"]["launches"],
+        "bfp_fidelity": fidelity["launches"]}
+    bfp["bfp_matmul"]["fidelity_shape"] = fidelity
     for name, replaces in BFP_REPLACES.items():
         kernels.append({
             "name": name, "route": "cuda",
@@ -2856,7 +2967,8 @@ def main() -> int:
             **{k: bfp[name][k] for k in ("launches", "max_abs_err", "ms",
                                          "plain_ms", "bound_ms", "bound_by",
                                          "library_ms", "prepass_ms",
-                                         "gemm_ms")
+                                         "gemm_ms", "launches_by_path",
+                                         "fidelity_shape")
                if k in bfp[name]}})
     print(f"total_s {time.perf_counter() - t_start!r}")
     print(json.dumps({"kernels": kernels}))

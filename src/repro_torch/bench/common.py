@@ -14,6 +14,7 @@ caller names ``cpu``.
 """
 from __future__ import annotations
 
+import argparse
 import time
 
 import torch
@@ -51,6 +52,24 @@ def _sync(device) -> None:
     """Wait for the device, so that a host clock times the work."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def cli(run, argv=None) -> list[str]:
+    """A bench's command line: ``--device`` (cuda unless cpu is named; no
+    bench falls back to the CPU, so cuda without a card raises), then
+    ``run(device)``'s rows, printed and returned."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; cuda without a card raises")
+    args = ap.parse_args(argv)
+    if torch.device(args.device).type == "cuda" and \
+            not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but torch.cuda."
+                           "is_available() is False; pass --device cpu to "
+                           "run on the CPU")
+    rows, _ = run(args.device)
+    print("\n".join(rows))
+    return rows
 
 
 def pretrain_backbone(steps: int = 150, key: int = 0, *, init=None,

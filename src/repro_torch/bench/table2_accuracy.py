@@ -11,10 +11,7 @@ card raises.
 """
 from __future__ import annotations
 
-import argparse
 import time
-
-import torch
 
 from repro_torch.bench import common
 
@@ -48,18 +45,7 @@ def run(device="cuda", pretrain_steps: int = 150,
 
 
 def main(argv=None) -> list[str]:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu; cuda without a card raises")
-    args = ap.parse_args(argv)
-    if torch.device(args.device).type == "cuda" and \
-            not torch.cuda.is_available():
-        raise RuntimeError("CUDA device requested but torch.cuda."
-                           "is_available() is False; pass --device cpu to "
-                           "run on the CPU")
-    rows, _ = run(args.device)
-    print("\n".join(rows))
-    return rows
+    return common.cli(run, argv)
 
 
 if __name__ == "__main__":

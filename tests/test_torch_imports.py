@@ -29,6 +29,7 @@ def test_every_module_imports_with_jax_and_repro_masked():
         assert f"repro_torch.kernels.{m}" in mods
     for m in ("optim.schedule", "ckpt.checkpoint", "ckpt.msgpack_lite",
               "bench.common", "bench.table2_accuracy",
+              "bench.fig21_ablations", "bench.bfp_fidelity",
               "examples.train_duplex_lm", "models.moe",
               "configs.granite_moe_1b", "configs.llama4_maverick",
               "models.ssm", "configs.mamba2_780m", "models.encdec",
