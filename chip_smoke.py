@@ -29,8 +29,20 @@ Phases, each printing its numbers on lines of their own:
      must move and the backbone's checksum must not; the flash path's loss
      is then held against the plain attention path's on the same state;
      the step launches no BFP kernel (its branch quantizes by fake-quant,
-     as the reference's does); each path frees its state before the next,
-     so that each peak stands alone;
+     as the reference's does); before that state is freed, ``compress``:
+     the branch gradients of one more duplex forward + backward (40 flash
+     launches, no BFP) through ``optim/compress.py`` over a one-rank NCCL
+     group: ``compressed_psum`` equal to the local round trip for every
+     leaf, the int8 mantissas and scales on the card equal to the CPU's,
+     every value within half a step of its block's scale, the reference's
+     round-trip test (a normal draw) within 0.01, and 4 rounds of error
+     feedback summing to 4·g; the gradients' round-trip error, the bytes of
+     the int32 and f32 all-reduces and the times of ``compressed_psum``,
+     ``error_feedback_update``, the int32 all-reduce alone and a plain f32
+     ``all_reduce`` of the tree, and one ``compressed_psum`` of the tree
+     profiled (``compress_profile`` lines);
+     each path frees its state before the next, so that each peak stands
+     alone;
   6. ``f1_check`` (run before the BFP path): the kernel wrappers refuse
      autograd on the card as on the CPU -- flash on bf16 CUDA tensors that
      require grad and ``ops.matmul`` raise under grad mode, and both launch
@@ -992,12 +1004,181 @@ def run_main_path(arch: str = "granite-3-8b", label: str = "main"):
     profile_step(entry, cfg, tcfg, policy, report.state, batches[0],
                  label="profile" if label == "main" else f"{label}_profile")
     times = [m["step_time_s"] for m in report.metrics_history]
-    run = {"entry": entry, "cfg": cfg, "policy": policy,
+    run = {"entry": entry, "cfg": cfg, "tcfg": tcfg, "policy": policy,
            "state": report.state, "batches": batches, "step_times": times,
            "steps": [m["step"] for m in report.metrics_history],
            "n_layers": cfg.n_layers}
     return {"label": label, "launches": launches, "peak_bytes": peak,
             "step_times": times}, run
+
+
+def run_compress(run: dict) -> dict:
+    """The int8 error-feedback all-reduce, ``optim/compress.py``, on the
+    branch gradients of one duplex step of ``run`` (granite-3-8b's main
+    path, its final state and first batch), over a one-rank NCCL group.
+
+    With one rank the int32 sum is the rank's own mantissas, the mean scale
+    its own scales and the count 1, so ``compressed_psum`` must equal the
+    local round trip exactly, on the card and on the CPU; the quantizer's
+    mantissas and scales on the card must equal the same leaf's on the CPU
+    bit for bit; every value must land within half a step of its block's
+    scale; the reference's own round-trip test (a normal draw of 1000
+    values times 3) must hold within 0.01 on the card; and over 4 rounds
+    of error feedback, what was sent plus the last residual must equal 4
+    times the gradients.  The gradients' own round-trip error is printed,
+    not gated at the reference's 0.01: their blocks' crest factors (max
+    over RMS) reach past 5 where a normal draw's stay near 3.3, and the
+    error grows with them (0.012 for granite-3-8b's branch on an H100).
+    The gradient launches flash once per ``attn`` layer and no BFP kernel.
+    Prints the bytes each all-reduce moves and the times of the tree's
+    all-reduce, compressed, int32 alone and plain f32, and profiles one
+    ``compressed_psum`` of the tree (``compress_profile`` lines)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from repro_torch.optim import compress as cp
+    from repro_torch.train import train_step as ts
+    from repro_torch.utils import ceil_to, tree_flatten, tree_map, \
+        tree_unflatten
+
+    t0 = time.perf_counter()
+    rounds, block = 4, 2048           # the reference's block
+    cfg, state = run["cfg"], run["state"]
+    grad_fn = ts.make_grad_fn(run["entry"], cfg, run["tcfg"], run["policy"])
+    zero_counts()
+    _, grads = grad_fn(state["branch"], state["backbone"], run["batches"][0])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = dict.fromkeys(counts, 0) | {"flash_attention": flash_layers(cfg)}
+    if counts != want:
+        raise AssertionError(f"compress: the gradient launched {counts}, "
+                             f"expected {want}")
+    paths, gs = zip(*tree_flatten(grads))
+    n_values = sum(g.numel() for g in gs)
+    n_blocks = sum(ceil_to(g.numel(), block) // block for g in gs)
+
+    def finite_f32(label, t):
+        if t.dtype != torch.float32 or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"compress {label}: dtype {t.dtype}, "
+                                 f"finite {bool(torch.isfinite(t).all())}")
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0),
+                            timeout=timedelta(seconds=60))
+    try:
+        sent, leaf_err, crests = [], {}, {}
+        for path, g in zip(paths, gs):
+            finite_f32(f"grad {path}", g)
+            got = cp.compressed_psum(g, block=block)
+            finite_f32(f"compressed_psum {path}", got)
+            q, scale, n = cp._quantize_int8(g, block)
+            q_cpu, scale_cpu, _ = cp._quantize_int8(g.cpu(), block)
+            if not (torch.equal(q.cpu(), q_cpu)
+                    and torch.equal(scale.cpu(), scale_cpu)):
+                raise AssertionError(f"compress {path}: the card's int8 "
+                                     f"mantissas or scales differ from the "
+                                     f"CPU's")
+            if not (torch.equal(got, cp.compress_decompress(g, block))
+                    and torch.equal(got.cpu(), cp._dequantize(
+                        q_cpu, scale_cpu, n, g.shape))):
+                raise AssertionError(f"compress {path}: one rank's "
+                                     f"compressed_psum is not the local "
+                                     f"round trip, on the card and the CPU")
+            # round to nearest: each value within half a step of its
+            # block's scale; the f32 quotient and product add < 2e-5 step
+            gap = F.pad((g - got).reshape(-1), (0, q.numel() - n)).abs()
+            if bool((gap.reshape(q.shape) > scale * (0.5 + 2e-5)).any()):
+                raise AssertionError(f"compress {path}: a value moved more "
+                                     f"than half a step of its block")
+            sent.append(got)
+            leaf_err[path] = rel_fro(got, g)
+            # each block's crest factor (max over RMS): the round trip
+            # leaves about crest / (127·sqrt(12)) of a block's RMS
+            rms = F.pad(g.reshape(-1), (0, q.numel() - n)).reshape(
+                q.shape).square().mean(dim=1, keepdim=True).sqrt()
+            crest = (127 * scale / rms)[rms > 0]
+            crests[path] = [float(crest.median()), float(crest.max())]
+        num = sum(float((s.double() - g.double()).square().sum())
+                  for s, g in zip(sent, gs))
+        den = sum(float(g.double().square().sum()) for g in gs)
+        err = math.sqrt(num / den)
+        del sent
+        # the reference's round-trip test on the card: a normal draw of
+        # 1000 values times 3, within 0.01
+        x = 3 * torch.randn(1000, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(0))
+        normal_err = rel_fro(cp.compress_decompress(x, block), x)
+        if not normal_err < 0.01:
+            raise AssertionError(f"compress: a normal draw's round trip is "
+                                 f"{normal_err} from it, not below 0.01")
+
+        gtree = tree_unflatten(list(zip(paths, gs)))
+        res = tree_map(torch.zeros_like, gtree)
+        total = tree_map(torch.zeros_like, gtree)
+        for _ in range(rounds):
+            out, res = cp.error_feedback_update(gtree, res, block)
+            total = tree_map(torch.add, total, out)
+        ef_err = 0.0
+        for (path, t), (_, r), g in zip(tree_flatten(total),
+                                        tree_flatten(res), gs):
+            finite_f32(f"sent {path}", t)
+            finite_f32(f"residual {path}", r)
+            gmax = float(g.abs().max())
+            diff = (t + r - rounds * g).abs()
+            ef_err = max(ef_err, float(diff.max()) / max(gmax, 1e-30))
+            if bool((diff > 1e-5 * gmax + 1e-5 * (rounds * g).abs()).any()):
+                raise AssertionError(f"compress {path}: {rounds} rounds "
+                                     f"sent + residual differ from "
+                                     f"{rounds}·g by {float(diff.max())}")
+        del total, out
+
+        # one rank: each all-reduce leaves its tensors as they are
+        copies = [g.clone() for g in gs]
+        qsums = [cp._quantize_int8(g, block)[0].int() for g in gs]
+        quantize_ms = time_ms(lambda: [cp._quantize_int8(g, block)
+                                       for g in gs], 5)
+        psum_ms = time_ms(lambda: [cp.compressed_psum(g, block=block)
+                                   for g in gs], 5)
+        ef_ms = time_ms(lambda: cp.error_feedback_update(gtree, res, block),
+                        5)
+        int32_ms = time_ms(lambda: [dist.all_reduce(t) for t in qsums], 5)
+        plain_ms = time_ms(lambda: [dist.all_reduce(t) for t in copies], 5)
+        del copies, qsums
+        psum_profile = profile_call(
+            lambda: [cp.compressed_psum(g, block=block) for g in gs],
+            "compress_profile")
+    finally:
+        dist.destroy_process_group()
+
+    padded = n_blocks * block
+    int32_bytes, scale_bytes, f32_bytes = 4 * padded, 4 * n_blocks, \
+        4 * n_values
+    row = {
+        "leaves": len(gs), "values": n_values, "blocks": n_blocks,
+        "block": block, "launches": counts["flash_attention"],
+        "rel_fro_err": err, "rel_fro_err_by_leaf": leaf_err,
+        "crest_median_max_by_leaf": crests,
+        "normal_draw_rel_fro_err": normal_err,
+        "error_feedback_rounds": rounds,
+        "error_feedback_max_err_over_max_g": ef_err,
+        "int8_payload_bytes": padded, "scale_bytes": scale_bytes,
+        "int32_allreduce_bytes": int32_bytes,
+        "scale_allreduce_bytes": scale_bytes,
+        "f32_allreduce_bytes": f32_bytes,
+        "wire_over_f32": (int32_bytes + scale_bytes) / f32_bytes,
+        "quantize_ms": quantize_ms,
+        "quantize_bound_ms": (4 * n_values + padded + scale_bytes)
+        / PEAK_BYTES * 1e3,
+        "compressed_psum_ms": psum_ms, "error_feedback_update_ms": ef_ms,
+        "int32_allreduce_ms": int32_ms, "plain_allreduce_ms": plain_ms,
+        "compressed_psum_profile": psum_profile,
+        "wall_s": time.perf_counter() - t0, "card": card_line()}
+    print("compress: " + json.dumps(row), flush=True)
+    del gs, grads, gtree, res
+    torch.cuda.empty_cache()
+    return row
 
 
 def cuda_batch(cfg, seq: int, batch: int, step: int,
@@ -1890,7 +2071,7 @@ def run_cut_path(arch: str, n_layers: int, label: str,
     batch = cuda_batch(cfg, 4096, 2, report.metrics_history[0]["step"], fe)
     check_plain_attention(entry, cfg, tcfg, policy, report.state, batch,
                           label)
-    run = {"entry": entry, "cfg": cfg, "policy": policy,
+    run = {"entry": entry, "cfg": cfg, "tcfg": tcfg, "policy": policy,
            "state": report.state, "batch": batch,
            "params": initial["params"]}
     return {"launches": counts["flash_attention"], "peak_bytes": peak}, run
@@ -2860,6 +3041,7 @@ def main() -> int:
     lru_check()
     bfp = run_bfp_path()     # before the step, and freed: its peak stands
     main_path, run = run_main_path()
+    compress = run_compress(run)
     del run          # each path frees its state: its peak stands alone
     run_full_path(main_path)
     moe_path, run = run_main_path("granite-moe-1b-a400m", label="moe")
@@ -2925,6 +3107,7 @@ def main() -> int:
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
         "launches_by_path": {"main_path": main_path["launches"],
+                             "compress_grads": compress["launches"],
                              "moe_path": moe_path["launches"],
                              "moe_top1_path": top1["launches"],
                              "gemma2_path": gemma2["launches"],

@@ -119,19 +119,13 @@ def make_loss_fn(entry, cfg: ModelConfig, tcfg: TrainConfig,
     return loss_fn
 
 
-def make_train_step(entry, cfg: ModelConfig, tcfg: TrainConfig,
-                    policy: L.Policy = L.Policy()):
-    """Returns ``train_step(state, batch) -> (state, metrics)``.
-
-    batch: {"tokens" [B,S] int, "labels" [B,S] int, optional "mask",
-    optional "frontend" dict of stub embeddings ({"frames"} for an audio
-    arch, {"cross_kv"} for a vision-language one, each [B, T, D])}, as
-    tensors on the state's device.  With ``microbatch`` k every tensor,
-    the frontend's included, is split along its batch axis.  The step
-    returns a new state dict; the given state's tensors are not modified.
-    """
+def make_grad_fn(entry, cfg: ModelConfig, tcfg: TrainConfig,
+                 policy: L.Policy = L.Policy()):
+    """Returns ``grad_fn(trainable, frozen, batch) -> (metrics, grads)``,
+    the gradients of ``make_loss_fn``'s loss with respect to every leaf of
+    ``trainable``, as a tree of its structure; ``make_train_step`` takes
+    one per (micro)batch."""
     loss_fn = make_loss_fn(entry, cfg, tcfg, policy)
-    trainable = "branch" if tcfg.mode == "duplex" else "backbone"
 
     def grad_fn(params, frozen, batch):
         paths, leaves = zip(*tree_flatten(params))
@@ -143,6 +137,23 @@ def make_train_step(entry, cfg: ModelConfig, tcfg: TrainConfig,
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return metrics, tree_unflatten(list(zip(paths, grads)))
+
+    return grad_fn
+
+
+def make_train_step(entry, cfg: ModelConfig, tcfg: TrainConfig,
+                    policy: L.Policy = L.Policy()):
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    batch: {"tokens" [B,S] int, "labels" [B,S] int, optional "mask",
+    optional "frontend" dict of stub embeddings ({"frames"} for an audio
+    arch, {"cross_kv"} for a vision-language one, each [B, T, D])}, as
+    tensors on the state's device.  With ``microbatch`` k every tensor,
+    the frontend's included, is split along its batch axis.  The step
+    returns a new state dict; the given state's tensors are not modified.
+    """
+    grad_fn = make_grad_fn(entry, cfg, tcfg, policy)
+    trainable = "branch" if tcfg.mode == "duplex" else "backbone"
 
     def train_step(state, batch):
         frozen = state["backbone"] if tcfg.mode == "duplex" else None

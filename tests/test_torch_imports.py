@@ -35,7 +35,8 @@ def test_every_module_imports_with_jax_and_repro_masked():
               "models.ssm", "configs.mamba2_780m", "models.encdec",
               "configs.whisper_base", "configs.llama32_vision_90b",
               "train.serve_step", "launch.serve", "examples.quickstart",
-              "models.hybrid", "configs.recurrentgemma_9b"):
+              "models.hybrid", "configs.recurrentgemma_9b",
+              "optim.compress"):
         assert f"repro_torch.{m}" in mods
     masked = ("jax", "repro", "msgpack")
     code = (
