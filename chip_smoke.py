@@ -40,7 +40,15 @@ Phases, each printing its numbers on lines of their own:
      the int32 and f32 all-reduces and the times of ``compressed_psum``,
      ``error_feedback_update``, the int32 all-reduce alone and a plain f32
      ``all_reduce`` of the tree, and one ``compressed_psum`` of the tree
-     profiled (``compress_profile`` lines);
+     profiled (``compress_profile`` lines); then ``sharding`` on the same
+     state (``run_sharding``): the host mesh over a one-rank NCCL group,
+     the state's specs against its ``meta`` twin's, every leaf put on the
+     mesh as a DTensor and read back bit for bit, the duplex step under
+     ``activation_rules`` equal to the step without (40 flash launches
+     each, times of both), ``constrain`` redistributing a DTensor; after
+     the state is freed, ``sharding_table``, reckoned on the host: each
+     arch's largest param leaf and param bytes a device holds on the
+     16x16 and 2x16x16 layouts;
      each path frees its state before the next, so that each peak stands
      alone;
   6. ``f1_check`` (run before the BFP path): the kernel wrappers refuse
@@ -1179,6 +1187,220 @@ def run_compress(run: dict) -> dict:
     del gs, grads, gtree, res
     torch.cuda.empty_cache()
     return row
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``a`` and ``b`` hold the same dtype, shape and bytes."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def run_sharding(run: dict) -> dict:
+    """The sharding rules, the activation-sharding context and the host
+    mesh (``distributed/{sharding,ctx}.py``, ``launch/mesh.py``) on
+    granite-3-8b's main path, its final state and first batch, over a
+    one-rank NCCL group made here and destroyed in a ``finally``.
+
+    Gates: ``make_host_mesh`` is a ``(1, 1)`` ``cuda`` mesh named
+    ``("data", "model")`` and ``make_production_mesh`` raises on one rank;
+    ``state_pspecs`` of the live state equals that of the same state on
+    ``meta`` and names only the mesh's axes; each leaf, put on the mesh by
+    ``device_put`` with ``to_named``'s placements, gives the leaf back bit
+    for bit through ``to_local()`` and ``full_tensor()`` (one leaf at a
+    time, so the peak grows by one leaf at most); the duplex step under
+    ``activation_sharding(mesh, activation_rules(cfg, mesh))`` gives the
+    loss and the new branch of the steps without rules, within the spread
+    of those among themselves (bit for bit where they agree bit for bit),
+    each step launching flash once per ``attn`` layer and no BFP kernel;
+    ``constrain`` of a replicated [2, 4096, 4096] bf16 DTensor to
+    ``"resid"`` comes back with the rule's placements and the same bytes.
+    Prints the leaves and bytes by placement kind, ``device_put``'s time
+    over the state, whether ``to_local()`` shares the leaf's storage (a
+    finding, not a gate), and the median step time with and without rules
+    (3 each, in turns, CUDA events, after a warm call)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.distributed import ctx, sharding as sh
+    from repro_torch.launch import cells, mesh as lmesh
+    from repro_torch.train import train_step as ts
+    from repro_torch.utils import tree_flatten, tree_map
+
+    t0 = time.perf_counter()
+    entry, cfg, tcfg, policy = (run[k] for k in ("entry", "cfg", "tcfg",
+                                                 "policy"))
+    state, batch = run["state"], run["batches"][0]
+    n_attn = flash_layers(cfg)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0),
+                            timeout=timedelta(seconds=60))
+    try:
+        mesh = lmesh.make_host_mesh()
+        if (tuple(mesh.shape), tuple(mesh.mesh_dim_names),
+                mesh.device_type) != ((1, 1), ("data", "model"), "cuda"):
+            raise AssertionError(f"sharding: make_host_mesh gave {mesh}")
+        try:
+            lmesh.make_production_mesh()
+        except ValueError as e:
+            refused = str(e)
+        else:
+            raise AssertionError("sharding: make_production_mesh made a "
+                                 "mesh on one rank")
+
+        specs = sh.state_pspecs(state, mesh)
+        meta = ts.init_state(torch.Generator(), entry, cfg, tcfg, policy,
+                             device="meta")
+        if specs != sh.state_pspecs(meta, mesh):
+            raise AssertionError("sharding: the live state's specs differ "
+                                 "from the same state's on meta")
+        names = set(mesh.mesh_dim_names)
+        for path, spec in tree_flatten(specs):
+            for e in spec:
+                if not set(e if isinstance(e, tuple) else (e,)) - {None} \
+                        <= names:
+                    raise AssertionError(f"sharding {path}: {spec} names an "
+                                         f"axis the mesh lacks")
+
+        named = sh.to_named(specs, mesh)
+        by_kind: dict = {}
+        shared, put_s = {}, 0.0
+        for (path, x), (_, ns) in zip(tree_flatten(state),
+                                      tree_flatten(named)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            d = sh.device_put(x, ns)
+            torch.cuda.synchronize()
+            put_s += time.perf_counter() - t
+            local = d.to_local()
+            if not (same_bits(local, x) and same_bits(d.full_tensor(), x)):
+                raise AssertionError(f"sharding {path}: to_local() or "
+                                     f"full_tensor() is not the leaf")
+            kind = "sharded" if any(isinstance(p, Shard)
+                                    for p in d.placements) else "replicated"
+            row = by_kind.setdefault(kind, {"leaves": 0, "bytes": 0})
+            row["leaves"] += 1
+            row["bytes"] += x.numel() * x.element_size()
+            shared[path] = local.data_ptr() == x.data_ptr()
+            del d, local
+
+        step = ts.make_train_step(entry, cfg, tcfg, policy)
+        rules = cells.activation_rules(cfg, mesh)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+        def one_step(with_rules: bool):
+            copy = dict(state, branch=tree_map(torch.clone, state["branch"]),
+                        opt=tree_map(torch.clone, state["opt"]))
+            zero_counts()
+            with (ctx.activation_sharding(mesh, rules) if with_rules
+                  else contextlib.nullcontext()):
+                start.record()
+                new, metrics = step(copy, batch)
+                end.record()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = dict.fromkeys(counts, 0) | {"flash_attention": n_attn}
+            if counts != want:
+                raise AssertionError(f"sharding step (rules {with_rules}): "
+                                     f"launched {counts}, expected {want}")
+            out = [metrics["loss"].float().reshape(1)] + \
+                [t.float().reshape(-1) for _, t in
+                 tree_flatten(new["branch"])]
+            return start.elapsed_time(end), out, counts["flash_attention"]
+
+        def gap(a, b) -> float:
+            return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+        one_step(False)                                   # warm
+        ms = {False: [], True: []}
+        outs = {False: [], True: []}
+        for with_rules in (False, True, True, False, False, True):
+            t, out, launches = one_step(with_rules)
+            ms[with_rules].append(t)
+            outs[with_rules].append(out)
+        ref = outs[False][0]
+        spread = max(gap(a, b) for a in outs[False] for b in outs[False])
+        dev = max(gap(c, ref) for c in outs[True])
+        if not dev <= spread:
+            raise AssertionError(f"sharding: the step under rules moved the "
+                                 f"loss or the branch by {dev}, past the "
+                                 f"{spread} between steps without rules")
+        loss = float(ref[0])
+        del outs, ref
+
+        x = torch.randn(
+            2, 4096, 4096, device="cuda", dtype=torch.bfloat16,
+            generator=torch.Generator(device="cuda").manual_seed(0))
+        with ctx.activation_sharding(mesh, rules):
+            y = ctx.constrain(distribute_tensor(x, mesh, [Replicate()] * 2),
+                              "resid")
+        if y.placements != (Shard(0), Replicate()) or \
+                not same_bits(y.full_tensor(), x):
+            raise AssertionError(f"sharding: constrain gave {y.placements}, "
+                                 f"or other bytes than x")
+        del x, y
+    finally:
+        dist.destroy_process_group()
+
+    row = {"mesh": [1, 1], "production_mesh_refused": refused,
+           "leaves": len(shared), "by_placement": by_kind,
+           "device_put_ms": put_s * 1e3,
+           "to_local_shares_storage": {
+               "all": all(shared.values()), "leaves_sharing":
+               sum(shared.values())},
+           "rules": {k: list(v) for k, v in rules.items()},
+           "step_ms_without_rules": ms[False], "step_ms_with_rules": ms[True],
+           "median_step_ms_without_rules": statistics.median(ms[False]),
+           "median_step_ms_with_rules": statistics.median(ms[True]),
+           "loss": loss, "max_dev_with_rules": dev,
+           "max_spread_without_rules": spread, "launches": launches,
+           "wall_s": time.perf_counter() - t0, "card": card_line()}
+    print("sharding: " + json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+    return row
+
+
+def sharding_table() -> dict:
+    """For each arch at full config, the largest bf16 bytes one device
+    holds of one param leaf and of all of them, on the 16x16 and 2x16x16
+    production layouts, baseline and ``fsdp_pure``: reckoned on the host
+    from ``meta`` trees and ``AbstractMesh``, with no launch."""
+    import functools
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import registry
+    from repro_torch.utils import tree_flatten
+
+    t0 = time.perf_counter()
+    meshes = {"16x16": sh.AbstractMesh((16, 16), ("data", "model")),
+              "2x16x16": sh.AbstractMesh((2, 16, 16),
+                                         ("pod", "data", "model"))}
+    table = {}
+    for arch, entry in registry.ARCHS.items():
+        params = entry.module.init_params(torch.Generator(), entry.full,
+                                          device="meta")
+        leaves = [x for _, x in tree_flatten(params)]
+        row = {"params": sum(x.numel() for x in leaves)}
+        for key, mesh in meshes.items():
+            for variant in ("baseline", "fsdp_pure"):
+                specs = sh.tree_pspecs(params, mesh, functools.partial(
+                    sh.param_pspec, fsdp_pure=variant == "fsdp_pure"))
+                per_leaf = []
+                for x, (_, spec) in zip(leaves, tree_flatten(specs)):
+                    n = x.numel()
+                    for e in spec:
+                        for a in (e if isinstance(e, tuple) else (e,)):
+                            n //= 1 if a is None else mesh.shape[a]
+                    per_leaf.append(2 * n)
+                row[f"{key}_{variant}"] = {"max_leaf_bytes": max(per_leaf),
+                                           "sum_bytes": sum(per_leaf)}
+        table[arch] = row
+    print("sharding_table: " + json.dumps(
+        {"archs": table, "seconds": time.perf_counter() - t0}), flush=True)
+    return table
 
 
 def cuda_batch(cfg, seq: int, batch: int, step: int,
@@ -3042,7 +3264,9 @@ def main() -> int:
     bfp = run_bfp_path()     # before the step, and freed: its peak stands
     main_path, run = run_main_path()
     compress = run_compress(run)
+    sharding = run_sharding(run)
     del run          # each path frees its state: its peak stands alone
+    sharding_table()
     run_full_path(main_path)
     moe_path, run = run_main_path("granite-moe-1b-a400m", label="moe")
     report_moe_path(run)
@@ -3108,6 +3332,7 @@ def main() -> int:
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
         "launches_by_path": {"main_path": main_path["launches"],
                              "compress_grads": compress["launches"],
+                             "sharding_step": sharding["launches"],
                              "moe_path": moe_path["launches"],
                              "moe_top1_path": top1["launches"],
                              "gemma2_path": gemma2["launches"],

@@ -15,10 +15,13 @@ greedy decode loop.
         --arch recurrentgemma-9b --preset smoke --device cpu
 
 Counterpart of ``repro/launch/serve.py``.  Runs on ``cuda`` unless
-``--device cpu`` is given; a CUDA request without a card raises.  There is
-no mesh: one card (sharding is ROADMAP §1 item 4).  ``--preset full`` runs
-bf16 compute, bf16 params and a bf16 cache; ``smoke`` runs f32.  Params are
-random, drawn on the device from seed 0, and prompts from seed 1.  An arch
+``--device cpu`` is given; a CUDA request without a card raises.  The
+launcher runs one card without a mesh: the sharding rules, the activation
+context and the meshes are in ``repro_torch.distributed`` and
+``launch/mesh.py``, and a run across ranks is still to come.
+``--preset full`` runs bf16 compute, bf16 params and a bf16 cache;
+``smoke`` runs f32.  Params are random, drawn on the device from seed 0,
+and prompts from seed 1.  An arch
 with a stubbed frontend (whisper-base's audio frames, llama-3.2-vision-90b's
 ``cross_kv``) is fed one draw per run of ``ArchEntry.frontend_shape``'s
 shape, ``randn * 0.1`` in the compute dtype from seed 7
@@ -103,9 +106,6 @@ def serve(entry, cfg, *, batch: int, prompt_len: int, gen: int,
     device = torch.device(device)
     policy = L.Policy(compute_dtype=dtype)
     max_len = prompt_len + gen + 8
-    # the cache's shapes on the meta device: an unported kind raises here
-    entry.module.init_cache(cfg, batch, max_len, dtype, device="meta")
-
     params = entry.module.init_params(
         torch.Generator(device=device).manual_seed(0), cfg, dtype=dtype,
         device=device)

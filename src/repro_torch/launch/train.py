@@ -20,7 +20,10 @@ under ``smoke``; every step's batch carries it.  Flash is switched on for
 the decoder stack only: whisper's encoder keeps the reference's
 ``use_flash=False``.  With
 ``--ckpt-dir`` the loop saves every ``--ckpt-every`` steps and resumes from
-the latest checkpoint there.  There is no mesh: one card.
+the latest checkpoint there.  The launcher runs one card without a mesh:
+the sharding rules, the activation context and the meshes are in
+``repro_torch.distributed`` and ``launch/mesh.py``, and a run across ranks
+is still to come.
 """
 from __future__ import annotations
 

@@ -26,6 +26,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.ctx import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.ssm import _causal_conv
 from repro_torch.utils import ceil_to
@@ -104,8 +105,10 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 def _gates(params, x: torch.Tensor, policy: L.Policy):
     """The recurrence's (a, √(1−a²)·i·x), both [B,S,W] f32.  ``wr`` and
     ``wi`` take the policy only, never BFP, as the reference's do."""
-    r = torch.sigmoid(L.dense(params["wr"], x, policy=policy).float())
-    i = torch.sigmoid(L.dense(params["wi"], x, policy=policy).float())
+    r = torch.sigmoid(constrain(L.dense(params["wr"], x, policy=policy),
+                                "act_lru").float())
+    i = torch.sigmoid(constrain(L.dense(params["wi"], x, policy=policy),
+                                "act_lru").float())
     # softplus in Λ's stored dtype (bf16 in a cast backbone), as the
     # reference's
     log_a = -_C * _softplus(params["lambda"])[None, None, :] * r

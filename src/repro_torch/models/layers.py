@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bfp as bfp_mod
+from repro_torch.distributed.ctx import constrain
 from repro_torch.utils import ceil_to
 
 NEG_INF = -1e30
@@ -278,6 +279,9 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, softcap=None,
     kc = expand_kv(k_cache, h // nkv)
     vc = expand_kv(v_cache, h // nkv)
     scores = _softcap(_gqa_scores(q, kc) / math.sqrt(hd), softcap)
+    # the score constraints keep a sequence-sharded cache's sharding
+    # through the mask and the softmax (the ring decode's two share these)
+    scores = constrain(scores, "dec_scores")              # [B,H,1,Smax]
     if kpos is None:
         kpos = torch.arange(smax, device=q.device)
         mask = kpos < cur_len                             # [Smax]
@@ -285,8 +289,8 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, softcap=None,
         mask = (kpos >= 0) & (kpos < cur_len)
     if window is not None:
         mask &= kpos > (cur_len - 1 - window)
-    scores = scores.masked_fill(~mask, NEG_INF)           # [B,H,1,Smax]
-    w = torch.softmax(scores, dim=-1)
+    scores = constrain(scores.masked_fill(~mask, NEG_INF), "dec_scores")
+    w = constrain(torch.softmax(scores, dim=-1), "dec_scores")
     return _gqa_out(w, vc).to(q.dtype)
 
 
@@ -341,7 +345,8 @@ def _project_qkv(p, x, kv_x, cfg: AttnConfig, policy, bfp, positions,
         q = rope(q, positions, cfg.rope_theta)
         kv_pos = positions if kv_positions is None else kv_positions
         k = rope(k, kv_pos, cfg.rope_theta)
-    return q, k, v
+    return (constrain(q, "act_q"), constrain(k, "act_kv"),
+            constrain(v, "act_kv"))
 
 
 def attention_layer(p, x, cfg: AttnConfig, *, policy=Policy(), bfp=NO_BFP,

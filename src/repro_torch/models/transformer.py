@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.common import LayerSpec, ModelConfig
+from repro_torch.distributed.ctx import constrain
 from repro_torch.models import hybrid, layers as L, moe as moe_mod, ssm
 
 _KINDS = ("attn", "local", "cross", "ssd", "lru")
@@ -246,6 +247,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = torch.arange(s, device=dev).expand(b, s)
     h = (embed_tokens(params, cfg, tokens, positions, policy)
          if inputs_embeds is None else inputs_embeds)
+    h = constrain(h, "resid")
     emb = h
     cross_kv = None if frontend is None else frontend.get("cross_kv")
     aux = torch.zeros((), dtype=torch.float32, device=dev)   # dense: adds 0
@@ -260,6 +262,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                 h, a = _sub_apply(p_rep[f"sub{i}"], h, spec, cfg,
                                   policy=policy, bfp=bfp, cross_kv=cross_kv,
                                   positions=positions)
+                h = constrain(h, "resid")
                 if a is not None:
                     aux = aux + a
             if step_i in wanted:
@@ -506,6 +509,8 @@ def _ring_decode(p_attn, u, cache: dict, acfg: L.AttnConfig, *, policy):
     cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
     cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
     cache["pos"].index_copy_(0, slot, cur.view(1))
+    # the reference's two "dec_scores" constraints here (on the scores and
+    # on the softmax weights) are those inside L.decode_attention
     o = L.decode_attention(q, cache["k"], cache["v"], cur + 1,
                            softcap=acfg.softcap, window=acfg.window,
                            kpos=cache["pos"])

@@ -36,7 +36,8 @@ def test_every_module_imports_with_jax_and_repro_masked():
               "configs.whisper_base", "configs.llama32_vision_90b",
               "train.serve_step", "launch.serve", "examples.quickstart",
               "models.hybrid", "configs.recurrentgemma_9b",
-              "optim.compress"):
+              "optim.compress", "distributed.sharding", "distributed.ctx",
+              "launch.mesh"):
         assert f"repro_torch.{m}" in mods
     masked = ("jax", "repro", "msgpack")
     code = (
