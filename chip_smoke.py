@@ -48,7 +48,34 @@ Phases, each printing its numbers on lines of their own:
      each, times of both), ``constrain`` redistributing a DTensor; after
      the state is freed, ``sharding_table``, reckoned on the host: each
      arch's largest param leaf and param bytes a device holds on the
-     16x16 and 2x16x16 layouts;
+     16x16 and 2x16x16 layouts; then ``cells`` (``run_cells``): the cells
+     of ``launch/cells.py::build_cell``, ``cells_table`` on the host (all
+     40 cells of ``registry.cells()`` x baseline, tuned, tuned2 on a 16x16
+     ``AbstractMesh``, ``meta`` tensors: status or skip reason,
+     ``fsdp_pure``, argument bytes in all and a device's by the specs, the
+     backbone's storage bytes, fp8 at tuned2's train cells exactly half
+     the bf16 ones'), then on a one-rank NCCL mesh, each cell built by
+     ``build_cell``, its arguments drawn on the card from the cell's
+     ``cfg`` through the port's inits (weights seed 0, tokens seed 1) and
+     ``fn`` called under ``activation_rules``, as the dry run calls it:
+     decode at the cells' own sizes (mamba2-780m and recurrentgemma-9b x
+     long_500k, baseline and tuned, and x decode_32k, baseline; 8 greedy
+     steps from the zero cache: step median, byte bound, peak; every
+     step's logits finite, the same tokens at baseline and tuned),
+     mamba2-780m x prefill_32k with the batch cut 32 -> 1 (the logits of
+     every position against the last only: next-token logits at 2e-2 and
+     the cache leaf for leaf equal; times and peaks), train_4k with the
+     batch cut to 2 on recurrentgemma-9b (baseline, tuned) and
+     granite-3-8b (baseline, tuned, tuned2), 3 steps each from one draw
+     (finite losses, tuned within rtol 1e-5 / atol 1e-6 of baseline at
+     every step, the branch moved, tuned2's backbone all fp8 at half the
+     bf16 bytes; step medians and each attention kind's time and share,
+     ``cells_<arch>_<variant>_attention``), and the tuned2 train cells of
+     mamba2-780m and recurrentgemma-9b (batch cut to 1), which must raise
+     torch's fp8 promotion ``RuntimeError`` in ``ssd_block`` and
+     ``_gates``, where JAX's refuse to trace; no kernel launched
+     (``cells_*`` lines; ``launches_by_path`` ``cells_*`` in the kernels
+     JSON);
      each path frees its state before the next, so that each peak stands
      alone;
   6. ``f1_check`` (run before the BFP path): the kernel wrappers refuse
@@ -1363,6 +1390,16 @@ def run_sharding(run: dict) -> dict:
     return row
 
 
+def shards(spec: tuple, sizes: dict) -> int:
+    """The pieces a spec splits a tensor into: the product of the sizes of
+    the mesh axes it names."""
+    n = 1
+    for e in spec:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            n *= 1 if a is None else sizes[a]
+    return n
+
+
 def sharding_table() -> dict:
     """For each arch at full config, the largest bf16 bytes one device
     holds of one param leaf and of all of them, on the 16x16 and 2x16x16
@@ -1390,11 +1427,8 @@ def sharding_table() -> dict:
                     sh.param_pspec, fsdp_pure=variant == "fsdp_pure"))
                 per_leaf = []
                 for x, (_, spec) in zip(leaves, tree_flatten(specs)):
-                    n = x.numel()
-                    for e in spec:
-                        for a in (e if isinstance(e, tuple) else (e,)):
-                            n //= 1 if a is None else mesh.shape[a]
-                    per_leaf.append(2 * n)
+                    per_leaf.append(2 * x.numel() // shards(spec,
+                                                            mesh.shape))
                 row[f"{key}_{variant}"] = {"max_leaf_bytes": max(per_leaf),
                                            "sum_bytes": sum(per_leaf)}
         table[arch] = row
@@ -1402,6 +1436,512 @@ def sharding_table() -> dict:
         {"archs": table, "seconds": time.perf_counter() - t0}), flush=True)
     return table
 
+
+# ---------------------------------------------------------------------------
+# the cells (launch/cells.py::build_cell, registry.cells)
+# ---------------------------------------------------------------------------
+
+CELL_STEPS = 3          # train steps a variant takes in the cells phase
+DECODE_STEPS = 8        # decode steps from the zero cache
+# the tolerances of tests/test_torch_cells.py: train steps (f32 values),
+# serving's f32 values, and bf16 values
+CELL_TRAIN_TOL = dict(rtol=1e-5, atol=1e-6)
+CELL_TOL = dict(rtol=2e-5, atol=2e-5)
+CELL_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+
+
+def meta_sig(tree) -> list:
+    """``(path, shape, dtype)`` of every leaf."""
+    from repro_torch.utils import tree_flatten
+    return [(p, tuple(x.shape), x.dtype) for p, x in tree_flatten(tree)]
+
+
+def per_device_bytes(tree, named, mesh_shape: dict) -> int:
+    """The bytes one device holds of ``tree`` under its ``NamedSharding``s:
+    each leaf's bytes over the sizes of the mesh axes its spec names."""
+    from repro_torch.utils import tree_flatten
+    return sum(x.numel() * x.element_size() // shards(ns.spec, mesh_shape)
+               for (_, x), (_, ns) in zip(tree_flatten(tree),
+                                          tree_flatten(named)))
+
+
+def cells_table() -> dict:
+    """All 40 cells x 3 variants of ``registry.cells()`` built by
+    ``build_cell`` on ``AbstractMesh((16, 16))``, on the host with ``meta``
+    tensors: each cell's status or skip reason, ``fsdp_pure``, its
+    argument bytes (all, and the bytes one device holds by the specs) and
+    the backbone's storage bytes (the frozen backbone of a train cell, bf16
+    or fp8; the params of a serving cell, f32)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import cells
+    from repro_torch.models import registry
+    from repro_torch.utils import tree_flatten
+
+    t0 = time.perf_counter()
+    mesh = sh.AbstractMesh((16, 16), ("data", "model"))
+    rows = []
+    for arch, shape, skip in registry.cells():
+        for variant in ("baseline", "tuned", "tuned2"):
+            row = {"arch": arch, "shape": shape.name, "variant": variant}
+            if skip is not None:
+                rows.append(row | {"status": "skipped", "reason": skip})
+                continue
+            fn, args, in_sh, _, donate, cfg, fsdp_pure = cells.build_cell(
+                arch, shape, mesh, variant)
+            if not all(x.is_meta for a in args
+                       for _, x in tree_flatten(a)):
+                raise AssertionError(f"cells_table {arch} {shape.name} "
+                                     f"{variant}: an argument was allocated")
+            first = args[0]["backbone"] if shape.mode == "train" else args[0]
+            rows.append(row | {
+                "status": "ok", "mode": shape.mode, "fsdp_pure": fsdp_pure,
+                "donate": list(donate),
+                "arg_bytes": sum(map(tree_nbytes, args)),
+                "arg_bytes_per_device": sum(
+                    per_device_bytes(a, s, mesh.shape)
+                    for a, s in zip(args, in_sh)),
+                "backbone_bytes": tree_nbytes(first),
+                "backbone_dtype": str(meta_sig(first)[0][2])})
+    for row in rows:
+        print("cells_table: " + json.dumps(row))
+    seconds = time.perf_counter() - t0
+    built = [r for r in rows if r["status"] == "ok"]
+    print("cells_table_summary: " + json.dumps(
+        {"cells": len(rows) // 3, "variants": 3, "built": len(built),
+         "skipped": len(rows) - len(built), "mesh": [16, 16],
+         "seconds": seconds}), flush=True)
+    for r in built:
+        if r["mode"] == "train" and r["variant"] == "tuned2":
+            bf16 = next(b for b in built if (b["arch"], b["shape"],
+                                             b["variant"]) ==
+                        (r["arch"], r["shape"], "tuned"))
+            if 2 * r["backbone_bytes"] != bf16["backbone_bytes"]:
+                raise AssertionError(f"cells_table {r['arch']}: the fp8 "
+                                     f"backbone is not half the bf16 one")
+    return {"rows": rows, "seconds": seconds}
+
+
+@contextlib.contextmanager
+def seeing(module, name: str, see):
+    """Inside the block, every call of ``module.<name>`` passes its result
+    to ``see`` before returning it."""
+    plain = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        out = plain(*args, **kw)
+        see(out)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, plain)
+
+
+def cell_args(arch: str, shape, cell, first=None) -> tuple:
+    """A cell's arguments on the card, drawn from the ``cfg`` that
+    ``build_cell`` returned through the port's own inits: the train state
+    (its backbone in the dtype of the cell's) or the params with a
+    generator seeded 0, unless ``first`` is given; the zero bf16 cache of a
+    decode cell; tokens (and labels, the tokens shifted by one) and a stub
+    frontend (``randn * 0.1``) with a generator seeded 1.  They must have
+    the paths, shapes and dtypes of the cell's ``meta`` arguments."""
+    from repro_torch.launch import cells
+    from repro_torch.models import registry
+    from repro_torch.train import train_step as ts
+
+    _, args, _, _, _, cfg, _ = cell
+    entry = registry.get(arch)
+    if first is None:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        if shape.mode == "train":
+            bdt = meta_sig(args[0]["backbone"])[0][2]
+            first = ts.init_state(gen, entry, cfg,
+                                  cells.duplex_tcfg(cfg, backbone_dtype=bdt),
+                                  cells.POLICY, device="cuda")
+        else:
+            first = entry.module.init_params(gen, cfg, device="cuda")
+    g1 = torch.Generator(device="cuda").manual_seed(1)
+    batch = {}
+    for key, x in sorted(args[-1].items()):
+        if key == "tokens":
+            batch[key] = torch.randint(0, cfg.vocab, tuple(x.shape),
+                                       generator=g1, device="cuda",
+                                       dtype=x.dtype)
+        elif key == "frontend":
+            batch[key] = {k: (0.1 * torch.randn(
+                tuple(f.shape), generator=g1, device="cuda")).to(f.dtype)
+                for k, f in x.items()}
+    if "labels" in args[-1]:
+        batch["labels"] = torch.roll(batch["tokens"], -1, dims=1)
+    middle = () if shape.mode != "decode" else (entry.module.init_cache(
+        cfg, batch=shape.global_batch, max_len=shape.seq_len,
+        dtype=torch.bfloat16, device="cuda"),)
+    out = (first, *middle, batch)
+    for got, want in zip(out, args):
+        if meta_sig(got) != meta_sig(want):
+            raise AssertionError(f"cells {arch} {shape.name}: the drawn "
+                                 f"arguments differ from the cell's")
+    return out
+
+
+def call_cell(cell, mesh, args) -> tuple:
+    """``fn(*args)`` under the cell's ``activation_rules`` on ``mesh``, as
+    the dry run calls it: (output, ms by CUDA events)."""
+    from repro_torch.distributed import ctx
+    from repro_torch.launch import cells
+    fn, _, _, _, _, cfg, fsdp_pure = cell
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with ctx.activation_sharding(mesh, cells.activation_rules(
+            cfg, mesh, fsdp_pure=fsdp_pure)):
+        start.record()
+        out = fn(*args)
+        end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def no_launch(label: str, launches: dict) -> None:
+    """Read the counts zeroed before the run and add them to ``launches``
+    (kernel -> count): the cells leave flash off and reach no BFP kernel,
+    so every count must be 0."""
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{label} launched {counts}; the cells leave "
+                             f"flash off and reach no BFP kernel")
+    for k, n in counts.items():
+        launches[k] = launches.get(k, 0) + n
+
+
+def cell_shape(name: str, batch: int | None = None):
+    """``SHAPES[name]``, its global batch cut to ``batch`` if given."""
+    from repro_torch.configs.common import SHAPES
+    shape = SHAPES[name]
+    return shape if batch is None else dc.replace(shape, global_batch=batch)
+
+
+def cut_note(name: str, shape) -> str:
+    from repro_torch.configs.common import SHAPES
+    full = SHAPES[name].global_batch
+    return ("at the cell's own size" if shape.global_batch == full else
+            f"batch cut {full} -> {shape.global_batch}")
+
+
+def decode_cells(mesh, launches: dict) -> dict:
+    """b: decode cells at their own sizes, each variant 8 greedy steps from
+    the zero cache: the step median by CUDA events, the byte bound
+    (params + cache over 3.35 TB/s), the peak; every step's logits finite
+    (over the vocab's rows), the same tokens at baseline and tuned, no
+    launch.  An arch's params are drawn once for all its cells."""
+    from repro_torch.launch import cells
+    from repro_torch.models import registry
+
+    cases = [("mamba2-780m", "long_500k", ("baseline", "tuned")),
+             ("mamba2-780m", "decode_32k", ("baseline",)),
+             ("recurrentgemma-9b", "long_500k", ("baseline", "tuned")),
+             ("recurrentgemma-9b", "decode_32k", ("baseline",))]
+    out, params, params_arch = {}, None, None
+    for arch, name, variants in cases:
+        entry, shape = registry.get(arch), cell_shape(name)
+        if params_arch != arch:
+            params = None
+            torch.cuda.empty_cache()
+        tokens = {}
+        for variant in variants:
+            cell = cells.build_cell(arch, shape, mesh, variant)
+            cfg = cell[5]
+            args = cell_args(arch, shape, cell, first=params)
+            params, params_arch = args[0], arch
+            cache, tok = args[1], args[2]["tokens"]
+            finite, steps, ms = [], [tok], []
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            with seeing(entry.module, "decode_step", lambda o: finite.append(
+                    torch.isfinite(o[0][..., :cfg.vocab]).all())):
+                for _ in range(DECODE_STEPS):
+                    (nxt, cache), t = call_cell(cell, mesh,
+                                                (params, cache, {"tokens":
+                                                                 steps[-1]}))
+                    steps.append(nxt)
+                    ms.append(t)
+            no_launch(f"cells_decode {arch} {name} {variant}", launches)
+            peak = torch.cuda.max_memory_allocated()
+            if len(finite) != DECODE_STEPS or \
+                    not bool(torch.stack(finite).all()):
+                raise AssertionError(f"cells_decode {arch} {name} {variant}: "
+                                     f"logits not finite")
+            tokens[variant] = torch.cat(steps[1:], dim=1)
+            pbytes, cbytes = tree_nbytes(params), tree_nbytes(cache)
+            row = {"arch": arch, "shape": name, "variant": variant,
+                   "cut": cut_note(name, shape), "batch": shape.global_batch,
+                   "max_len": shape.seq_len, "steps": DECODE_STEPS,
+                   "step_ms": ms, "median_step_ms": statistics.median(ms),
+                   "param_bytes": pbytes, "cache_bytes": cbytes,
+                   "bound_ms": (pbytes + cbytes) / PEAK_BYTES * 1e3,
+                   "max_memory_allocated_bytes": peak, "launches": 0,
+                   "tokens_head": tokens[variant][0, :DECODE_STEPS].tolist()}
+            print("cells_decode: " + json.dumps(row), flush=True)
+            out[(arch, name, variant)] = row
+            del cache, args, tok, steps, nxt
+        if len(tokens) == 2 and not torch.equal(tokens["baseline"],
+                                                tokens["tuned"]):
+            raise AssertionError(f"cells_decode {arch} {name}: tuned gave "
+                                 f"other tokens than baseline")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def close_trees(label: str, got, want, rule) -> dict:
+    """Leaf for leaf within ``rule(leaf)``'s tolerance; the largest
+    absolute difference by path."""
+    from repro_torch.utils import tree_flatten
+    g, w = tree_flatten(got), tree_flatten(want)
+    if [p for p, _ in g] != [p for p, _ in w]:
+        raise AssertionError(f"{label}: other paths")
+    diffs = {}
+    for (path, a), (_, b) in zip(g, w):
+        tol = rule(a)
+        a, b = a.float(), b.float()
+        diffs[path] = float((a - b).abs().max()) if a.numel() else 0.0
+        if not torch.allclose(a, b, **tol):
+            raise AssertionError(f"{label} {path}: {diffs[path]} past {tol}")
+    return diffs
+
+
+def prefill_cell(mesh, launches: dict) -> dict:
+    """c: mamba2-780m x prefill_32k, batch cut 32 -> 1, at baseline (the
+    logits of every position, f32) and tuned (the last only): the
+    next-token logits at the bf16 tolerance and the cache leaf for leaf
+    (bf16 leaves at 2e-2, others at 2e-5) equal between the two; both
+    times and peaks."""
+    from repro_torch.launch import cells
+
+    arch, name = "mamba2-780m", "prefill_32k"
+    shape = cell_shape(name, batch=1)
+    outs, rows, params = {}, {}, None
+    for variant in ("baseline", "tuned"):
+        cell = cells.build_cell(arch, shape, mesh, variant)
+        args = cell_args(arch, shape, cell, first=params)
+        params = args[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        call_cell(cell, mesh, args)                       # warm
+        out, ms = call_cell(cell, mesh, args)
+        no_launch(f"cells_prefill {variant}", launches)
+        outs[variant] = {"next_token_logits": out["next_token_logits"],
+                         "cache": out["cache"]}
+        rows[variant] = {"ms": ms, "max_memory_allocated_bytes":
+                         torch.cuda.max_memory_allocated(),
+                         "logits_mode": "last" if variant == "tuned"
+                         else "all"}
+        del out, args
+    logits = close_trees("cells_prefill logits",
+                         outs["tuned"]["next_token_logits"],
+                         outs["baseline"]["next_token_logits"],
+                         lambda a: CELL_BF16_TOL)
+    cache = close_trees("cells_prefill cache", outs["tuned"]["cache"],
+                        outs["baseline"]["cache"],
+                        lambda a: CELL_BF16_TOL if a.dtype == torch.bfloat16
+                        else CELL_TOL)
+    row = {"arch": arch, "shape": name, "cut": cut_note(name, shape),
+           "seq": shape.seq_len, "by_variant": rows,
+           "logits_max_abs_diff": max(logits.values()),
+           "cache_max_abs_diff": max(cache.values()),
+           "cache_bit_equal": all(v == 0 for v in cache.values()),
+           "launches": 0}
+    print("cells_prefill: " + json.dumps(row), flush=True)
+    del outs, params
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_cells(mesh, launches: dict, arch: str, variants: tuple,
+                batch: int) -> dict:
+    """d / e: ``arch`` x train_4k, batch cut to ``batch``: each variant
+    ``CELL_STEPS`` steps from one drawn state (a bf16 backbone for baseline
+    and tuned, the same draw in fp8 for tuned2), each step's ms by CUDA
+    events; finite losses; tuned within the train tolerance of baseline at
+    every step (loss and branch); the branch moved; a tuned2 backbone all
+    fp8 at exactly half the bf16 one's bytes; no launch.  The attention
+    layers' times and shares (``report_attention_layers``) follow each
+    variant."""
+    from repro_torch.launch import cells
+    from repro_torch.utils import tree_flatten
+
+    name = "train_4k"
+    shape = cell_shape(name, batch=batch)
+    rows, seen, state, bf16_bytes = {}, {}, None, None
+    for variant in variants:
+        cell = cells.build_cell(arch, shape, mesh, variant)
+        cfg, fsdp_pure = cell[5], cell[6]
+        if variant == "tuned2":
+            state = None                     # the fp8 draw replaces it
+            torch.cuda.empty_cache()
+        args = cell_args(arch, shape, cell, first=state)
+        state, batch_ = args
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        cur, losses, ms, branches = state, [], [], []
+        for _ in range(CELL_STEPS):
+            (cur, metrics), t = call_cell(cell, mesh, (cur, batch_))
+            losses.append(metrics["loss"].float().reshape(1))
+            branches.append([x.float().reshape(-1) for _, x in
+                             tree_flatten(cur["branch"])])
+            ms.append(t)
+        no_launch(f"cells_train {arch} {variant}", launches)
+        peak = torch.cuda.max_memory_allocated()
+        losses_f = [float(x) for x in losses]
+        if not all(map(math.isfinite, losses_f)):
+            raise AssertionError(f"cells_train {arch} {variant}: losses "
+                                 f"{losses_f}")
+        moved = max(float((a - b).abs().max()) for (_, a), (_, b) in
+                    zip(tree_flatten(cur["branch"]),
+                        tree_flatten(state["branch"])))
+        if not moved > 0:
+            raise AssertionError(f"cells_train {arch} {variant}: the branch "
+                                 f"did not move")
+        bb = [x for _, x in tree_flatten(state["backbone"])]
+        bytes_ = sum(x.numel() * x.element_size() for x in bb)
+        dtypes = sorted({str(x.dtype) for x in bb})
+        if variant == "tuned2":
+            if dtypes != [str(torch.float8_e4m3fn)] or \
+                    2 * bytes_ != bf16_bytes:
+                raise AssertionError(f"cells_train {arch} tuned2: backbone "
+                                     f"{dtypes}, {bytes_} bytes against "
+                                     f"bf16's {bf16_bytes}")
+        else:
+            bf16_bytes = bytes_
+        gap = None
+        if variant == "tuned":
+            base = seen["baseline"]
+            gap = 0.0
+            for (la, ba), (lb, bb_) in zip(zip(losses, branches),
+                                           zip(base["losses"],
+                                               base["branches"])):
+                for a, b in zip([la] + ba, [lb] + bb_):
+                    gap = max(gap, float((a - b).abs().max()))
+                    if not torch.allclose(a, b, **CELL_TRAIN_TOL):
+                        raise AssertionError(
+                            f"cells_train {arch}: tuned off baseline by "
+                            f"{float((a - b).abs().max())}")
+        seen[variant] = {"losses": losses, "branches": branches}
+        row = {"arch": arch, "shape": name, "variant": variant,
+               "cut": cut_note(name, shape), "seq": shape.seq_len,
+               "fsdp_pure": fsdp_pure, "causal_skip": cfg.causal_skip,
+               "lru_scan_chunk": cfg.lru_scan_chunk,
+               "q_chunk": cfg.q_chunk, "kv_chunk": cfg.kv_chunk,
+               "losses": losses_f, "step_ms": ms,
+               "median_step_ms": statistics.median(ms),
+               "branch_max_abs_change": moved, "backbone_dtypes": dtypes,
+               "backbone_bytes": bytes_, "max_abs_gap_to_baseline": gap,
+               "max_memory_allocated_bytes": peak, "launches": 0}
+        print("cells_train: " + json.dumps(row), flush=True)
+        rows[variant] = row
+        run = {"cfg": cfg, "policy": cells.POLICY, "state": state,
+               "batches": [batch_], "step_times": [t / 1e3 for t in ms]}
+        report_attention_layers(run, f"cells_{arch}_{variant}")
+        del cur, metrics, run, args, batch_
+        if variant == "tuned":
+            seen.clear()
+    del state
+    torch.cuda.empty_cache()
+    return rows
+
+
+def refused_cells(mesh, launches: dict) -> dict:
+    """f: the tuned2 train cell (batch cut 256 -> 1) on mamba2-780m and
+    recurrentgemma-9b raises on the card, before its first step returns,
+    where JAX's refuses to trace: torch's type promotion of the fp8
+    backbone's ``dt_bias`` / Λ with f32, in ``ssd_block`` / ``_gates``.
+    Any other exception, or none, fails the run."""
+    import traceback
+
+    from repro_torch.launch import cells
+
+    where = {"mamba2-780m": "ssd_block", "recurrentgemma-9b": "_gates"}
+    rows = {}
+    for arch, func in where.items():
+        shape = cell_shape("train_4k", batch=1)
+        cell = cells.build_cell(arch, shape, mesh, "tuned2")
+        args = cell_args(arch, shape, cell)
+        zero_counts()
+        try:
+            call_cell(cell, mesh, args)
+        except RuntimeError as e:
+            frame = traceback.extract_tb(e.__traceback__)[-1]
+            if "Promotion for Float8" not in str(e) or frame.name != func:
+                raise
+            rows[arch] = {"raised": type(e).__name__, "message": str(e),
+                          "function": frame.name,
+                          "file": Path(frame.filename).name,
+                          "line": frame.lineno}
+        else:
+            raise AssertionError(f"cells_refused {arch}: the tuned2 step "
+                                 f"ran; JAX's refuses")
+        no_launch(f"cells_refused {arch}", launches)
+        print("cells_refused: " + json.dumps(
+            {"arch": arch, "shape": "train_4k",
+             "cut": cut_note("train_4k", shape), **rows[arch]}), flush=True)
+        del args, cell
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_cells() -> dict:
+    """The cells (ROADMAP item 4(d)): ``cells_table`` on the host, then on
+    a one-rank NCCL mesh, made here and destroyed in a ``finally``, the
+    decode, prefill and train cells and the two refused tuned2 cells, each
+    built by ``build_cell`` and called as the dry run calls it."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as lmesh
+
+    t0 = time.perf_counter()
+    cells_table()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0),
+                            timeout=timedelta(seconds=60))
+    launches = {f"cells_{p}": {} for p in ("decode", "prefill", "train",
+                                           "refused")}
+    try:
+        mesh = lmesh.make_host_mesh()
+        decode = decode_cells(mesh, launches["cells_decode"])
+        prefill = prefill_cell(mesh, launches["cells_prefill"])
+        rgemma = train_cells(mesh, launches["cells_train"],
+                             "recurrentgemma-9b", ("baseline", "tuned"),
+                             batch=2)
+        granite = train_cells(mesh, launches["cells_train"], "granite-3-8b",
+                              ("baseline", "tuned", "tuned2"), batch=2)
+        refused = refused_cells(mesh, launches["cells_refused"])
+    finally:
+        dist.destroy_process_group()
+    summary = {
+        "seconds": time.perf_counter() - t0,
+        "recurrentgemma_train_median_step_ms": {
+            v: r["median_step_ms"] for v, r in rgemma.items()},
+        "granite_train_median_step_ms": {
+            v: r["median_step_ms"] for v, r in granite.items()},
+        "decode_median_step_ms": {" ".join(k): r["median_step_ms"]
+                                  for k, r in decode.items()},
+        "prefill_ms": {v: r["ms"] for v, r in prefill["by_variant"].items()},
+        "refused": sorted(refused), "launches_by_path": launches,
+        "card": card_line()}
+    print("cells: " + json.dumps(summary), flush=True)
+    return summary
+
+
+def cell_launches(kernel: str, cell_runs: dict) -> dict:
+    """``kernel``'s launches in each path of the cells phase."""
+    return {path: counts[kernel]
+            for path, counts in cell_runs["launches_by_path"].items()}
 
 def cuda_batch(cfg, seq: int, batch: int, step: int,
                frontend: dict | None = None) -> dict:
@@ -3267,6 +3807,7 @@ def main() -> int:
     sharding = run_sharding(run)
     del run          # each path frees its state: its peak stands alone
     sharding_table()
+    cell_runs = run_cells()
     run_full_path(main_path)
     moe_path, run = run_main_path("granite-moe-1b-a400m", label="moe")
     report_moe_path(run)
@@ -3347,7 +3888,8 @@ def main() -> int:
                              "whisper_serve_path": whisper_serve["launches"],
                              "vision_serve_path": vision_serve["launches"],
                              "recurrentgemma_serve_path":
-                                 rgemma_serve["launches"]},
+                                 rgemma_serve["launches"],
+                             **cell_launches("flash_attention", cell_runs)},
         **{name: {k: row[k] for k in (
             "q", "kv", "softcap", "max_abs_err", "kernel_ms", "plain_ms",
             "bound_ms", "bound_by", "library", "library_ms",
@@ -3366,6 +3908,9 @@ def main() -> int:
     bfp["bfp_matmul"]["launches_by_path"] = {
         "bfp_path": bfp["bfp_matmul"]["launches"],
         "bfp_fidelity": fidelity["launches"]}
+    for name in BFP_REPLACES:
+        bfp[name].setdefault("launches_by_path", {}).update(
+            cell_launches(name, cell_runs))
     bfp["bfp_matmul"]["fidelity_shape"] = fidelity
     for name, replaces in BFP_REPLACES.items():
         kernels.append({

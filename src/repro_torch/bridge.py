@@ -7,8 +7,9 @@ keys, dense weights ``(d_in, d_out)``, the backbone's repeated pattern
 stacked on a leading ``n_rep`` axis under ``stack/sub<i>/...``, and the
 duplex branch's ``tap_proj`` and ``blocks`` stacked on a leading
 ``n_blocks`` axis.  So the bridge is a leafwise conversion: floats keep
-their dtype (bfloat16 arrays from ``ml_dtypes`` become ``torch.bfloat16``
-exactly), integers keep theirs.  A whole ``init_state`` crosses over:
+their dtype (bfloat16 and float8_e4m3fn arrays from ``ml_dtypes`` become
+``torch.bfloat16`` and ``torch.float8_e4m3fn`` bit for bit), integers keep
+theirs.  A whole ``init_state`` crosses over:
 ``step``, ``backbone``, ``branch`` (duplex mode only) and the optimizer
 state (AdamW's ``step`` included once it exists).  ``device`` has no
 default: the port runs on ``cuda`` unless a caller names ``cpu``, as the
@@ -24,11 +25,17 @@ import torch
 from repro_torch.utils import tree_map
 
 
+# the ml_dtypes floats numpy cannot hand to torch, each carried through
+# f32, which holds every value of each exactly
+_WIDENED = {"bfloat16": torch.bfloat16,
+            "float8_e4m3fn": torch.float8_e4m3fn}
+
+
 def _leaf_to_torch(x: Any, device) -> torch.Tensor:
     a = np.asarray(x)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name in _WIDENED:
         return torch.from_numpy(a.astype(np.float32)).to(
-            device=device, dtype=torch.bfloat16)
+            device=device, dtype=_WIDENED[a.dtype.name])
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
@@ -38,10 +45,11 @@ def to_torch(tree: Any, device) -> Any:
 
 
 def to_numpy(tree: Any) -> Any:
-    """Nested dict of tensors → numpy (bfloat16 widened exactly to f32)."""
+    """Nested dict of tensors → numpy (bfloat16 and float8_e4m3fn widened
+    exactly to f32)."""
     def leaf(t):
         t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        return (t.float() if t.dtype in _WIDENED.values() else t).numpy()
     return tree_map(leaf, tree)
 
 

@@ -259,10 +259,12 @@ def state_pspecs(state_shapes: Any, mesh, pspec=None) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """A spec on a ``DeviceMesh``, as ``jax.sharding.NamedSharding``:
-    ``placements`` holds one DTensor placement per mesh dim."""
+    """A spec on a mesh, as ``jax.sharding.NamedSharding``: ``placements``
+    holds one DTensor placement per mesh dim, and ``spec`` the spec they
+    came from (``to_named`` sets it; equality reads the placements)."""
     mesh: Any
     placements: tuple
+    spec: Optional[tuple] = dataclasses.field(default=None, compare=False)
 
 
 def placements(spec: tuple, mesh) -> tuple:
@@ -298,7 +300,7 @@ def placements(spec: tuple, mesh) -> tuple:
 def to_named(tree_specs: Any, mesh) -> Any:
     """Each spec of a tree (or one spec) as a ``NamedSharding`` on
     ``mesh``."""
-    return tree_map(lambda s: NamedSharding(mesh, placements(s, mesh)),
+    return tree_map(lambda s: NamedSharding(mesh, placements(s, mesh), s),
                     tree_specs)
 
 

@@ -96,10 +96,17 @@ def _scan(a, b):
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)`` op by op in x's dtype.
-    In bf16 each op rounds, and ``F.softplus`` (one rounding) differs from
-    it by an ulp in about a quarter of Griffin's Λ."""
-    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)`` op by op in x's dtype:
+    each op runs in f32 and rounds to x's dtype, as torch's bf16 ops do, so
+    an fp8 Λ, for which torch has no arithmetic, gets its softplus in fp8
+    as the reference's does.  In bf16 each op rounds, and ``F.softplus``
+    (one rounding) differs from it by an ulp in about a quarter of
+    Griffin's Λ."""
+    def rnd(t):
+        return t.to(x.dtype).float()
+    xf = x.float()
+    return (torch.clamp(xf, min=0) +
+            rnd(torch.log1p(rnd(torch.exp(-xf.abs()))))).to(x.dtype)
 
 
 def _gates(params, x: torch.Tensor, policy: L.Policy):
@@ -109,9 +116,11 @@ def _gates(params, x: torch.Tensor, policy: L.Policy):
                                 "act_lru").float())
     i = torch.sigmoid(constrain(L.dense(params["wi"], x, policy=policy),
                                 "act_lru").float())
-    # softplus in Λ's stored dtype (bf16 in a cast backbone), as the
-    # reference's
-    log_a = -_C * _softplus(params["lambda"])[None, None, :] * r
+    # softplus and its product with -C in Λ's stored dtype (bf16 in a cast
+    # backbone), as the reference's; the product with r promotes to f32,
+    # which an fp8 Λ refuses, as the reference's does
+    sp = _softplus(params["lambda"])
+    log_a = (-_C * sp.float()).to(sp.dtype)[None, None, :] * r
     a = torch.exp(log_a)
     gated_x = torch.sqrt(torch.clamp(-torch.expm1(2.0 * log_a), min=1e-12)) \
         * i * x.float()

@@ -48,6 +48,8 @@ def _experts_init(gen: torch.Generator, shape: tuple, scale: float, dtype,
     stored in ``dtype``: no f32 copy of the whole tensor is ever held
     (llama4-maverick's ``wi`` of one layer is 21.5 GB in f32)."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:                  # shapes only: nothing to draw
+        return out
     for idx in itertools.product(*map(range, shape[:-2])):
         out[idx] = L._normal(gen, shape[-2:], scale, dtype, device)
     return out

@@ -7,7 +7,8 @@ whatever its family: whisper-base dispatches to the enc-dec composition
 (``models/encdec.py``), everything else to the generic stack.  The port
 trains and serves each of them: the dense, MoE, local-attention, Mamba-2,
 hybrid RG-LRU (recurrentgemma-9b), audio (whisper-base) and
-vision-language (llama-3.2-vision-90b) archs.
+vision-language (llama-3.2-vision-90b) archs.  ``ARCHS`` lists them in
+the reference's order, so ``cells()`` gives its 40 cells in its order.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from repro_torch.configs import (gemma2_9b, granite_3_8b, granite_moe_1b,
                                  llama32_vision_90b, llama4_maverick,
                                  mamba2_780m, qwen2_72b, recurrentgemma_9b,
                                  starcoder2_7b, whisper_base)
-from repro_torch.configs.common import ModelConfig
+from repro_torch.configs.common import ModelConfig, SHAPES
 from repro_torch.models import encdec, transformer
 
 
@@ -45,16 +46,16 @@ class ArchEntry:
 ARCHS: dict[str, ArchEntry] = {
     name: ArchEntry(name=name, full=mod.FULL, smoke=mod.SMOKE, module=api)
     for name, mod, api in (
-        ("granite-3-8b", granite_3_8b, transformer),
-        ("qwen2-72b", qwen2_72b, transformer),
-        ("granite-moe-1b-a400m", granite_moe_1b, transformer),
-        ("llama4-maverick-400b-a17b", llama4_maverick, transformer),
+        ("whisper-base", whisper_base, encdec),
         ("gemma2-9b", gemma2_9b, transformer),
+        ("qwen2-72b", qwen2_72b, transformer),
         ("starcoder2-7b", starcoder2_7b, transformer),
+        ("granite-3-8b", granite_3_8b, transformer),
+        ("llama-3.2-vision-90b", llama32_vision_90b, transformer),
         ("mamba2-780m", mamba2_780m, transformer),
         ("recurrentgemma-9b", recurrentgemma_9b, transformer),
-        ("whisper-base", whisper_base, encdec),
-        ("llama-3.2-vision-90b", llama32_vision_90b, transformer))
+        ("granite-moe-1b-a400m", granite_moe_1b, transformer),
+        ("llama4-maverick-400b-a17b", llama4_maverick, transformer))
 }
 
 
@@ -62,3 +63,18 @@ def get(name: str) -> ArchEntry:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def cells(include_skips: bool = True):
+    """All 40 (arch × shape) cells, ``(arch, ShapeSpec, skip)``, with the
+    reason a cell is skipped or ``None``."""
+    out = []
+    for name, entry in ARCHS.items():
+        for shape in SHAPES.values():
+            skip = None
+            if shape.name == "long_500k" and \
+                    not entry.full.supports_long_context:
+                skip = "quadratic attention cannot serve 500k context"
+            if skip is None or include_skips:
+                out.append((name, shape, skip))
+    return out
