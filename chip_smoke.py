@@ -75,7 +75,17 @@ Phases, each printing its numbers on lines of their own:
      torch's fp8 promotion ``RuntimeError`` in ``ssd_block`` and
      ``_gates``, where JAX's refuse to trace; no kernel launched
      (``cells_*`` lines; ``launches_by_path`` ``cells_*`` in the kernels
-     JSON);
+     JSON); then the dry run (``launch/dryrun.py``, ``op_analysis.py``):
+     ``dryrun_table``, every baseline cell traced on ``meta`` on the 16x16
+     layout but the prefill_32k cells of the archs with attention (each
+     ok or skipped as the reference skips it; FLOPs and traffic of the
+     whole cell and per device, argument bytes per device, the bound of a
+     device's share on an H100), and ``dryrun_card``, each cell above at
+     its cut batch traced on ``meta``, its FLOPs equal to
+     ``FlopCounterMode``'s over the same cell's call on the card, beside
+     the measured median and the one-card bound (the two tuned2 refusals
+     refuse in the dry run too); the traces run in a pool of spawned host
+     processes, no kernel launched (``launches_by_path`` ``dryrun_*``);
      each path frees its state before the next, so that each peak stands
      alone;
   6. ``f1_check`` (run before the BFP path): the kernel wrappers refuse
@@ -315,24 +325,15 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_counters() -> dict:
-    """Every kernel wrapper of the port, by name; each counts its launches
-    in ``.launches``."""
-    from repro_torch.kernels import bfp_common as bc, bfp_matmul as bm, \
-        bfp_quant as bq, flash_attention as fa
-    fns = (fa.flash_attention, bm.bfp_matmul, bq.bfp_quantize,
-           bq.bfp_matmul_packed, bm.quantize_operand, bq.dequantize_operand,
-           bc.gemm_tn)
-    return {f.__name__: f for f in fns}
-
-
 def zero_counts() -> None:
-    for f in kernel_counters().values():
+    from repro_torch.launch.op_analysis import kernel_wrappers
+    for f in kernel_wrappers().values():
         f.launches = 0
 
 
 def read_counts() -> dict:
-    return {name: f.launches for name, f in kernel_counters().items()}
+    from repro_torch.launch.op_analysis import kernel_wrappers
+    return {name: f.launches for name, f in kernel_wrappers().items()}
 
 
 def tree_nbytes(tree) -> int:
@@ -1442,6 +1443,8 @@ def sharding_table() -> dict:
 # ---------------------------------------------------------------------------
 
 CELL_STEPS = 3          # train steps a variant takes in the cells phase
+# the tuned2 train cells that refuse, and the function that raises
+TUNED2_REFUSED = {"mamba2-780m": "ssd_block", "recurrentgemma-9b": "_gates"}
 DECODE_STEPS = 8        # decode steps from the zero cache
 # the tolerances of tests/test_torch_cells.py: train steps (f32 values),
 # serving's f32 values, and bf16 values
@@ -1603,11 +1606,20 @@ def call_cell(cell, mesh, args) -> tuple:
     return out, start.elapsed_time(end)
 
 
-def no_launch(label: str, launches: dict) -> None:
-    """Read the counts zeroed before the run and add them to ``launches``
-    (kernel -> count): the cells leave flash off and reach no BFP kernel,
-    so every count must be 0."""
-    counts = read_counts()
+def card_flops(cell, mesh, args) -> int:
+    """The FLOPs of one more, untimed call of the cell on ``args`` under
+    ``FlopCounterMode``: the count that the dry run's is held to."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as fc:
+        call_cell(cell, mesh, args)
+    return fc.get_total_flops()
+
+
+def no_launch(label: str, launches: dict, counts: dict | None = None) -> None:
+    """Add ``counts`` (kernel -> launches; by default this process's,
+    zeroed before the run) to ``launches``: the cells leave flash off and
+    reach no BFP kernel, so every count must be 0."""
+    counts = read_counts() if counts is None else counts
     if any(counts.values()):
         raise AssertionError(f"{label} launched {counts}; the cells leave "
                              f"flash off and reach no BFP kernel")
@@ -1632,9 +1644,10 @@ def cut_note(name: str, shape) -> str:
 def decode_cells(mesh, launches: dict) -> dict:
     """b: decode cells at their own sizes, each variant 8 greedy steps from
     the zero cache: the step median by CUDA events, the byte bound
-    (params + cache over 3.35 TB/s), the peak; every step's logits finite
-    (over the vocab's rows), the same tokens at baseline and tuned, no
-    launch.  An arch's params are drawn once for all its cells."""
+    (params + cache over 3.35 TB/s), the peak, the FLOPs of a ninth step
+    (``card_flops``); every step's logits finite (over the vocab's rows),
+    the same tokens at baseline and tuned, no launch.  An arch's params are
+    drawn once for all its cells."""
     from repro_torch.launch import cells
     from repro_torch.models import registry
 
@@ -1667,8 +1680,10 @@ def decode_cells(mesh, launches: dict) -> dict:
                                                                  steps[-1]}))
                     steps.append(nxt)
                     ms.append(t)
-            no_launch(f"cells_decode {arch} {name} {variant}", launches)
             peak = torch.cuda.max_memory_allocated()
+            flops = card_flops(cell, mesh, (params, cache,
+                                            {"tokens": steps[-1]}))
+            no_launch(f"cells_decode {arch} {name} {variant}", launches)
             if len(finite) != DECODE_STEPS or \
                     not bool(torch.stack(finite).all()):
                 raise AssertionError(f"cells_decode {arch} {name} {variant}: "
@@ -1681,7 +1696,8 @@ def decode_cells(mesh, launches: dict) -> dict:
                    "step_ms": ms, "median_step_ms": statistics.median(ms),
                    "param_bytes": pbytes, "cache_bytes": cbytes,
                    "bound_ms": (pbytes + cbytes) / PEAK_BYTES * 1e3,
-                   "max_memory_allocated_bytes": peak, "launches": 0,
+                   "max_memory_allocated_bytes": peak,
+                   "dot_flops_card": flops, "launches": 0,
                    "tokens_head": tokens[variant][0, :DECODE_STEPS].tolist()}
             print("cells_decode: " + json.dumps(row), flush=True)
             out[(arch, name, variant)] = row
@@ -1717,7 +1733,7 @@ def prefill_cell(mesh, launches: dict) -> dict:
     logits of every position, f32) and tuned (the last only): the
     next-token logits at the bf16 tolerance and the cache leaf for leaf
     (bf16 leaves at 2e-2, others at 2e-5) equal between the two; both
-    times and peaks."""
+    times and peaks, and the FLOPs of a third call (``card_flops``)."""
     from repro_torch.launch import cells
 
     arch, name = "mamba2-780m", "prefill_32k"
@@ -1732,13 +1748,14 @@ def prefill_cell(mesh, launches: dict) -> dict:
         zero_counts()
         call_cell(cell, mesh, args)                       # warm
         out, ms = call_cell(cell, mesh, args)
+        peak = torch.cuda.max_memory_allocated()
+        flops = card_flops(cell, mesh, args)
         no_launch(f"cells_prefill {variant}", launches)
         outs[variant] = {"next_token_logits": out["next_token_logits"],
                          "cache": out["cache"]}
-        rows[variant] = {"ms": ms, "max_memory_allocated_bytes":
-                         torch.cuda.max_memory_allocated(),
+        rows[variant] = {"ms": ms, "max_memory_allocated_bytes": peak,
                          "logits_mode": "last" if variant == "tuned"
-                         else "all"}
+                         else "all", "dot_flops_card": flops}
         del out, args
     logits = close_trees("cells_prefill logits",
                          outs["tuned"]["next_token_logits"],
@@ -1749,7 +1766,8 @@ def prefill_cell(mesh, launches: dict) -> dict:
                         lambda a: CELL_BF16_TOL if a.dtype == torch.bfloat16
                         else CELL_TOL)
     row = {"arch": arch, "shape": name, "cut": cut_note(name, shape),
-           "seq": shape.seq_len, "by_variant": rows,
+           "batch": shape.global_batch, "seq": shape.seq_len,
+           "by_variant": rows,
            "logits_max_abs_diff": max(logits.values()),
            "cache_max_abs_diff": max(cache.values()),
            "cache_bit_equal": all(v == 0 for v in cache.values()),
@@ -1767,7 +1785,8 @@ def train_cells(mesh, launches: dict, arch: str, variants: tuple,
     and tuned, the same draw in fp8 for tuned2), each step's ms by CUDA
     events; finite losses; tuned within the train tolerance of baseline at
     every step (loss and branch); the branch moved; a tuned2 backbone all
-    fp8 at exactly half the bf16 one's bytes; no launch.  The attention
+    fp8 at exactly half the bf16 one's bytes; the FLOPs of one more step
+    (``card_flops``); no launch.  The attention
     layers' times and shares (``report_attention_layers``) follow each
     variant."""
     from repro_torch.launch import cells
@@ -1794,8 +1813,9 @@ def train_cells(mesh, launches: dict, arch: str, variants: tuple,
             branches.append([x.float().reshape(-1) for _, x in
                              tree_flatten(cur["branch"])])
             ms.append(t)
-        no_launch(f"cells_train {arch} {variant}", launches)
         peak = torch.cuda.max_memory_allocated()
+        flops = card_flops(cell, mesh, (cur, batch_))
+        no_launch(f"cells_train {arch} {variant}", launches)
         losses_f = [float(x) for x in losses]
         if not all(map(math.isfinite, losses_f)):
             raise AssertionError(f"cells_train {arch} {variant}: losses "
@@ -1832,15 +1852,16 @@ def train_cells(mesh, launches: dict, arch: str, variants: tuple,
                             f"{float((a - b).abs().max())}")
         seen[variant] = {"losses": losses, "branches": branches}
         row = {"arch": arch, "shape": name, "variant": variant,
-               "cut": cut_note(name, shape), "seq": shape.seq_len,
-               "fsdp_pure": fsdp_pure, "causal_skip": cfg.causal_skip,
+               "cut": cut_note(name, shape), "batch": shape.global_batch,
+               "seq": shape.seq_len, "fsdp_pure": fsdp_pure, "causal_skip": cfg.causal_skip,
                "lru_scan_chunk": cfg.lru_scan_chunk,
                "q_chunk": cfg.q_chunk, "kv_chunk": cfg.kv_chunk,
                "losses": losses_f, "step_ms": ms,
                "median_step_ms": statistics.median(ms),
                "branch_max_abs_change": moved, "backbone_dtypes": dtypes,
                "backbone_bytes": bytes_, "max_abs_gap_to_baseline": gap,
-               "max_memory_allocated_bytes": peak, "launches": 0}
+               "max_memory_allocated_bytes": peak, "dot_flops_card": flops,
+               "launches": 0}
         print("cells_train: " + json.dumps(row), flush=True)
         rows[variant] = row
         run = {"cfg": cfg, "policy": cells.POLICY, "state": state,
@@ -1864,9 +1885,8 @@ def refused_cells(mesh, launches: dict) -> dict:
 
     from repro_torch.launch import cells
 
-    where = {"mamba2-780m": "ssd_block", "recurrentgemma-9b": "_gates"}
     rows = {}
-    for arch, func in where.items():
+    for arch, func in TUNED2_REFUSED.items():
         shape = cell_shape("train_4k", batch=1)
         cell = cells.build_cell(arch, shape, mesh, "tuned2")
         args = cell_args(arch, shape, cell)
@@ -1897,7 +1917,10 @@ def run_cells() -> dict:
     """The cells (ROADMAP item 4(d)): ``cells_table`` on the host, then on
     a one-rank NCCL mesh, made here and destroyed in a ``finally``, the
     decode, prefill and train cells and the two refused tuned2 cells, each
-    built by ``build_cell`` and called as the dry run calls it."""
+    built by ``build_cell`` and called as the dry run calls it.  ``counted``
+    lists each cell run with its batch, the FLOPs ``card_flops`` counted
+    and its measured median ms (a refused cell: the function it raised
+    in), for the dry run to hold its counts against."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -1923,6 +1946,22 @@ def run_cells() -> dict:
         refused = refused_cells(mesh, launches["cells_refused"])
     finally:
         dist.destroy_process_group()
+
+    def counted_row(arch, name, variant, r, ms):
+        return {"arch": arch, "shape": name, "variant": variant,
+                "batch": r["batch"], "dot_flops_card": r["dot_flops_card"],
+                "measured_ms": ms}
+
+    counted = [counted_row(*k, r, r["median_step_ms"])
+               for k, r in decode.items()]
+    counted += [counted_row(prefill["arch"], prefill["shape"], v,
+                            {**r, "batch": prefill["batch"]}, r["ms"])
+                for v, r in prefill["by_variant"].items()]
+    counted += [counted_row(r["arch"], r["shape"], v, r, r["median_step_ms"])
+                for rows in (rgemma, granite) for v, r in rows.items()]
+    counted += [{"arch": arch, "shape": "train_4k", "variant": "tuned2",
+                 "batch": 1, "refused_in": r["function"]}
+                for arch, r in refused.items()]
     summary = {
         "seconds": time.perf_counter() - t0,
         "recurrentgemma_train_median_step_ms": {
@@ -1932,9 +1971,208 @@ def run_cells() -> dict:
         "decode_median_step_ms": {" ".join(k): r["median_step_ms"]
                                   for k, r in decode.items()},
         "prefill_ms": {v: r["ms"] for v, r in prefill["by_variant"].items()},
-        "refused": sorted(refused), "launches_by_path": launches,
-        "card": card_line()}
+        "refused": sorted(refused), "counted": counted,
+        "launches_by_path": launches, "card": card_line()}
     print("cells: " + json.dumps(summary), flush=True)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# the dry run (launch/dryrun.py, launch/op_analysis.py)
+# ---------------------------------------------------------------------------
+
+def dryrun_bound_ms(flops: float, traffic: float) -> float:
+    """The least time of ``flops`` and ``traffic`` bytes on one H100: bf16
+    tensor-core peak and HBM3 rate, whichever is longer."""
+    return max(flops / PEAK_FLOPS[torch.bfloat16], traffic / PEAK_BYTES) * 1e3
+
+
+def dryrun_trace(arch: str, name: str, batch, variant: str) -> dict:
+    """In a pool process: the dry run of a cell on the 16x16 layout, with
+    ``name``'s batch cut to ``batch`` (``None``: ``run_cell``'s record of
+    the baseline cell), and in ``launches`` the kernel counts that this
+    process zeroed just before the trace and read just after.  A refused
+    cut cell gives its error and the model functions of its traceback."""
+    import traceback
+
+    from repro_torch.launch import dryrun, mesh as lmesh
+
+    zero_counts()
+    if batch is None and variant == "baseline":
+        rec = dryrun.run_cell(arch, name, False, Path(tempfile.gettempdir()))
+    else:
+        try:
+            rec = dryrun.trace_cell(arch, cell_shape(name, batch),
+                                    lmesh.production_layout(), variant)
+            rec.pop("trace")
+            rec = {"status": "ok", **rec}
+        except RuntimeError as e:
+            rec = {"status": "error", "error": str(e), "where": [
+                f.name for f in traceback.extract_tb(e.__traceback__)
+                if "repro_torch/models" in f.filename]}
+    rec["launches"] = read_counts()
+    return rec
+
+
+def dryrun_pool():
+    """Spawned host processes for the traces (the parent holds a CUDA
+    context, so no fork), one core left to the parent."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+    cores = len(os.sched_getaffinity(0))
+    return ProcessPoolExecutor(max(1, min(7, cores - 1)),
+                               mp_context=multiprocessing.get_context("spawn"))
+
+
+def dryrun_table_cells() -> list:
+    """``(arch, shape name)`` of every baseline cell of ``registry.cells()``
+    but the prefill_32k cells of archs with attention layers (minutes each
+    on ``meta``: their blockwise loops)."""
+    from repro_torch.models import registry
+
+    out = []
+    for arch, shape, _ in registry.cells():
+        cfg = registry.get(arch).full
+        if shape.name == "prefill_32k" and any(
+                kind_layers(cfg, k) for k in ("attn", "local", "cross")):
+            continue
+        out.append((arch, shape.name))
+    return out
+
+
+def dryrun_table(futures: list, launches: dict) -> list:
+    """Host: ``dryrun.run_cell`` on the 16x16 layout for each cell of
+    ``dryrun_table_cells`` (``futures``, in that order), one
+    ``dryrun_table`` line each: status, ``trace_s`` (in a pool process,
+    beside the others), FLOPs and traffic of the whole cell and per device
+    (over the 256 devices), the argument bytes per device, and the bound
+    of a device's share on an H100.  An ``error`` or a kernel launch fails
+    the run."""
+    rows = []
+    for rec in (f.result() for f in futures):
+        row = {k: rec[k] for k in ("arch", "shape", "status")}
+        if rec["status"] == "ok":
+            n, c = rec["n_devices"], rec["cost"]
+            flops, traffic = c["dot_flops_global"], c["traffic_bytes_global"]
+            row.update({
+                "trace_s": rec["trace_s"], "n_devices": n,
+                "dot_flops_global": flops, "dot_flops_per_device": flops / n,
+                "traffic_bytes_global": traffic,
+                "traffic_bytes_per_device": traffic / n,
+                "traffic_bytes_pessimistic_global":
+                    c["traffic_bytes_pessimistic_global"],
+                "argument_bytes_per_device":
+                    rec["memory"]["argument_bytes"],
+                "output_bytes_per_device": rec["memory"]["output_bytes"],
+                "temp_bytes_global": rec["memory"]["temp_bytes_global"],
+                "bound_ms_per_device": dryrun_bound_ms(flops / n,
+                                                       traffic / n),
+                "products": rec["ops"]["products"],
+                "kernel": rec["ops"]["kernel"]})
+        else:
+            row["reason"] = rec.get("reason")
+        print("dryrun_table: " + json.dumps(row), flush=True)
+        if row["status"] not in ("ok", "skipped") or row.get("kernel", 0):
+            raise AssertionError(f"dryrun_table: {row}")
+        no_launch(f"dryrun_table {row['arch']} {row['shape']}", launches,
+                  rec["launches"])
+        rows.append(row)
+    return rows
+
+
+def dryrun_refused(arch: str, name: str, rec: dict) -> dict:
+    """A refused tuned2 train cell: the dry run must raise torch's fp8
+    promotion ``RuntimeError`` in the function the card's run raises in."""
+    if rec["status"] != "error" or \
+            "Promotion for Float8" not in rec["error"] or \
+            rec["where"][-1] != TUNED2_REFUSED[arch]:
+        raise AssertionError(f"dryrun_card {arch} {name} tuned2: {rec}; the "
+                             f"card and JAX refuse in "
+                             f"{TUNED2_REFUSED[arch]}")
+    return {"arch": arch, "shape": name, "variant": "tuned2",
+            "cut": cut_note(name, cell_shape(name, 1)), "status": "refused",
+            "function": rec["where"][-1], "message": rec["error"]}
+
+
+def dryrun_card(futures: list, counted: list, launches: dict) -> list:
+    """Each cell that run_cells ran (``counted``), at its cut batch: its dry
+    run on ``meta`` (16x16 layout, ``futures`` in the same order) must
+    count the FLOPs that ``FlopCounterMode`` counted over its call on the
+    card, exactly (the same op stream; flash is off).  The cells phase's
+    measured median beside the dry run's one-card bound and their ratio.
+    The refused tuned2 cells must refuse in the dry run too."""
+    rows = []
+    for ran, fut in zip(counted, futures):
+        arch, name, variant = ran["arch"], ran["shape"], ran["variant"]
+        label = f"dryrun_card {arch} {name} {variant}"
+        dry = fut.result()
+        no_launch(label, launches, dry["launches"])
+        if "refused_in" in ran:
+            row = dryrun_refused(arch, name, dry)
+            if row["function"] != ran["refused_in"]:
+                raise AssertionError(f"{label}: the card refused in "
+                                     f"{ran['refused_in']}")
+        elif dry["status"] != "ok" or dry["ops"]["kernel"]:
+            raise AssertionError(f"{label}: the dry run gave {dry}")
+        else:
+            meta_flops = dry["cost"]["dot_flops_global"]
+            if ran["dot_flops_card"] != meta_flops:
+                raise AssertionError(f"{label}: the dry run counts "
+                                     f"{meta_flops} FLOPs, the card's call "
+                                     f"{ran['dot_flops_card']}")
+            traffic = dry["cost"]["traffic_bytes_global"]
+            bound = dryrun_bound_ms(meta_flops, traffic)
+            ms = ran["measured_ms"]
+            row = {"arch": arch, "shape": name, "variant": variant,
+                   "cut": cut_note(name, cell_shape(name, ran["batch"])),
+                   "batch": ran["batch"], "status": "ok",
+                   "trace_s": dry["trace_s"],
+                   "dot_flops_global": meta_flops,
+                   "dot_flops_card": ran["dot_flops_card"],
+                   "traffic_bytes_global": traffic,
+                   "temp_bytes_global": dry["memory"]["temp_bytes_global"],
+                   "bound_ms_one_card": bound,
+                   "bound_by": "operations" if meta_flops /
+                   PEAK_FLOPS[torch.bfloat16] > traffic / PEAK_BYTES
+                   else "bytes",
+                   "measured_median_ms": ms,
+                   "measured_over_bound": ms / bound, "launches": 0}
+        print("dryrun_card: " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
+def run_dryrun(cell_runs: dict) -> dict:
+    """The dry run (ROADMAP item 4(e)), on the host: every trace of
+    ``dryrun_card`` and ``dryrun_table`` submitted to one pool of host
+    processes at once; each counts the kernel launches over its own trace,
+    and their sums are added to the cells phase's ``launches_by_path`` as
+    ``dryrun_card`` / ``dryrun_table`` (all 0)."""
+    t0 = time.perf_counter()
+    launches = {"dryrun_card": {}, "dryrun_table": {}}
+    counted = cell_runs["counted"]
+    with dryrun_pool() as pool:
+        on_card = [pool.submit(dryrun_trace, r["arch"], r["shape"],
+                               r["batch"], r["variant"]) for r in counted]
+        in_table = [pool.submit(dryrun_trace, arch, name, None, "baseline")
+                    for arch, name in dryrun_table_cells()]
+        card = dryrun_card(on_card, counted, launches["dryrun_card"])
+        table = dryrun_table(in_table, launches["dryrun_table"])
+    cell_runs["launches_by_path"].update(launches)
+    summary = {
+        "seconds": time.perf_counter() - t0,
+        "table_cells": len(table),
+        "table_ok": sum(r["status"] == "ok" for r in table),
+        "table_skipped": sum(r["status"] == "skipped" for r in table),
+        "card_cells": len(card),
+        "flops_equal": sum(r["status"] == "ok" for r in card),
+        "refused": sum(r["status"] == "refused" for r in card),
+        "measured_over_bound": {
+            f"{r['arch']} {r['shape']} {r['variant']}":
+                r["measured_over_bound"] for r in card if r["status"] == "ok"},
+        "launches_by_path": launches, "card": card_line()}
+    print("dryrun: " + json.dumps(summary), flush=True)
     return summary
 
 
@@ -3808,6 +4046,7 @@ def main() -> int:
     del run          # each path frees its state: its peak stands alone
     sharding_table()
     cell_runs = run_cells()
+    run_dryrun(cell_runs)
     run_full_path(main_path)
     moe_path, run = run_main_path("granite-moe-1b-a400m", label="moe")
     report_moe_path(run)

@@ -11,6 +11,10 @@ Counterpart of ``repro/distributed/ctx.py``.  ``constrain``:
   (``sharding.placements``); a DTensor on another mesh raises;
 * returns a plain tensor as it is on a mesh of one rank: it is then the
   whole value, as JAX's constraint on one device changes nothing;
+* returns a ``meta`` tensor as it is on an ``AbstractMesh``: a mesh without
+  ranks holds no local data, and the tensor is the whole abstract value,
+  as a JAX tracer is under an abstract mesh (the dry run,
+  ``launch/dryrun.py``, traces the cells so);
 * raises on a plain tensor on a mesh of more than one rank.  In eager torch
   a plain tensor there is one rank's local data, with no global layout to
   constrain; passing it through would hide that the models have no
@@ -57,7 +61,7 @@ def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
                              f"{_MESH}")
         return x.redistribute(_MESH, sh.placements(spec, _MESH))
     ranks = math.prod(sh.mesh_shape(_MESH).values())
-    if ranks == 1:
+    if ranks == 1 or (x.is_meta and isinstance(_MESH, sh.AbstractMesh)):
         return x
     raise ValueError(f"constrain({name!r}): a plain tensor on a mesh of "
                      f"{ranks} ranks is one rank's local data; pass a DTensor")

@@ -11,7 +11,11 @@ not fit the mesh.
 """
 from __future__ import annotations
 
+import math
+
 import torch.distributed as dist
+
+from repro_torch.distributed.sharding import AbstractMesh
 
 
 def _world() -> int:
@@ -21,11 +25,20 @@ def _world() -> int:
     return dist.get_world_size()
 
 
+def production_layout(*, multi_pod: bool = False) -> AbstractMesh:
+    """The production mesh's sizes and axis names without ranks, as the
+    reference's dry run sees its mesh: what the dry run traces the cells
+    on, with no process group."""
+    if multi_pod:
+        return AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    return AbstractMesh((16, 16), ("data", "model"))
+
+
 def make_production_mesh(*, multi_pod: bool = False, device_type="cuda"):
     from torch.distributed.device_mesh import init_device_mesh
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    world, need = _world(), 2 * 16 * 16 if multi_pod else 16 * 16
+    layout = production_layout(multi_pod=multi_pod)
+    shape, axes = layout.sizes, layout.names
+    world, need = _world(), math.prod(shape)
     if world != need:
         raise ValueError(f"the production mesh {shape} needs {need} ranks; "
                          f"the default group has {world}")

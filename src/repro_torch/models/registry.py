@@ -65,6 +65,9 @@ def get(name: str) -> ArchEntry:
     return ARCHS[name]
 
 
+LONG_CONTEXT_SKIP = "quadratic attention cannot serve 500k context"
+
+
 def cells(include_skips: bool = True):
     """All 40 (arch × shape) cells, ``(arch, ShapeSpec, skip)``, with the
     reason a cell is skipped or ``None``."""
@@ -74,7 +77,7 @@ def cells(include_skips: bool = True):
             skip = None
             if shape.name == "long_500k" and \
                     not entry.full.supports_long_context:
-                skip = "quadratic attention cannot serve 500k context"
+                skip = LONG_CONTEXT_SKIP
             if skip is None or include_skips:
                 out.append((name, shape, skip))
     return out
