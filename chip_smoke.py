@@ -61,7 +61,10 @@ Phases, each printing its numbers on lines of their own:
      decode at the cells' own sizes (mamba2-780m and recurrentgemma-9b x
      long_500k, baseline and tuned, and x decode_32k, baseline; 8 greedy
      steps from the zero cache: step median, byte bound, peak; every
-     step's logits finite, the same tokens at baseline and tuned),
+     step's logits finite, the same tokens at baseline and tuned; then one
+     more step with the params, cache and tokens placed by
+     ``sharding.device_put`` with the cell's shardings, as DTensors, its
+     tokens bit for bit the plain step's from the same cache),
      mamba2-780m x prefill_32k with the batch cut 32 -> 1 (the logits of
      every position against the last only: next-token logits at 2e-2 and
      the cache leaf for leaf equal; times and peaks), train_4k with the
@@ -84,7 +87,12 @@ Phases, each printing its numbers on lines of their own:
      its cut batch traced on ``meta``, its FLOPs equal to
      ``FlopCounterMode``'s over the same cell's call on the card, beside
      the measured median and the one-card bound (the two tuned2 refusals
-     refuse in the dry run too); the traces run in a pool of spawned host
+     refuse in the dry run too), and ``dryrun_partitioned``, the 12
+     decode cells partitioned on the 16x16 mesh over a ``fake`` group of
+     256 ranks and the two long_500k cells on the 2x16x16 mesh of 512 as
+     well, DTensors counted on one device (per-device FLOPs, traffic, temp
+     bytes and collectives, the ops DTensor redistributed on its own,
+     ``trace_s``); the traces run in a pool of spawned host
      processes, no kernel launched (``launches_by_path`` ``dryrun_*``);
      each path frees its state before the next, so that each peak stands
      alone;
@@ -1683,6 +1691,9 @@ def decode_cells(mesh, launches: dict) -> dict:
             peak = torch.cuda.max_memory_allocated()
             flops = card_flops(cell, mesh, (params, cache,
                                             {"tokens": steps[-1]}))
+            placed = placed_decode_step(f"cells_decode {arch} {name} "
+                                        f"{variant}", cell, mesh, params,
+                                        cache, steps[-1])
             no_launch(f"cells_decode {arch} {name} {variant}", launches)
             if len(finite) != DECODE_STEPS or \
                     not bool(torch.stack(finite).all()):
@@ -1698,7 +1709,8 @@ def decode_cells(mesh, launches: dict) -> dict:
                    "bound_ms": (pbytes + cbytes) / PEAK_BYTES * 1e3,
                    "max_memory_allocated_bytes": peak,
                    "dot_flops_card": flops, "launches": 0,
-                   "tokens_head": tokens[variant][0, :DECODE_STEPS].tolist()}
+                   "tokens_head": tokens[variant][0, :DECODE_STEPS].tolist(),
+                   "dtensor_step": placed}
             print("cells_decode: " + json.dumps(row), flush=True)
             out[(arch, name, variant)] = row
             del cache, args, tok, steps, nxt
@@ -1709,6 +1721,64 @@ def decode_cells(mesh, launches: dict) -> dict:
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def put_leafwise(tree: dict, named: dict) -> dict:
+    """``sharding.device_put`` of ``tree`` leaf by leaf, each plain leaf
+    dropped from ``tree`` as soon as its DTensor exists: on one rank
+    ``distribute_tensor`` copies a sharded leaf, and a cell's f32 params
+    (36 GB for recurrentgemma-9b) do not fit twice beside its cache."""
+    from repro_torch.distributed import sharding as sh
+    out = {}
+    for k in list(tree):
+        v = tree.pop(k)
+        out[k] = put_leafwise(v, named[k]) if isinstance(v, dict) else \
+            sh.device_put(v, named[k])
+        del v
+    return out
+
+
+def unplace_into(tree: dict, placed: dict) -> None:
+    """Refill ``tree`` (emptied by ``put_leafwise``) with each DTensor's
+    local tensor: on one rank, the whole leaf."""
+    for k, v in placed.items():
+        if isinstance(v, dict):
+            tree[k] = {}
+            unplace_into(tree[k], v)
+        else:
+            tree[k] = v.to_local()
+
+
+def placed_decode_step(label: str, cell, mesh, params, cache, tok) -> dict:
+    """One decode step of ``cell`` with its params, cache and tokens placed
+    by ``sharding.device_put`` on ``mesh`` with the cell's own shardings
+    (DTensors), against the plain step from a copy of the same cache: the
+    tokens must be equal bit for bit.  The params are placed leaf by leaf
+    and put back (``params`` holds the same values after); the cache's
+    largest difference is reported; both steps are timed by CUDA events."""
+    from repro_torch.utils import tree_flatten, tree_map
+
+    in_sh = cell[2]
+    (want, want_cache), plain_ms = call_cell(
+        cell, mesh, (params, tree_map(torch.clone, cache), {"tokens": tok}))
+    placed = [put_leafwise(params, in_sh[0]),
+              put_leafwise(tree_map(torch.clone, cache), in_sh[1]),
+              put_leafwise({"tokens": tok}, in_sh[2])]
+    try:
+        (got, got_cache), ms = call_cell(cell, mesh, placed)
+    finally:
+        unplace_into(params, placed[0])
+    got = got.full_tensor()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: the step on DTensors gave other "
+                             f"tokens than the plain step")
+    diff = max(float((g.full_tensor().float() - w.float()).abs().max())
+               for (_, g), (_, w) in zip(tree_flatten(got_cache),
+                                         tree_flatten(want_cache)))
+    del placed, got_cache, want_cache
+    torch.cuda.empty_cache()
+    return {"tokens_equal": True, "cache_max_abs_diff": diff,
+            "step_ms": ms, "plain_step_ms": plain_ms}
 
 
 def close_trees(label: str, got, want, rule) -> dict:
@@ -2014,6 +2084,80 @@ def dryrun_trace(arch: str, name: str, batch, variant: str) -> dict:
     return rec
 
 
+def dryrun_partitioned_trace(arch: str, name: str, multi_pod: bool) -> dict:
+    """In a pool process: ``dryrun.run_cell`` of a decode cell partitioned
+    on the production mesh over a ``fake`` group of its size (256 or 512
+    ranks, this process rank 0), started here and destroyed after; the
+    kernel counts zeroed before and read after, as ``dryrun_trace``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun, mesh as lmesh
+
+    zero_counts()
+    dryrun.fake_group(math.prod(lmesh.production_layout(
+        multi_pod=multi_pod).sizes))
+    try:
+        rec = dryrun.run_cell(arch, name, multi_pod,
+                              Path(tempfile.gettempdir()), partitioned=True)
+    finally:
+        dist.destroy_process_group()
+    rec["launches"] = read_counts()
+    return rec
+
+
+def dryrun_partitioned_cells() -> list:
+    """``(arch, shape name, multi_pod)``: the 12 decode cells that the
+    reference traces (decode_32k on the ten archs, long_500k on the two
+    that serve it) on the 16x16 mesh, and the two long_500k cells on the
+    2x16x16 mesh as well."""
+    from repro_torch.models import registry
+
+    out = [(arch, shape.name, False) for arch, shape, skip in
+           registry.cells() if shape.mode == "decode" and skip is None]
+    return out + [(arch, name, True) for arch, name, _ in out
+                  if name == "long_500k"]
+
+
+def dryrun_partitioned(futures: list, cases: list, launches: dict) -> list:
+    """Host: one ``dryrun_partitioned`` line per decode cell traced on
+    DTensors (``futures`` in the order of ``cases``): the per-device keys
+    (``cost.dot_flops``, ``traffic_bytes``, ``traffic_bytes_pessimistic``,
+    ``memory.temp_bytes``, ``collectives`` by kind), the whole cell's FLOPs
+    beside them, the ops DTensor redistributed on its own (the ten most
+    frequent, and their total) and ``trace_s``.  Not ``ok``, no
+    per-device FLOPs or collectives, or a kernel launch, fails the run."""
+    rows = []
+    for (arch, name, multi_pod), fut in zip(cases, futures):
+        rec = fut.result()
+        label = f"dryrun_partitioned {arch} {name} " + \
+            ("multipod" if multi_pod else "pod")
+        no_launch(label, launches, rec["launches"])
+        if rec["status"] != "ok" or not rec.get("partitioned") or \
+                rec["ops"]["kernel"] or rec["cost"]["dot_flops"] <= 0 or \
+                rec["collectives"]["total"] <= 0:
+            raise AssertionError(f"{label}: {rec}")
+        c, m = rec["cost"], rec["memory"]
+        implicit = rec["implicit"]
+        row = {"arch": arch, "shape": name, "mesh": rec["mesh"],
+               "n_devices": rec["n_devices"], "trace_s": rec["trace_s"],
+               "dot_flops": c["dot_flops"],
+               "dot_flops_global": c["dot_flops_global"],
+               "dot_flops_x_devices_over_global":
+                   c["dot_flops"] * rec["n_devices"] / c["dot_flops_global"],
+               "traffic_bytes": c["traffic_bytes"],
+               "traffic_bytes_pessimistic": c["traffic_bytes_pessimistic"],
+               "temp_bytes": m["temp_bytes"],
+               "argument_bytes": m["argument_bytes"],
+               "collectives": rec["collectives"],
+               "implicit_total": sum(implicit.values()),
+               "implicit_top": dict(sorted(implicit.items(),
+                                           key=lambda kv: -kv[1])[:10]),
+               "kernel": 0}
+        print("dryrun_partitioned: " + json.dumps(row), flush=True)
+        rows.append(row)
+    return rows
+
+
 def dryrun_pool():
     """Spawned host processes for the traces (the parent holds a CUDA
     context, so no fork), one core left to the parent."""
@@ -2150,15 +2294,21 @@ def run_dryrun(cell_runs: dict) -> dict:
     and their sums are added to the cells phase's ``launches_by_path`` as
     ``dryrun_card`` / ``dryrun_table`` (all 0)."""
     t0 = time.perf_counter()
-    launches = {"dryrun_card": {}, "dryrun_table": {}}
+    launches = {"dryrun_card": {}, "dryrun_table": {},
+                "dryrun_partitioned": {}}
     counted = cell_runs["counted"]
+    split = dryrun_partitioned_cells()
     with dryrun_pool() as pool:
         on_card = [pool.submit(dryrun_trace, r["arch"], r["shape"],
                                r["batch"], r["variant"]) for r in counted]
         in_table = [pool.submit(dryrun_trace, arch, name, None, "baseline")
                     for arch, name in dryrun_table_cells()]
+        on_mesh = [pool.submit(dryrun_partitioned_trace, *case)
+                   for case in split]
         card = dryrun_card(on_card, counted, launches["dryrun_card"])
         table = dryrun_table(in_table, launches["dryrun_table"])
+        parted = dryrun_partitioned(on_mesh, split,
+                                    launches["dryrun_partitioned"])
     cell_runs["launches_by_path"].update(launches)
     summary = {
         "seconds": time.perf_counter() - t0,
@@ -2171,6 +2321,8 @@ def run_dryrun(cell_runs: dict) -> dict:
         "measured_over_bound": {
             f"{r['arch']} {r['shape']} {r['variant']}":
                 r["measured_over_bound"] for r in card if r["status"] == "ok"},
+        "partitioned_cells": len(parted),
+        "partitioned_trace_s": sum(r["trace_s"] for r in parted),
         "launches_by_path": launches, "card": card_line()}
     print("dryrun: " + json.dumps(summary), flush=True)
     return summary

@@ -34,7 +34,7 @@ import dataclasses
 import re
 from typing import Any, Optional
 
-from repro_torch.utils import tree_flatten, tree_map, tree_unflatten
+from repro_torch.utils import tree_map, tree_map_with_path
 
 
 def P(*axes) -> tuple:
@@ -230,9 +230,11 @@ def batch_pspec(shape: tuple, mesh, include_model: bool = False) -> tuple:
 
 def tree_pspecs(tree: Any, mesh, rule) -> dict:
     """Map a nested dict of tensors (``meta`` ones too) to specs, by each
-    leaf's ``a/b/c`` path and shape."""
-    return tree_unflatten([(p, rule(_strip(p), tuple(x.shape), mesh))
-                           for p, x in tree_flatten(tree)])
+    leaf's ``a/b/c`` path and shape, in the tree's own structure: an empty
+    subtree (a cache's ``rem: {}``) stays, as the reference's map keeps
+    it, so that ``device_put`` finds it."""
+    return tree_map_with_path(
+        lambda p, x: rule(_strip(p), tuple(x.shape), mesh), tree)
 
 
 def _strip(path: str) -> str:

@@ -20,18 +20,31 @@ arguments under the cell's ``activation_rules`` and an
   ``cost.traffic_bytes_pessimistic_global`` — the counter's totals for
   the whole cell: the ``meta`` run is not partitioned, so a device's share
   is the total over ``n_devices`` only where the work spreads evenly;
-* ``collectives`` — what the counter saw, which is nothing: the ``meta``
-  run is one process without a group, and the collectives of the
-  partitioned step come with running the cells on DTensors;
+* ``collectives`` — what the counter saw: nothing in a whole-cell trace
+  (one process without a group);
 * ``ops`` — the census by aten op, ``products`` (the ops with a FLOP
   formula) and ``kernel`` (the hand-written kernels launched: the cells
   leave flash off, and a kernel wrapper raises on ``meta``);
+* ``partitioned`` — whether the record counts one device (below);
 * ``trace_s`` — seconds to build and trace the cell (there is no compile).
+
+A decode cell is also traced partitioned (``trace_cell`` on a
+``DeviceMesh``; the CLI starts torch's in-process ``fake`` group of 256 or
+512 ranks): its ``meta`` arguments placed as DTensors by the cell's
+shardings, one call counted on one device.  The record then has the
+reference's per-device keys beside the whole cell's, ``memory.temp_bytes``
+and ``cost.{dot_flops, traffic_bytes, traffic_bytes_pessimistic}``,
+``collectives`` by kind (all-reduce at its operand, all-gather at its
+result), ``implicit`` (the ops whose operands DTensor redistributed on its
+own, and how often), one device's ``ops``, and ``partitioned: true``.
+Train and prefill records are the whole cell's, ``partitioned: false``.
 
 One cell per call:
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-8b \\
         --shape train_4k --mesh pod --out /tmp/dryrun
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-8b \\
+        --shape decode_32k --mesh pod --out /tmp/dryrun
 """
 from __future__ import annotations
 
@@ -42,11 +55,13 @@ import time
 import traceback
 from pathlib import Path
 
+import torch.distributed as dist
+
 from repro_torch.configs.common import SHAPES
 from repro_torch.distributed import ctx, sharding as sh
 from repro_torch.launch import op_analysis
 from repro_torch.launch.cells import activation_rules, build_cell
-from repro_torch.launch.mesh import production_layout
+from repro_torch.launch.mesh import make_production_mesh, production_layout
 from repro_torch.models import registry
 from repro_torch.utils import tree_flatten, tree_map
 
@@ -101,47 +116,94 @@ def output_bytes(mode: str, out, in_specs, mesh) -> int:
                zip(outs, output_specs(mode, out, in_specs, mesh)))
 
 
+def _record(t: op_analysis.OpTrace, out) -> tuple:
+    """``(memory, cost)`` keys of one trace, unsuffixed."""
+    return ({"temp_bytes": t.temp_bytes(out)},
+            {"dot_flops": t.dot_flops(),
+             "traffic_bytes": t.traffic_bytes(fusion_aware=True),
+             "traffic_bytes_pessimistic": t.traffic_bytes(fusion_aware=False)})
+
+
+def _ops(t: op_analysis.OpTrace) -> dict:
+    census = t.op_census()
+    return {"products": sum(n for k, n in t.counts.items() if k[3]),
+            "kernel": census.pop("kernel"),
+            **dict(sorted(census.items(), key=lambda kv: -kv[1]))}
+
+
 def trace_cell(arch: str, shape, mesh, variant: str = "baseline",
                keep_order: bool = False) -> dict:
     """Build the cell of ``shape`` (a ``ShapeSpec``; a caller may cut its
     batch) on ``mesh`` and trace one call on its ``meta`` arguments under
     its ``activation_rules``: the record's measured keys, and ``trace``,
-    the ``OpTrace``."""
+    the ``OpTrace``.
+
+    On an ``AbstractMesh`` the call is the whole cell (the ``*_global``
+    keys, ``partitioned: False``).  On a ``DeviceMesh`` (a decode cell; a
+    ``fake`` group of the mesh's size will do) the whole cell is traced so
+    on the abstract layout of the mesh's sizes, and once more partitioned:
+    the ``meta`` arguments placed as DTensors by the cell's shardings
+    (``sharding.device_put``) and one call counted on the device of this
+    process's rank.  That adds the reference's per-device keys,
+    ``memory.temp_bytes``, ``cost.{dot_flops, traffic_bytes,
+    traffic_bytes_pessimistic}`` and ``collectives``, with ``implicit``
+    (the ops whose operands DTensor redistributed on its own, and how
+    often) and ``partitioned: True``; ``ops`` is then one device's census
+    and ``trace`` its ``OpTrace``, ``trace_global`` the whole cell's."""
     t0 = time.time()
-    fn, args, in_sh, _, _, cfg, fsdp_pure = build_cell(arch, shape, mesh,
+    sizes = sh.mesh_shape(mesh)
+    partitioned = not isinstance(mesh, sh.AbstractMesh)
+    if partitioned and shape.mode != "decode":
+        raise ValueError(f"{shape.mode} cells are traced whole, on an "
+                         f"AbstractMesh; only decode cells run on DTensors")
+    layout = sh.AbstractMesh(tuple(sizes.values()), tuple(sizes)) \
+        if partitioned else mesh
+    fn, args, in_sh, _, _, cfg, fsdp_pure = build_cell(arch, shape, layout,
                                                        variant)
     with ctx.activation_sharding(
-            mesh, activation_rules(cfg, mesh, fsdp_pure=fsdp_pure)):
+            layout, activation_rules(cfg, layout, fsdp_pure=fsdp_pure)):
         out, t = op_analysis.trace(fn, *args, keep_order=keep_order)
-    trace_s = time.time() - t0
-
     in_specs = [tree_map(lambda s: s.spec, s) for s in in_sh]
-    census = t.op_census()
-    return {
-        "trace_s": round(trace_s, 2),
-        "n_devices": math.prod(sh.mesh_shape(mesh).values()),
+    memory, cost = _record(t, out)
+    rec = {
+        "partitioned": partitioned,
+        "n_devices": math.prod(sizes.values()),
         "memory": {
             "argument_bytes": sum(device_bytes(a, s, mesh)
                                   for a, s in zip(args, in_specs)),
             "output_bytes": output_bytes(shape.mode, out, in_specs, mesh),
-            "temp_bytes_global": t.temp_bytes(out),
+            **{f"{k}_global": v for k, v in memory.items()},
         },
-        "cost": {
-            "dot_flops_global": t.dot_flops(),
-            "traffic_bytes_global": t.traffic_bytes(fusion_aware=True),
-            "traffic_bytes_pessimistic_global":
-                t.traffic_bytes(fusion_aware=False),
-        },
+        "cost": {f"{k}_global": v for k, v in cost.items()},
         "collectives": t.collective_bytes(),
-        "ops": {"products": sum(n for k, n in t.counts.items() if k[3]),
-                "kernel": census.pop("kernel"),
-                **dict(sorted(census.items(), key=lambda kv: -kv[1]))},
+        "ops": _ops(t),
         "trace": t,
     }
+    if partitioned:
+        fn, args, in_sh, _, _, cfg, _ = build_cell(arch, shape, mesh,
+                                                   variant)
+        placed = [sh.device_put(a, s) for a, s in zip(args, in_sh)]
+        with ctx.activation_sharding(mesh, activation_rules(cfg, mesh)):
+            out, one = op_analysis.trace(fn, *placed, keep_order=keep_order)
+        memory, cost = _record(one, out)
+        rec["memory"].update(memory)
+        rec["cost"].update(cost)
+        rec.update(collectives=one.collective_bytes(),
+                   implicit=dict(sorted(one.implicit.items())),
+                   ops=_ops(one), trace=one, trace_global=t)
+    rec["trace_s"] = round(time.time() - t0, 2)
+    return rec
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
-             save_trace: bool = False, variant: str = "baseline") -> dict:
+             save_trace: bool = False, variant: str = "baseline",
+             partitioned: bool = False) -> dict:
+    """The cell's record.  ``partitioned``: a decode cell is traced on the
+    production mesh over the default process group (``make_production_
+    mesh(device_type="cpu")``; ``main`` starts a ``fake`` group of the
+    mesh's size), with the per-device keys of ``trace_cell``; a train or
+    prefill cell, or any cell without ``partitioned``, is traced whole on
+    the production layout, ``partitioned: False``."""
     shape = SHAPES[shape_name]
     entry = registry.get(arch)
     mesh_name = "multipod" if multi_pod else "pod"
@@ -153,15 +215,26 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
         rec["reason"] = registry.LONG_CONTEXT_SKIP
         return rec
 
-    got = trace_cell(arch, shape, production_layout(multi_pod=multi_pod),
-                     variant, keep_order=save_trace)
+    mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu") \
+        if partitioned and shape.mode == "decode" else \
+        production_layout(multi_pod=multi_pod)
+    got = trace_cell(arch, shape, mesh, variant, keep_order=save_trace)
     t = got.pop("trace")
+    got.pop("trace_global", None)
     rec.update({"status": "ok", **got})
     if save_trace:
         suffix = "" if variant == "baseline" else f"__{variant}"
         (out_dir / f"{arch}__{shape_name}__{mesh_name}{suffix}.trace.txt"
          ).write_text(t.text())
     return rec
+
+
+def fake_group(ranks: int) -> None:
+    """The default group as torch's in-process ``fake`` backend of
+    ``ranks`` ranks, this process rank 0: its collectives move nothing."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=ranks)
 
 
 def main(argv=None) -> int:
@@ -180,25 +253,43 @@ def main(argv=None) -> int:
     name = f"{args.arch}__{args.shape}__{args.mesh}"
     if args.variant != "baseline":
         name += f"__{args.variant}"
+    multi_pod = args.mesh == "multipod"
+    decode = SHAPES[args.shape].mode == "decode"
+    own_group = decode and not dist.is_initialized()
     try:
-        rec = run_cell(args.arch, args.shape, args.mesh == "multipod",
-                       out_dir, save_trace=args.save_trace,
-                       variant=args.variant)
+        if own_group:
+            fake_group(math.prod(production_layout(
+                multi_pod=multi_pod).sizes))
+        rec = run_cell(args.arch, args.shape, multi_pod, out_dir,
+                       save_trace=args.save_trace, variant=args.variant,
+                       partitioned=decode)
     except Exception as e:  # recorded, not swallowed — sweep reports it
         rec = {"arch": args.arch, "shape": args.shape, "mesh": args.mesh,
                "status": "error", "error": f"{type(e).__name__}: {e}",
                "traceback": traceback.format_exc()[-4000:]}
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
     (out_dir / f"{name}.json").write_text(json.dumps(rec, indent=2))
     status = rec["status"]
     extra = rec.get("reason") or rec.get("error", "")
     print(f"[dryrun] {name}: {status} {extra}")
     if status == "ok":
         m, c = rec["memory"], rec["cost"]
-        print(f"  args={m['argument_bytes']/2**30:.2f}GiB/device "
-              f"temp={m['temp_bytes_global']/2**30:.2f}GiB global "
-              f"dot_flops={c['dot_flops_global']:.3e} global "
-              f"coll={rec['collectives'].get('total', 0)/2**30:.2f}GiB "
-              f"trace={rec['trace_s']:.1f}s")
+        if rec["partitioned"]:
+            print(f"  args={m['argument_bytes']/2**30:.2f}GiB "
+                  f"temp={m['temp_bytes']/2**30:.2f}GiB "
+                  f"dot_flops={c['dot_flops']:.3e} per device "
+                  f"({c['dot_flops_global']:.3e} global) "
+                  f"coll={rec['collectives'].get('total', 0)/2**30:.2f}GiB "
+                  f"implicit={sum(rec['implicit'].values())} "
+                  f"trace={rec['trace_s']:.1f}s")
+        else:
+            print(f"  args={m['argument_bytes']/2**30:.2f}GiB/device "
+                  f"temp={m['temp_bytes_global']/2**30:.2f}GiB global "
+                  f"dot_flops={c['dot_flops_global']:.3e} global "
+                  f"coll={rec['collectives'].get('total', 0)/2**30:.2f}GiB "
+                  f"trace={rec['trace_s']:.1f}s")
     return 0 if status in ("ok", "skipped") else 1
 
 

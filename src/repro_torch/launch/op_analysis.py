@@ -222,6 +222,57 @@ def _check_fp8_promotion(func, args, kwargs) -> None:
         pass
 
 
+def _dtensor_type():
+    from torch.distributed.tensor import DTensor
+    return DTensor
+
+
+def _propagating() -> bool:
+    """DTensor's sharding propagation runs each new op once on fake tensors
+    of the global shapes, under a ``FakeTensorMode``: shape work, no
+    device's."""
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
+def _name(func) -> str:
+    return f"{func.namespace}.{func._overloadpacket.__name__}"
+
+
+def _watch_redistributions(trace: "OpTrace"):
+    """While ``trace`` records, count by op the redistributions that
+    DTensor makes of an op's operands on its own (those that
+    ``DTensor.redistribute`` asks for are not counted); the collectives
+    they issue reach ``trace`` as any other.  An in-place op whose
+    destination DTensor would have to move raises: its write would land
+    in a copy.  Returns the function that takes the watch off."""
+    disp = _dtensor_type()._op_dispatcher
+    prev = disp.__dict__.get("redistribute_local_args")
+    orig = disp.redistribute_local_args
+
+    def watched(op_info, suggested, *args, **kwargs):
+        op = (op_info.schema or suggested).op
+        first = op._schema.arguments[0].alias_info if \
+            op._schema.arguments else None
+        dest = op_info.local_args[0] if first is not None and \
+            first.is_write else None
+        orig(op_info, suggested, *args, **kwargs)
+        trace.implicit[_name(op)] += 1
+        if dest is not None and op_info.local_args[0] is not dest:
+            raise RuntimeError(
+                f"DTensor redistributes the destination of the in-place "
+                f"{op}: its write would land in a copy")
+
+    disp.redistribute_local_args = watched
+
+    def restore():
+        if prev is None:
+            del disp.redistribute_local_args
+        else:
+            disp.redistribute_local_args = prev
+    return restore
+
+
 def _tensors(x):
     if isinstance(x, torch.Tensor):
         yield x
@@ -239,24 +290,34 @@ class OpTrace(TorchDispatchMode):
     bytes that storages allocated inside the block held at once (outputs
     included, tensors made before the block excluded; ``temp_bytes`` leaves
     the outputs out); ``kernels`` the launches each kernel wrapper counted
-    over the block."""
+    over the block.
+
+    On DTensors it counts one device: each op on DTensors is left to
+    DTensor, and what DTensor runs comes back through the mode, the local
+    op on the rank's shards and the collectives of any redistribution; the
+    DTensor-level op and DTensor's shape propagation (``_propagating``)
+    are not recorded.  ``implicit`` counts by op the redistributions that
+    DTensor made on its own (``_watch_redistributions``)."""
 
     def __init__(self, keep_order: bool = False):
         super().__init__()
         self.counts: dict = defaultdict(int)
         self.order: list | None = [] if keep_order else None
         self.kernels: dict = {}
+        self.implicit: dict = defaultdict(int)
         self.live_bytes = 0
         self.peak_bytes = 0
         self._live: dict = {}     # storage -> (bytes, allocation number)
         self._after = array("q")  # live bytes after each allocation
         self._start: dict = {}
         self._depth = 0           # decompositions re-enter the mode
+        self._unwatch = None
 
     def __enter__(self):
         if self._depth == 0:
             self._start = {k: f.launches
                            for k, f in kernel_wrappers().items()}
+            self._unwatch = _watch_redistributions(self)
         self._depth += 1
         return super().__enter__()
 
@@ -266,6 +327,7 @@ class OpTrace(TorchDispatchMode):
         if self._depth == 0:
             self.kernels = {k: f.launches - self._start[k]
                             for k, f in kernel_wrappers().items()}
+            self._unwatch()
         return out
 
     def _freed(self, key: int, nbytes: int) -> None:
@@ -289,8 +351,10 @@ class OpTrace(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func in _META_OPS:
+        if func in _META_OPS or _propagating():
             return func(*args, **kwargs)
+        if any(issubclass(t, _dtensor_type()) for t in types):
+            return NotImplemented
         decomposes, pointwise, aliases = _op_info(func)
         if decomposes:
             with self:                          # as FlopCounterMode counts
@@ -323,6 +387,8 @@ class OpTrace(TorchDispatchMode):
         is taken off the live bytes from its allocation on."""
         held = {}
         for x in _pytree.tree_leaves(out):
+            if isinstance(x, _dtensor_type()):
+                x = x.to_local()
             if isinstance(x, torch.Tensor):
                 key = x.untyped_storage()._cdata
                 if key in self._live:
@@ -376,7 +442,7 @@ class OpTrace(TorchDispatchMode):
         out: dict = defaultdict(int)
         counts: dict = defaultdict(int)
         for (func, ops, res, _), n in self.counts.items():
-            name = f"{func.namespace}.{func._overloadpacket.__name__}"
+            name = _name(func)
             if name not in _COLLECTIVES:
                 continue
             kind, where = _COLLECTIVES[name]
@@ -392,7 +458,7 @@ class OpTrace(TorchDispatchMode):
         ``kernel``: the hand-written kernels launched."""
         census: dict = defaultdict(int)
         for (func, _, _, _), n in self.counts.items():
-            census[f"{func.namespace}.{func._overloadpacket.__name__}"] += n
+            census[_name(func)] += n
         census["kernel"] = sum(self.kernels.get(k, 0) for k in _LEAF_KERNELS)
         return dict(census)
 

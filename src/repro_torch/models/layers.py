@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bfp as bfp_mod
+from repro_torch.distributed import ctx
 from repro_torch.distributed.ctx import constrain
 from repro_torch.utils import ceil_to
 
@@ -75,8 +76,10 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, bias: bool = False,
 def dense(p: dict, x: torch.Tensor, *, policy: Policy = Policy(),
           bfp: BFPPolicy = NO_BFP) -> torch.Tensor:
     cd = policy.compute_dtype
-    w = bfp.q(p["w"]).to(cd)
-    y = torch.matmul(bfp.q(x).to(cd), w)
+    x = bfp.q(x).to(cd)
+    w = ctx.at_use(bfp.q(p["w"]).to(cd), x)
+    # a product's partial sums are reduced at once (on DTensors)
+    y = ctx.reduce_partial(ctx.matmul(x, w))
     if "b" in p:
         y = y + p["b"].to(cd)
     return y
@@ -118,7 +121,7 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, pad_to: int = 1, *,
 def embed_lookup(p: dict, tokens: torch.Tensor,
                  policy: Policy = Policy()) -> torch.Tensor:
     # gather, then cast: the same values as casting the table first
-    return F.embedding(tokens, p["table"]).to(policy.compute_dtype)
+    return ctx.embedding(tokens, p["table"]).to(policy.compute_dtype)
 
 
 def unembed_logits(p: dict, x: torch.Tensor, vocab: int,
@@ -126,7 +129,8 @@ def unembed_logits(p: dict, x: torch.Tensor, vocab: int,
                    softcap: float | None = None) -> torch.Tensor:
     """Tied unembedding with padded-vocab masking (padded rows → -1e30)."""
     cd = policy.compute_dtype
-    logits = torch.matmul(x.to(cd), p["table"].to(cd).t()).float()
+    x = x.to(cd)
+    logits = torch.matmul(x, ctx.at_use(p["table"].to(cd).t(), x)).float()
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     vp = p["table"].shape[0]
@@ -199,7 +203,7 @@ def full_attention(q, k, v, *, causal: bool, softcap=None,
     if window is not None:
         mask &= kpos[None, :] > qpos[:, None] - window
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    w = torch.softmax(scores, dim=-1)
+    w = ctx.softmax(scores, dim=-1)
     return _gqa_out(w, v).to(q.dtype)
 
 
@@ -276,6 +280,10 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, softcap=None,
     Smax slots, as the reference's does."""
     b, sq, h, hd = q.shape
     smax, nkv = k_cache.shape[1], k_cache.shape[2]
+    # a DTensor query's heads are gathered: the scores then split by the
+    # cache's sequence shards, and their batched products merge only the
+    # batch's split with the heads
+    q = ctx.gather_dim(q, 2)
     kc = expand_kv(k_cache, h // nkv)
     vc = expand_kv(v_cache, h // nkv)
     scores = _softcap(_gqa_scores(q, kc) / math.sqrt(hd), softcap)
@@ -290,8 +298,9 @@ def decode_attention(q, k_cache, v_cache, cur_len, *, softcap=None,
     if window is not None:
         mask &= kpos > (cur_len - 1 - window)
     scores = constrain(scores.masked_fill(~mask, NEG_INF), "dec_scores")
-    w = constrain(torch.softmax(scores, dim=-1), "dec_scores")
-    return _gqa_out(w, vc).to(q.dtype)
+    w = constrain(ctx.softmax(scores, dim=-1), "dec_scores")
+    # over a sequence-sharded DTensor cache, the shards' sums are reduced
+    return ctx.reduce_partial(_gqa_out(w, vc)).to(q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -333,14 +342,12 @@ def attn_init(gen: torch.Generator, cfg: AttnConfig, *, lead: tuple = (),
 def _project_qkv(p, x, kv_x, cfg: AttnConfig, policy, bfp, positions,
                  kv_positions=None):
     """q: [B,S,H,hd]; k/v: [B,Skv,KV,hd]."""
-    b, s, _ = x.shape
-    q = dense(p["wq"], x, policy=policy, bfp=bfp).reshape(
-        b, s, cfg.n_heads, cfg.head_dim)
-    skv = kv_x.shape[1]
-    k = dense(p["wk"], kv_x, policy=policy, bfp=bfp).reshape(
-        b, skv, cfg.n_kv, cfg.head_dim)
-    v = dense(p["wv"], kv_x, policy=policy, bfp=bfp).reshape(
-        b, skv, cfg.n_kv, cfg.head_dim)
+    q = ctx.split_last(dense(p["wq"], x, policy=policy, bfp=bfp),
+                       cfg.n_heads, cfg.head_dim)
+    k = ctx.split_last(dense(p["wk"], kv_x, policy=policy, bfp=bfp),
+                       cfg.n_kv, cfg.head_dim)
+    v = ctx.split_last(dense(p["wv"], kv_x, policy=policy, bfp=bfp),
+                       cfg.n_kv, cfg.head_dim)
     if cfg.rope_theta is not None and positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         kv_pos = positions if kv_positions is None else kv_positions
@@ -400,8 +407,8 @@ def attention_decode(p, x, cache: dict, cfg: AttnConfig, *,
     q, k, v = _project_qkv(p, x, x, cfg, policy, NO_BFP,
                            cur.view(1, 1).expand(b, 1))
     idx = cur.long().view(1)
-    cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+    ctx.index_copy_(cache["k"], 1, idx, k.to(cache["k"].dtype))
+    ctx.index_copy_(cache["v"], 1, idx, v.to(cache["v"].dtype))
     o = decode_attention(q, cache["k"], cache["v"], cur + 1,
                          softcap=cfg.softcap, window=cfg.window)
     cache["len"].add_(1)

@@ -26,8 +26,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
-from repro_torch.utils import ceil_to
+from repro_torch.utils import ceil_to, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +123,60 @@ def route(gates: torch.Tensor, top_k: int, cap: int):
 
 def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *,
               policy: L.Policy = L.Policy(), bfp: L.BFPPolicy = L.NO_BFP):
-    """x: [B,S,D] → (y [B,S,D], aux_loss f32 scalar)."""
+    """x: [B,S,D] → (y [B,S,D], aux_loss f32 scalar); on DTensors,
+    ``_moe_placed``."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        return _moe_placed(params, x, cfg, policy=policy, bfp=bfp)
+    y, aux = _moe_experts(params, x, cfg, policy=policy, bfp=bfp)
+    if "shared" in params:
+        y = y + L.mlp(params["shared"], x, policy=policy, bfp=bfp)
+    return y.to(x.dtype), aux
+
+
+def _moe_placed(params, x, cfg: MoEConfig, *, policy, bfp):
+    """The layer on DTensors.  Every rank routes every token (a decode
+    group is the whole batch, so the batch is gathered) and runs the
+    experts it holds: the expert weights, quantized and cast, keep their
+    shards of E (over ``model``) and gather the rest, the router its
+    whole.  The combined
+    rows are then a sum over the ranks that split E; one redistribution
+    sums them and lays them out as ``x``.  The shared expert runs on the
+    DTensors (``L.mlp``).  DTensor cannot run the dispatch and the
+    experts' batched products itself where the tokens and the experts are
+    both split."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = x.device_mesh
+
+    def own(w):
+        # quantized and cast before the gather, as ``dense`` gathers
+        w = bfp.q(w).to(policy.compute_dtype)
+        return w.redistribute(mesh, [p if p.is_shard(0) else Replicate()
+                                     for p in w.placements]).to_local()
+
+    local = {"router": tree_map(lambda w: w.full_tensor(), params["router"]),
+             **{k: own(params[k]) for k in ("wi", "wg", "wo") if k in params}}
+    first = ctx.block_index(params["wi"], 0) * local["wi"].shape[0]
+    y, aux = _moe_experts(local, x.full_tensor(), cfg, policy=policy,
+                          bfp=L.NO_BFP, first=first)
+    y = DTensor.from_local(
+        y, mesh, [Partial() if p.is_shard(0) else Replicate()
+                  for p in params["wi"].placements], run_check=False,
+        shape=x.shape, stride=ctx.contiguous_stride(x.shape)
+    ).redistribute(mesh, x.placements)
+    aux = DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim,
+                             run_check=False)
+    if "shared" in params:
+        y = y + L.mlp(params["shared"], x, policy=policy, bfp=bfp)
+    return y.to(x.dtype), aux
+
+
+def _moe_experts(params, x: torch.Tensor, cfg: MoEConfig, *, policy, bfp,
+                 first: int = 0):
+    """The routed experts on plain tensors: ``(y [B,S,D] in the compute
+    dtype, aux)``.  ``params``' experts are experts ``first, first + 1,
+    ...`` of the ``cfg.n_experts`` (all of them by default); the slots of
+    the others are neither run nor combined."""
     b, s, d = x.shape
     cd = policy.compute_dtype
     t, n_exp, k = b * s, cfg.n_experts, cfg.top_k
@@ -151,6 +205,9 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *,
     xe = torch.zeros((n_slots + 1, d), dtype=cd, device=x.device).index_copy(
         0, torch.where(keep, flat, n_slots).reshape(-1), src)
     xe = xe[:n_slots].view(n_exp, n_groups * cap, d)
+    n_own = params["wi"].shape[-3]
+    if n_own != n_exp:
+        xe = xe[first:first + n_own]
 
     wi = bfp.q(params["wi"]).to(cd)
     wo = bfp.q(params["wo"]).to(cd)
@@ -159,16 +216,18 @@ def moe_apply(params, x: torch.Tensor, cfg: MoEConfig, *,
         h = F.silu(torch.bmm(xe, bfp.q(params["wg"]).to(cd))) * h
     else:
         h = F.silu(h)
-    ye = torch.bmm(h, wo).reshape(n_slots, d)
+    ye = torch.bmm(h, wo).reshape(-1, d)
 
     # index_select, not ye[...]: advanced indexing's backward walks each run
     # of equal indices serially, and every dropped (token, pass) reads slot
     # 0 (10 ms a layer at granite-moe's FR shape on an H100); index_select's
     # backward adds in parallel, and a dropped entry's gradient is exactly 0
-    rows = ye.index_select(0, torch.where(keep, flat, 0).reshape(-1))
+    pick = torch.where(keep, flat, 0)
+    if n_own != n_exp:       # a (token, pass) routed to another rank's expert
+        own = keep & (expert >= first) & (expert < first + n_own)
+        pick = torch.where(own, flat - first * n_groups * cap, 0)
+        combine = combine * own
+    rows = ye.index_select(0, pick.reshape(-1))
     rows = rows.view(-1, k, d)
     y = torch.bmm(combine.reshape(-1, 1, k), rows).reshape(-1, d)
-    y = y[:t].reshape(b, s, d)
-    if "shared" in params:
-        y = y + L.mlp(params["shared"], x, policy=policy, bfp=bfp)
-    return y.to(x.dtype), aux
+    return y[:t].reshape(b, s, d), aux

@@ -27,6 +27,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
 from repro_torch.utils import ceil_to
 
@@ -168,6 +169,51 @@ def _ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
     return y, hcur
 
 
+def _ssd_scan(x, dt, A, B, C, chunk: int, h0=None):
+    """``_ssd_chunked``; on DTensors each rank scans its own block of the
+    batch and the heads (the scan is independent per sequence and per
+    head), with B and C whole but for the batch and cut to the groups of
+    its heads, and the results are laid out as ``x``.  DTensor cannot run
+    the chunk's batched products itself where both the batch and the heads
+    are split: they merge the two dims, and a view may keep only the
+    first of a merged group split."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return _ssd_chunked(x, dt, A, B, C, chunk, h0=h0)
+    mesh = x.device_mesh
+    kept = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+            for p in x.placements]
+    x = x.redistribute(mesh, kept)
+
+    def local(t, dims):
+        """``t``'s block as ``x``'s: x's dim d split lands on t's
+        ``dims[d]``; t's other dims whole."""
+        return t.redistribute(mesh, [
+            Shard(dims[p.dim]) if p.is_shard() and p.dim in dims
+            else Replicate() for p in kept]).to_local()
+
+    xl = x.to_local()
+    heads, groups = x.shape[2], B.shape[2]
+    rep, h_l = heads // groups, xl.shape[2]
+    first = ctx.block_index(x, 2) * h_l
+    if h_l % rep and rep % h_l:
+        raise ValueError(f"{h_l} heads a rank split the groups of {rep}")
+    cut = slice(first // rep, first // rep + max(h_l // rep, 1))
+    y, h_fin = _ssd_chunked(
+        xl, local(dt, {0: 0, 2: 2}), local(A, {2: 0}),
+        local(B, {0: 0})[:, :, cut], local(C, {0: 0})[:, :, cut], chunk,
+        h0=None if h0 is None else local(h0, {0: 0, 2: 1}))
+    y = DTensor.from_local(y, mesh, kept, run_check=False, shape=x.shape,
+                           stride=x.stride())
+    h_pl = [Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2)
+            else Replicate() for p in kept]
+    shape = (x.shape[0], heads, x.shape[3], B.shape[3])
+    h_fin = DTensor.from_local(h_fin, mesh, h_pl, run_check=False,
+                               shape=shape,
+                               stride=ctx.contiguous_stride(shape))
+    return y, h_fin
+
+
 def ssd_block(params, x: torch.Tensor, cfg: SSDConfig, *,
               policy: L.Policy = L.Policy(), bfp: L.BFPPolicy = L.NO_BFP,
               state: dict | None = None):
@@ -203,7 +249,7 @@ def ssd_block(params, x: torch.Tensor, cfg: SSDConfig, *,
 
     xs32, B32, C32 = (t.float() for t in (xs, Bm, Cm))
     h0 = None if state is None else state["h"]
-    y, h_fin = _ssd_chunked(xs32, dt, A, B32, C32, cfg.chunk, h0=h0)
+    y, h_fin = _ssd_scan(xs32, dt, A, B32, C32, cfg.chunk, h0=h0)
     y = y + xs32 * params["D"][None, None, :, None]
 
     y = y.reshape(b, s, cfg.d_inner).to(cd)

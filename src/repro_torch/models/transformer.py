@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.common import LayerSpec, ModelConfig
+from repro_torch.distributed import ctx
 from repro_torch.distributed.ctx import constrain
 from repro_torch.models import hybrid, layers as L, moe as moe_mod, ssm
 
@@ -506,9 +507,9 @@ def _ring_decode(p_attn, u, cache: dict, acfg: L.AttnConfig, *, policy):
     q, k, v = L._project_qkv(p_attn, u, u, acfg, policy, L.NO_BFP,
                              cur.view(1, 1).expand(b, 1))
     slot = (cur % cache["k"].shape[1]).long().view(1)
-    cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
-    cache["pos"].index_copy_(0, slot, cur.view(1))
+    ctx.index_copy_(cache["k"], 1, slot, k.to(cache["k"].dtype))
+    ctx.index_copy_(cache["v"], 1, slot, v.to(cache["v"].dtype))
+    ctx.index_copy_(cache["pos"], 0, slot, cur.view(1))
     # the reference's two "dec_scores" constraints here (on the scores and
     # on the softmax weights) are those inside L.decode_attention
     o = L.decode_attention(q, cache["k"], cache["v"], cur + 1,
@@ -524,10 +525,10 @@ def _cross_decode(p_attn, u, cache: dict, acfg: L.AttnConfig, *, policy):
     T, KV, hd]}``: q from u, without rope, attends to every slot, no mask
     (``L.full_attention``, non-causal); the cache is only read."""
     b = u.shape[0]
-    q = L.dense(p_attn["wq"], u, policy=policy).reshape(
-        b, 1, acfg.n_heads, acfg.head_dim)
-    o = L.full_attention(q, cache["k"], cache["v"], causal=False,
-                         softcap=acfg.softcap)
+    q = ctx.split_last(L.dense(p_attn["wq"], u, policy=policy),
+                       acfg.n_heads, acfg.head_dim)
+    o = L.full_attention(ctx.gather_dim(q, 2), cache["k"], cache["v"],
+                         causal=False, softcap=acfg.softcap)
     return L.dense(p_attn["wo"], o.reshape(b, 1, acfg.n_heads
                                            * acfg.head_dim), policy=policy)
 

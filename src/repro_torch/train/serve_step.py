@@ -3,16 +3,45 @@ temperature).
 
 Counterpart of ``repro/train/serve_step.py``.  Both steps run under
 ``torch.inference_mode()``; the decode step updates the cache in place
-(the reference jits it with the cache donated) and returns it.  Sampling
+(the reference jits it with the cache donated) and returns it.  Given
+DTensor params (a cell placed on a mesh, ``launch/dryrun.py``), the decode
+step runs under ``torch.no_grad()`` instead, since a view of a DTensor
+cannot be made in inference mode, and under DTensor's
+``implicit_replication``, so that the tensors the model makes itself
+(positions, rope's frequencies, masks), equal on every rank, join the
+DTensors as replicated ones; a shard of a dim of one over a one-rank axis
+is relabelled replicated first (``ctx.unit_shards_replicated``).  Sampling
 draws from an explicit ``torch.Generator``, the counterpart of the
 reference's ``rng`` key; it cannot replay JAX's stream.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.configs.common import ModelConfig
+from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
+from repro_torch.utils import tree_leaves
+
+
+def _placed(params) -> bool:
+    """Whether the params are DTensors (a cell placed on a mesh)."""
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(x, DTensor) for x in tree_leaves(params))
+
+
+def _grad_off(params):
+    """``torch.inference_mode()`` on plain params; on DTensor params,
+    ``torch.no_grad()`` with ``implicit_replication``."""
+    if not _placed(params):
+        return torch.inference_mode()
+    from torch.distributed.tensor.experimental import implicit_replication
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.no_grad())
+    stack.enter_context(implicit_replication())
+    return stack
 
 
 def make_prefill_step(entry, cfg: ModelConfig, *, max_len: int,
@@ -42,10 +71,15 @@ def make_decode_step(entry, cfg: ModelConfig, *,
     module = entry.module
 
     def decode_step(params, cache, tokens, generator=None):
-        with torch.inference_mode():
+        if _placed(params):
+            params, cache, tokens = map(ctx.unit_shards_replicated,
+                                        (params, cache, tokens))
+        with _grad_off(params):
             logits, new_cache = module.decode_step(params, cfg, tokens, cache,
                                                    policy=policy)
-            last = logits[:, -1]
+            # a vocab-sharded DTensor's logits are gathered for the
+            # argmax or the draw
+            last = ctx.gather_dim(logits[:, -1], -1)
             if greedy:
                 nxt = torch.argmax(last, dim=-1)
             else:

@@ -44,6 +44,16 @@ def tree_unflatten(items) -> dict:
     return out
 
 
+def tree_map_with_path(fn: Callable, tree: Any, prefix: str = "") -> Any:
+    """``fn(path, leaf)`` leafwise with '/'-joined paths, keeping the tree's
+    structure, an empty dict included (``jax.tree_util.tree_map_with_path``
+    keeps one too, where a flatten and unflatten drops it)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}{k}/")
+                for k, v in tree.items()}
+    return fn(prefix[:-1], tree)
+
+
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` leafwise over trees of the same structure."""
     if isinstance(tree, dict):
