@@ -67,7 +67,10 @@ Phases, each printing its numbers on lines of their own:
      tokens bit for bit the plain step's from the same cache),
      mamba2-780m x prefill_32k with the batch cut 32 -> 1 (the logits of
      every position against the last only: next-token logits at 2e-2 and
-     the cache leaf for leaf equal; times and peaks), train_4k with the
+     the cache leaf for leaf equal; times and peaks; each variant also
+     steps once with its params and batch placed as DTensors, its
+     next-token logits and cache bit for bit the plain step's), train_4k
+     with the
      batch cut to 2 on recurrentgemma-9b (baseline, tuned) and
      granite-3-8b (baseline, tuned, tuned2), 3 steps each from one draw
      (finite losses, tuned within rtol 1e-5 / atol 1e-6 of baseline at
@@ -90,9 +93,12 @@ Phases, each printing its numbers on lines of their own:
      refuse in the dry run too), and ``dryrun_partitioned``, the 12
      decode cells partitioned on the 16x16 mesh over a ``fake`` group of
      256 ranks and the two long_500k cells on the 2x16x16 mesh of 512 as
-     well, DTensors counted on one device (per-device FLOPs, traffic, temp
-     bytes and collectives, the ops DTensor redistributed on its own,
-     ``trace_s``); the traces run in a pool of spawned host
+     well, then mamba2-780m x prefill_32k at its own size and granite-3-8b
+     (heads sharded) and starcoder2-7b (sequence parallel) x prefill_32k
+     at full width and B=32 with the sequence cut to 2048 (blockwise
+     attention runs), DTensors counted on one device (per-device FLOPs,
+     traffic, temp bytes and collectives, the ops DTensor redistributed on
+     its own, ``trace_s``); the traces run in a pool of spawned host
      processes, no kernel launched (``launches_by_path`` ``dryrun_*``);
      each path frees its state before the next, so that each peak stands
      alone;
@@ -1781,6 +1787,41 @@ def placed_decode_step(label: str, cell, mesh, params, cache, tok) -> dict:
             "step_ms": ms, "plain_step_ms": plain_ms}
 
 
+def placed_prefill_step(label: str, cell, mesh, params, batch, want,
+                        plain_ms: float) -> dict:
+    """One prefill step of ``cell`` with its params and batch placed by
+    ``sharding.device_put`` on ``mesh`` with the cell's own shardings
+    (DTensors; the cache comes out laid out by ``cache_pspec``), against
+    the plain step's output ``want`` on the same arguments (``plain_ms``
+    its time): the next-token logits and every cache leaf must be equal
+    bit for bit.  The params are placed leaf by leaf and put back; the
+    step is timed by CUDA events."""
+    from repro_torch.utils import tree_flatten, tree_map
+
+    in_sh = cell[2]
+    placed = [put_leafwise(params, in_sh[0]),
+              put_leafwise(tree_map(lambda x: x, batch), in_sh[1])]
+    try:
+        got, ms = call_cell(cell, mesh, placed)
+    finally:
+        unplace_into(params, placed[0])
+    if not torch.equal(got["next_token_logits"].full_tensor(),
+                       want["next_token_logits"]):
+        raise AssertionError(f"{label}: the step on DTensors gave other "
+                             f"logits than the plain step")
+    g, w = tree_flatten(got["cache"]), tree_flatten(want["cache"])
+    if [p for p, _ in g] != [p for p, _ in w]:
+        raise AssertionError(f"{label}: the DTensor cache has other leaves")
+    for (path, a), (_, b) in zip(g, w):
+        if not torch.equal(a.full_tensor(), b):
+            raise AssertionError(f"{label}: cache leaf {path} differs on "
+                                 f"DTensors")
+    del placed, got
+    torch.cuda.empty_cache()
+    return {"logits_equal": True, "cache_bit_equal": True, "step_ms": ms,
+            "plain_step_ms": plain_ms}
+
+
 def close_trees(label: str, got, want, rule) -> dict:
     """Leaf for leaf within ``rule(leaf)``'s tolerance; the largest
     absolute difference by path."""
@@ -1803,7 +1844,9 @@ def prefill_cell(mesh, launches: dict) -> dict:
     logits of every position, f32) and tuned (the last only): the
     next-token logits at the bf16 tolerance and the cache leaf for leaf
     (bf16 leaves at 2e-2, others at 2e-5) equal between the two; both
-    times and peaks, and the FLOPs of a third call (``card_flops``)."""
+    times and peaks, and the FLOPs of a third call (``card_flops``); then
+    each variant's step on DTensors (``placed_prefill_step``), bit for bit
+    its plain step."""
     from repro_torch.launch import cells
 
     arch, name = "mamba2-780m", "prefill_32k"
@@ -1820,13 +1863,17 @@ def prefill_cell(mesh, launches: dict) -> dict:
         out, ms = call_cell(cell, mesh, args)
         peak = torch.cuda.max_memory_allocated()
         flops = card_flops(cell, mesh, args)
-        no_launch(f"cells_prefill {variant}", launches)
         outs[variant] = {"next_token_logits": out["next_token_logits"],
                          "cache": out["cache"]}
+        del out
+        placed = placed_prefill_step(f"cells_prefill {variant}", cell, mesh,
+                                     args[0], args[1], outs[variant], ms)
+        no_launch(f"cells_prefill {variant}", launches)
         rows[variant] = {"ms": ms, "max_memory_allocated_bytes": peak,
                          "logits_mode": "last" if variant == "tuned"
-                         else "all", "dot_flops_card": flops}
-        del out, args
+                         else "all", "dot_flops_card": flops,
+                         "dtensor_step": placed}
+        del args
     logits = close_trees("cells_prefill logits",
                          outs["tuned"]["next_token_logits"],
                          outs["baseline"]["next_token_logits"],
@@ -2084,50 +2131,89 @@ def dryrun_trace(arch: str, name: str, batch, variant: str) -> dict:
     return rec
 
 
-def dryrun_partitioned_trace(arch: str, name: str, multi_pod: bool) -> dict:
-    """In a pool process: ``dryrun.run_cell`` of a decode cell partitioned
-    on the production mesh over a ``fake`` group of its size (256 or 512
-    ranks, this process rank 0), started here and destroyed after; the
-    kernel counts zeroed before and read after, as ``dryrun_trace``."""
+def dryrun_partitioned_trace(arch: str, name: str, multi_pod: bool,
+                             seq: int | None = None) -> dict:
+    """In a pool process: a prefill or decode cell partitioned on the
+    production mesh over a ``fake`` group of its size (256 or 512 ranks,
+    this process rank 0), started here and destroyed after: ``dryrun.
+    run_cell``'s record, or with ``seq`` the cell's sequence cut to ``seq``
+    (``trace_cell`` on that shape); the kernel counts zeroed before and
+    read after, as ``dryrun_trace``."""
     import torch.distributed as dist
 
+    from repro_torch.configs.common import SHAPES
     from repro_torch.launch import dryrun, mesh as lmesh
 
     zero_counts()
     dryrun.fake_group(math.prod(lmesh.production_layout(
         multi_pod=multi_pod).sizes))
     try:
-        rec = dryrun.run_cell(arch, name, multi_pod,
-                              Path(tempfile.gettempdir()), partitioned=True)
+        if seq is None:
+            rec = dryrun.run_cell(arch, name, multi_pod,
+                                  Path(tempfile.gettempdir()),
+                                  partitioned=True)
+        else:
+            rec = dryrun.trace_cell(arch, dc.replace(SHAPES[name],
+                                                     seq_len=seq),
+                                    lmesh.make_production_mesh(
+                                        multi_pod=multi_pod,
+                                        device_type="cpu"))
+            rec.pop("trace")
+            rec.pop("trace_global")
+            rec.update(status="ok",
+                       mesh="multipod" if multi_pod else "pod")
     finally:
         dist.destroy_process_group()
     rec["launches"] = read_counts()
     return rec
 
 
+# prefill cells whose whole trace takes minutes on ``meta`` (their
+# blockwise loops at 32,768 tokens): traced partitioned at full width and
+# batch with the sequence cut to a length that still runs blockwise
+PARTITIONED_SEQ_CUT = 2048
+
+
 def dryrun_partitioned_cells() -> list:
-    """``(arch, shape name, multi_pod)``: the 12 decode cells that the
+    """``(arch, shape name, multi_pod, seq)``: the 12 decode cells that the
     reference traces (decode_32k on the ten archs, long_500k on the two
     that serve it) on the 16x16 mesh, and the two long_500k cells on the
-    2x16x16 mesh as well."""
+    2x16x16 mesh as well, at their own sizes (``seq`` None); then
+    prefill_32k on the 16x16 mesh: mamba2-780m at its own size, and
+    granite-3-8b (heads sharded over ``model``) and starcoder2-7b (36
+    heads: sequence parallel) at ``PARTITIONED_SEQ_CUT`` tokens."""
     from repro_torch.models import registry
 
-    out = [(arch, shape.name, False) for arch, shape, skip in
+    out = [(arch, shape.name, False, None) for arch, shape, skip in
            registry.cells() if shape.mode == "decode" and skip is None]
-    return out + [(arch, name, True) for arch, name, _ in out
-                  if name == "long_500k"]
+    out += [(arch, name, True, None) for arch, name, _, _ in out
+            if name == "long_500k"]
+    return out + [("mamba2-780m", "prefill_32k", False, None),
+                  ("granite-3-8b", "prefill_32k", False, PARTITIONED_SEQ_CUT),
+                  ("starcoder2-7b", "prefill_32k", False,
+                   PARTITIONED_SEQ_CUT)]
+
+
+def partitioned_cut_note(name: str, seq: int | None) -> str:
+    from repro_torch.configs.common import SHAPES
+    if seq is None:
+        return "at the cell's own size"
+    return (f"seq cut {SHAPES[name].seq_len} -> {seq}, full width and "
+            f"batch: the whole cell's trace of an arch with attention "
+            f"takes minutes on meta; {seq} tokens pass blockwise_threshold "
+            f"1024, so blockwise attention runs")
 
 
 def dryrun_partitioned(futures: list, cases: list, launches: dict) -> list:
-    """Host: one ``dryrun_partitioned`` line per decode cell traced on
-    DTensors (``futures`` in the order of ``cases``): the per-device keys
+    """Host: one ``dryrun_partitioned`` line per cell traced on DTensors
+    (``futures`` in the order of ``cases``): the per-device keys
     (``cost.dot_flops``, ``traffic_bytes``, ``traffic_bytes_pessimistic``,
     ``memory.temp_bytes``, ``collectives`` by kind), the whole cell's FLOPs
-    beside them, the ops DTensor redistributed on its own (the ten most
-    frequent, and their total) and ``trace_s``.  Not ``ok``, no
+    beside them, the ops DTensor redistributed on its own (``implicit``,
+    and their total), ``trace_s`` and the cut.  Not ``ok``, no
     per-device FLOPs or collectives, or a kernel launch, fails the run."""
     rows = []
-    for (arch, name, multi_pod), fut in zip(cases, futures):
+    for (arch, name, multi_pod, seq), fut in zip(cases, futures):
         rec = fut.result()
         label = f"dryrun_partitioned {arch} {name} " + \
             ("multipod" if multi_pod else "pod")
@@ -2139,6 +2225,8 @@ def dryrun_partitioned(futures: list, cases: list, launches: dict) -> list:
         c, m = rec["cost"], rec["memory"]
         implicit = rec["implicit"]
         row = {"arch": arch, "shape": name, "mesh": rec["mesh"],
+               "cut": partitioned_cut_note(name, seq),
+               "seq": seq or cell_shape(name).seq_len,
                "n_devices": rec["n_devices"], "trace_s": rec["trace_s"],
                "dot_flops": c["dot_flops"],
                "dot_flops_global": c["dot_flops_global"],
@@ -2148,11 +2236,10 @@ def dryrun_partitioned(futures: list, cases: list, launches: dict) -> list:
                "traffic_bytes_pessimistic": c["traffic_bytes_pessimistic"],
                "temp_bytes": m["temp_bytes"],
                "argument_bytes": m["argument_bytes"],
+               "output_bytes": m["output_bytes"],
                "collectives": rec["collectives"],
                "implicit_total": sum(implicit.values()),
-               "implicit_top": dict(sorted(implicit.items(),
-                                           key=lambda kv: -kv[1])[:10]),
-               "kernel": 0}
+               "implicit": implicit, "kernel": 0}
         print("dryrun_partitioned: " + json.dumps(row), flush=True)
         rows.append(row)
     return rows

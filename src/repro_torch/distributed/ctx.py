@@ -24,14 +24,18 @@ Counterpart of ``repro/distributed/ctx.py``.  ``constrain``:
   constrain; passing it through would hide that the models have no
   multi-rank path yet.
 
-The decode step on DTensors (a cell placed on a mesh, ``launch/dryrun.py``)
-also goes through the helpers below, where DTensor's own rule for an op
-partitions otherwise than the sharding scheme means, or fails: ``at_use``
-(a weight's ZeRO-3 shards gathered), ``reduce_partial``, ``embedding``
-(the vocab-parallel lookup), ``index_copy_`` (a cache slot written in each
-rank's block), ``softmax``, ``gather_dim``, ``split_last``, ``matmul`` and
-``unit_shards_replicated``.  On a plain tensor each is the op it stands
-for, so the single-card paths do not change.
+The prefill and decode steps on DTensors (a cell placed on a mesh,
+``launch/dryrun.py``) also go through the helpers below, where DTensor's
+own rule for an op partitions otherwise than the sharding scheme means,
+or fails: ``at_use`` (a weight's ZeRO-3 shards gathered),
+``reduce_partial``, ``embedding`` (the vocab-parallel lookup),
+``index_copy_`` (a decode step's cache slot written in each rank's
+block), ``write_slots_`` (a prefill's slots so written), ``full_placed``
+(a prefill's cache allocated by blocks), ``attention_blocks`` (a
+prefill's attention on each rank's block), ``softmax``, ``gather_dim``,
+``split_last``, ``matmul`` and ``unit_shards_replicated``.  On a plain
+tensor each is the op it stands for, so the single-card paths do not
+change.
 """
 from __future__ import annotations
 
@@ -190,6 +194,75 @@ def index_copy_(x: torch.Tensor, dim: int, index: torch.Tensor,
     return x
 
 
+def write_slots_(x: torch.Tensor, dim: int, first: int,
+                 source: torch.Tensor, ring: bool = False) -> torch.Tensor:
+    """``source``'s rows along ``dim`` written into ``x`` in place at the
+    slots ``first, first + 1, ...``, or for a ``ring`` at those slots
+    modulo ``x.shape[dim]`` (rows that wrap go to the start): a prefill's
+    cache writes.  ``first`` is a host int, so each rank of a DTensor
+    knows which slots lie in its block.
+
+    On a plain tensor this is the op it stands for: the slice assignment
+    ``x[..., first:first + n] = source`` along ``dim``, or for a ring
+    ``x.index_copy_(dim, arange(first, first + n) % size, source)``.  On a
+    DTensor each rank copies into its own block the rows whose slots lie
+    there (at most two runs of consecutive slots), from ``source`` laid
+    out as ``x`` with ``dim`` replicated: no gather of ``x``.  (DTensor's
+    own slice along a sharded dim gathers ``x``, and the assignment then
+    lands in the gathered copy.)"""
+    from torch.distributed.tensor import DTensor, Replicate
+    n, size = source.shape[dim], x.shape[dim]
+    if n > size or (not ring and first + n > size):
+        raise ValueError(f"{n} rows from slot {first} do not fit the "
+                         f"{size} slots of dim {dim}")
+    if not isinstance(x, DTensor):
+        if ring:
+            return x.index_copy_(dim, torch.arange(
+                first, first + n, device=x.device) % size, source)
+        x[(slice(None),) * dim + (slice(first, first + n),)] = source
+        return x
+    mesh = x.device_mesh
+    if not isinstance(source, DTensor):
+        source = DTensor.from_local(source, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    src = source.redistribute(mesh, [
+        Replicate() if p.is_shard(dim) else p for p in x.placements]
+    ).to_local()
+    block = x.to_local()
+    m = block.shape[dim]
+    lo = block_index(x, dim) * m
+    start = first % size if ring else first
+    head = min(n, size - start)
+    # (first slot, first row, rows) of each run of consecutive slots
+    for slot, row, k in ((start, 0, head), (0, head, n - head)):
+        a, b = max(slot, lo), min(slot + k, lo + m)
+        if a < b:
+            block.narrow(dim, a - lo, b - a).copy_(
+                src.narrow(dim, row + a - slot, b - a))
+    return x
+
+
+def full_placed(shape: tuple, value, dtype, named, device) -> torch.Tensor:
+    """A new DTensor of ``shape`` filled with ``value``, laid out by the
+    ``sharding.NamedSharding`` ``named``, each rank allocating only its
+    own block on ``device`` (the local tensors' device, ``meta`` in the
+    dry run).  The shardings split each dim evenly (``sharding``'s
+    divisibility guards)."""
+    from torch.distributed.tensor import DTensor
+    mesh, local = named.mesh, list(shape)
+    for m, p in enumerate(named.placements):
+        if p.is_shard():
+            if local[p.dim] % mesh.size(m):
+                raise ValueError(f"{named.placements} split dim {p.dim} of "
+                                 f"{tuple(shape)} unevenly")
+            local[p.dim] //= mesh.size(m)
+    block = torch.full(local, value, dtype=dtype, device=device)
+    return DTensor.from_local(block, mesh, named.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
 def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     """A DTensor with its shards along ``dim`` gathered (its other
     placements kept); any other tensor as it is."""
@@ -201,6 +274,54 @@ def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     if want == list(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def attention_blocks(core, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor, **kw) -> torch.Tensor:
+    """``core(q, k, v, **kw)``, an attention core over q [B, Sq, H, hd] and
+    k, v [B, Skv, KV, hd] (``L.full_attention``, ``L.blockwise_attention``).
+
+    On DTensors each rank runs ``core`` on plain tensors, its own block:
+    the batch rows and query heads that q's placements give it, q's rows
+    where q is split along the sequence (then ``q_offset``, the block's
+    first position, is passed to ``core``), and k and v whole along their
+    sequence,
+    laid out by batch as q and cut to the kv heads that its query heads
+    read (GQA: query head h reads kv head h // (H / KV); kv heads that
+    ``model`` splits as the query heads stay split).  The result is laid
+    out as q.  Attention is independent per batch row and head, so this
+    moves nothing but a split of k and v that q does not share; DTensor's
+    own batched products merge the batch with the heads, a view that
+    torch 2.11 refuses where both are split.  Plain tensors go to
+    ``core`` as they are."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(q, DTensor):
+        return core(q, k, v, **kw)
+    mesh = q.device_mesh
+    keep = [p if p.is_shard() and p.dim < 3 else Replicate()
+            for p in q.placements]
+    q = q.redistribute(mesh, keep)
+    kv_heads = k.shape[2]
+    want = [Shard(0) if p.is_shard(0) else
+            Shard(2) if p.is_shard(2) and kv_heads % mesh.size(m) == 0
+            else Replicate() for m, p in enumerate(keep)]
+    k, v = (t.redistribute(mesh, want) for t in (k, v))
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    group = q.shape[2] // kv_heads
+    heads = ql.shape[2]
+    if heads % group and group % heads:
+        raise ValueError(f"{heads} query heads a rank split the groups of "
+                         f"{group}")
+    first = block_index(q, 2) * heads // group - \
+        block_index(k, 2) * kl.shape[2]
+    cut = slice(first, first + max(heads // group, 1))
+    if any(p.is_shard(1) for p in keep):
+        kw["q_offset"] = block_index(q, 1) * ql.shape[1]
+    out = core(ql, kl[:, :, cut], vl[:, :, cut], **kw)
+    # laid out contiguously, as the DTensor's strides say
+    return DTensor.from_local(out.contiguous(), mesh, keep, run_check=False,
+                              shape=q.shape,
+                              stride=contiguous_stride(q.shape))
 
 
 def split_last(x: torch.Tensor, *sizes: int) -> torch.Tensor:
@@ -239,10 +360,21 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     as ``torch.matmul`` folds a plain tensor's: DTensor's global strides of
     a dim of one may differ from its local tensor's (an einsum's output),
     and then ``torch.matmul`` takes a batched product instead, which
-    rounds otherwise."""
-    from torch.distributed.tensor import DTensor
+    rounds otherwise.  A split of a leading dim but the first (a
+    sequence-sharded activation) is moved first, to the contracted dim
+    where ``w``'s rows split over the same mesh dim, else gathered: torch
+    2.11's view folds dims only where none but the first of them is
+    split."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
     if not isinstance(x, DTensor) or x.dim() < 3:
         return torch.matmul(x, w)
+    last = x.dim() - 1
+    want = [(Shard(last) if isinstance(w, DTensor) and
+             w.placements[m].is_shard(w.dim() - 2) else Replicate())
+            if p.is_shard() and 0 < p.dim < last else p
+            for m, p in enumerate(x.placements)]
+    if want != list(x.placements):
+        x = x.redistribute(x.device_mesh, want)
     return torch.matmul(x.reshape(-1, x.shape[-1]), w).view(
         *x.shape[:-1], w.shape[-1])
 

@@ -28,16 +28,18 @@ arguments under the cell's ``activation_rules`` and an
 * ``partitioned`` — whether the record counts one device (below);
 * ``trace_s`` — seconds to build and trace the cell (there is no compile).
 
-A decode cell is also traced partitioned (``trace_cell`` on a
+A prefill or decode cell is also traced partitioned (``trace_cell`` on a
 ``DeviceMesh``; the CLI starts torch's in-process ``fake`` group of 256 or
 512 ranks): its ``meta`` arguments placed as DTensors by the cell's
-shardings, one call counted on one device.  The record then has the
-reference's per-device keys beside the whole cell's, ``memory.temp_bytes``
-and ``cost.{dot_flops, traffic_bytes, traffic_bytes_pessimistic}``,
-``collectives`` by kind (all-reduce at its operand, all-gather at its
-result), ``implicit`` (the ops whose operands DTensor redistributed on its
-own, and how often), one device's ``ops``, and ``partitioned: true``.
-Train and prefill records are the whole cell's, ``partitioned: false``.
+shardings, one call counted on one device (a prefill lays its new cache
+out by ``cache_pspec``, as the decode cell takes it).  The record then has
+the reference's per-device keys beside the whole cell's,
+``memory.temp_bytes`` and ``cost.{dot_flops, traffic_bytes,
+traffic_bytes_pessimistic}``, ``collectives`` by kind (all-reduce at its
+operand, all-gather at its result), ``implicit`` (the ops whose operands
+DTensor redistributed on its own, and how often), one device's ``ops``,
+and ``partitioned: true``.  Train records are the whole cell's,
+``partitioned: false``.
 
 One cell per call:
 
@@ -45,6 +47,8 @@ One cell per call:
         --shape train_4k --mesh pod --out /tmp/dryrun
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-8b \\
         --shape decode_32k --mesh pod --out /tmp/dryrun
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch mamba2-780m \\
+        --shape prefill_32k --mesh pod --out /tmp/dryrun
 """
 from __future__ import annotations
 
@@ -139,8 +143,9 @@ def trace_cell(arch: str, shape, mesh, variant: str = "baseline",
     the ``OpTrace``.
 
     On an ``AbstractMesh`` the call is the whole cell (the ``*_global``
-    keys, ``partitioned: False``).  On a ``DeviceMesh`` (a decode cell; a
-    ``fake`` group of the mesh's size will do) the whole cell is traced so
+    keys, ``partitioned: False``).  On a ``DeviceMesh`` (a prefill or
+    decode cell; a train cell raises; a ``fake`` group of the mesh's size
+    will do) the whole cell is traced so
     on the abstract layout of the mesh's sizes, and once more partitioned:
     the ``meta`` arguments placed as DTensors by the cell's shardings
     (``sharding.device_put``) and one call counted on the device of this
@@ -153,9 +158,10 @@ def trace_cell(arch: str, shape, mesh, variant: str = "baseline",
     t0 = time.time()
     sizes = sh.mesh_shape(mesh)
     partitioned = not isinstance(mesh, sh.AbstractMesh)
-    if partitioned and shape.mode != "decode":
-        raise ValueError(f"{shape.mode} cells are traced whole, on an "
-                         f"AbstractMesh; only decode cells run on DTensors")
+    if partitioned and shape.mode == "train":
+        raise ValueError("train cells are traced whole, on an "
+                         "AbstractMesh; only prefill and decode cells run "
+                         "on DTensors")
     layout = sh.AbstractMesh(tuple(sizes.values()), tuple(sizes)) \
         if partitioned else mesh
     fn, args, in_sh, _, _, cfg, fsdp_pure = build_cell(arch, shape, layout,
@@ -198,12 +204,12 @@ def trace_cell(arch: str, shape, mesh, variant: str = "baseline",
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
              save_trace: bool = False, variant: str = "baseline",
              partitioned: bool = False) -> dict:
-    """The cell's record.  ``partitioned``: a decode cell is traced on the
-    production mesh over the default process group (``make_production_
-    mesh(device_type="cpu")``; ``main`` starts a ``fake`` group of the
-    mesh's size), with the per-device keys of ``trace_cell``; a train or
-    prefill cell, or any cell without ``partitioned``, is traced whole on
-    the production layout, ``partitioned: False``."""
+    """The cell's record.  ``partitioned``: a prefill or decode cell is
+    traced on the production mesh over the default process group
+    (``make_production_mesh(device_type="cpu")``; ``main`` starts a
+    ``fake`` group of the mesh's size), with the per-device keys of
+    ``trace_cell``; a train cell, or any cell without ``partitioned``, is
+    traced whole on the production layout, ``partitioned: False``."""
     shape = SHAPES[shape_name]
     entry = registry.get(arch)
     mesh_name = "multipod" if multi_pod else "pod"
@@ -216,7 +222,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
         return rec
 
     mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu") \
-        if partitioned and shape.mode == "decode" else \
+        if partitioned and shape.mode != "train" else \
         production_layout(multi_pod=multi_pod)
     got = trace_cell(arch, shape, mesh, variant, keep_order=save_trace)
     t = got.pop("trace")
@@ -254,15 +260,15 @@ def main(argv=None) -> int:
     if args.variant != "baseline":
         name += f"__{args.variant}"
     multi_pod = args.mesh == "multipod"
-    decode = SHAPES[args.shape].mode == "decode"
-    own_group = decode and not dist.is_initialized()
+    partitioned = SHAPES[args.shape].mode != "train"
+    own_group = partitioned and not dist.is_initialized()
     try:
         if own_group:
             fake_group(math.prod(production_layout(
                 multi_pod=multi_pod).sizes))
         rec = run_cell(args.arch, args.shape, multi_pod, out_dir,
                        save_trace=args.save_trace, variant=args.variant,
-                       partitioned=decode)
+                       partitioned=partitioned)
     except Exception as e:  # recorded, not swallowed — sweep reports it
         rec = {"arch": args.arch, "shape": args.shape, "mesh": args.mesh,
                "status": "error", "error": f"{type(e).__name__}: {e}",

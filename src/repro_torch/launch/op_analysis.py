@@ -176,11 +176,12 @@ _OP_INFO: dict = {}
 
 
 def _op_info(func) -> tuple:
-    """``(decomposes, pointwise, aliases)`` of an op, worked out once:
-    whether ``func.decompose`` would run (as ``FlopCounterMode`` tries it
-    for every op without a FLOP formula), whether the op is pointwise, and
-    whether its result may share an input's storage (a view, an in-place
-    or ``out=`` op)."""
+    """``(decomposes, pointwise, aliases, writes)`` of an op, worked out
+    once: whether ``func.decompose`` would run (as ``FlopCounterMode``
+    tries it for every op without a FLOP formula), whether the op is
+    pointwise, whether its result may share an input's storage (a view, an
+    in-place or ``out=`` op), and the ``(position, name)`` of each argument
+    it writes."""
     info = _OP_INFO.get(func)
     if info is None:
         dk = torch._C.DispatchKey.CompositeImplicitAutograd
@@ -191,8 +192,11 @@ def _op_info(func) -> tuple:
                                                                dk))
         aliases = func.is_view or any(r.alias_info is not None
                                       for r in func._schema.returns)
+        writes = tuple((i, a.name) for i, a in
+                       enumerate(func._schema.arguments)
+                       if a.alias_info is not None and a.alias_info.is_write)
         info = _OP_INFO[func] = (decomposes, torch.Tag.pointwise in func.tags,
-                                 aliases)
+                                 aliases, writes)
     return info
 
 
@@ -239,13 +243,20 @@ def _name(func) -> str:
     return f"{func.namespace}.{func._overloadpacket.__name__}"
 
 
+def _storage(t: torch.Tensor) -> int:
+    return t.untyped_storage()._cdata
+
+
 def _watch_redistributions(trace: "OpTrace"):
     """While ``trace`` records, count by op the redistributions that
     DTensor makes of an op's operands on its own (those that
     ``DTensor.redistribute`` asks for are not counted); the collectives
     they issue reach ``trace`` as any other.  An in-place op whose
     destination DTensor would have to move raises: its write would land
-    in a copy.  Returns the function that takes the watch off."""
+    in a copy.  The storage of each operand so moved into a new one is
+    handed to ``trace`` (``OpTrace._moved``): a view op on it returns a
+    view of that copy, and a later write through the view would land in
+    the copy too.  Returns the function that takes the watch off."""
     disp = _dtensor_type()._op_dispatcher
     prev = disp.__dict__.get("redistribute_local_args")
     orig = disp.redistribute_local_args
@@ -256,8 +267,14 @@ def _watch_redistributions(trace: "OpTrace"):
             op._schema.arguments else None
         dest = op_info.local_args[0] if first is not None and \
             first.is_write else None
+        before = op_info.local_args
         orig(op_info, suggested, *args, **kwargs)
         trace.implicit[_name(op)] += 1
+        for old, new in zip(before, op_info.local_args):
+            if isinstance(new, torch.Tensor) and new is not old and not (
+                    isinstance(old, torch.Tensor) and
+                    _storage(old) == _storage(new)):
+                trace._moved(new)
         if dest is not None and op_info.local_args[0] is not dest:
             raise RuntimeError(
                 f"DTensor redistributes the destination of the in-place "
@@ -297,7 +314,11 @@ class OpTrace(TorchDispatchMode):
     op on the rank's shards and the collectives of any redistribution; the
     DTensor-level op and DTensor's shape propagation (``_propagating``)
     are not recorded.  ``implicit`` counts by op the redistributions that
-    DTensor made on its own (``_watch_redistributions``)."""
+    DTensor made on its own (``_watch_redistributions``).  An op that
+    writes into the storage of such a redistributed copy raises: that is
+    a write through a view that DTensor took of a gathered copy (a slice
+    along a sharded dim, then ``copy_``), which would leave the DTensor
+    as it was; reads through such views are recorded as any other."""
 
     def __init__(self, keep_order: bool = False):
         super().__init__()
@@ -312,6 +333,7 @@ class OpTrace(TorchDispatchMode):
         self._start: dict = {}
         self._depth = 0           # decompositions re-enter the mode
         self._unwatch = None
+        self._copies: set = set()  # storages of redistributed operands
 
     def __enter__(self):
         if self._depth == 0:
@@ -329,6 +351,25 @@ class OpTrace(TorchDispatchMode):
                             for k, f in kernel_wrappers().items()}
             self._unwatch()
         return out
+
+    def _moved(self, t: torch.Tensor) -> None:
+        """Remember ``t``'s storage, a copy that DTensor made of an operand
+        on its own, until it is freed."""
+        st = t.untyped_storage()
+        key = st._cdata
+        if key not in self._copies:
+            self._copies.add(key)
+            weakref.finalize(st, self._copies.discard, key)
+
+    def _refuse_write_to_copy(self, func, writes, args, kwargs) -> None:
+        for i, name in writes:
+            t = args[i] if i < len(args) else kwargs.get(name)
+            if isinstance(t, torch.Tensor) and _storage(t) in self._copies:
+                raise RuntimeError(
+                    f"the in-place {func} writes into a gathered copy: its "
+                    f"destination is a view of an operand that DTensor "
+                    f"redistributed on its own, so the write would not "
+                    f"reach the DTensor")
 
     def _freed(self, key: int, nbytes: int) -> None:
         if self._live.pop(key, None) is not None:
@@ -355,7 +396,9 @@ class OpTrace(TorchDispatchMode):
             return func(*args, **kwargs)
         if any(issubclass(t, _dtensor_type()) for t in types):
             return NotImplemented
-        decomposes, pointwise, aliases = _op_info(func)
+        decomposes, pointwise, aliases, writes = _op_info(func)
+        if writes and self._copies:
+            self._refuse_write_to_copy(func, writes, args, kwargs)
         if decomposes:
             with self:                          # as FlopCounterMode counts
                 r = func.decompose(*args, **kwargs)

@@ -184,18 +184,20 @@ def _gqa_out(w, v):
 
 
 def full_attention(q, k, v, *, causal: bool, softcap=None,
-                   window: int | None = None):
+                   window: int | None = None, q_offset: int = 0):
     """Materialized-scores attention (short sequences).
 
     q: [B,Sq,H,hd]; k, v: [B,Skv,KV,hd] (expanded internally for GQA).
-    Returns [B,Sq,H,hd] in q.dtype.
+    ``q_offset``: the position of q's first row (a rank's block of a
+    sequence-sharded q, ``ctx.attention_blocks``).  Returns [B,Sq,H,hd]
+    in q.dtype.
     """
     b, sq, h, hd = q.shape
     skv, nkv = k.shape[1], k.shape[2]
     k = expand_kv(k, h // nkv)
     v = expand_kv(v, h // nkv)
     scores = _softcap(_gqa_scores(q, k) / math.sqrt(hd), softcap)
-    qpos = torch.arange(sq, device=q.device)
+    qpos = q_offset + torch.arange(sq, device=q.device)
     kpos = torch.arange(skv, device=q.device)
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
@@ -356,6 +358,21 @@ def _project_qkv(p, x, kv_x, cfg: AttnConfig, policy, bfp, positions,
             constrain(v, "act_kv"))
 
 
+def attention_core(q, k, v, cfg: AttnConfig, *, causal: bool):
+    """``blockwise_attention`` when the queries or keys pass
+    ``cfg.blockwise_threshold``, ``full_attention`` below.  On DTensors
+    each rank attends over its own block (``ctx.attention_blocks``), and a
+    sequence-sharded q is gathered once before the blockwise chunks, as
+    XLA gathers the reference's reshaped chunks once."""
+    if max(q.shape[1], k.shape[1]) > cfg.blockwise_threshold:
+        return ctx.attention_blocks(
+            blockwise_attention, ctx.gather_dim(q, 1), k, v, causal=causal,
+            softcap=cfg.softcap, window=cfg.window, q_chunk=cfg.q_chunk,
+            kv_chunk=cfg.kv_chunk, causal_skip=cfg.causal_skip)
+    return ctx.attention_blocks(full_attention, q, k, v, causal=causal,
+                                softcap=cfg.softcap, window=cfg.window)
+
+
 def attention_layer(p, x, cfg: AttnConfig, *, policy=Policy(), bfp=NO_BFP,
                     kv_x=None, positions=None, kv_positions=None):
     """Full-sequence attention (train / prefill).  kv_x ≠ None → cross-attn."""
@@ -375,14 +392,8 @@ def attention_layer(p, x, cfg: AttnConfig, *, policy=Policy(), bfp=NO_BFP,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, softcap=cfg.softcap, q_chunk=qc,
             kv_chunk=kc).transpose(1, 2)
-    elif max(s, kv_x.shape[1]) > cfg.blockwise_threshold:
-        o = blockwise_attention(q, k, v, causal=causal, softcap=cfg.softcap,
-                                window=cfg.window, q_chunk=cfg.q_chunk,
-                                kv_chunk=cfg.kv_chunk,
-                                causal_skip=cfg.causal_skip)
     else:
-        o = full_attention(q, k, v, causal=causal, softcap=cfg.softcap,
-                           window=cfg.window)
+        o = attention_core(q, k, v, cfg, causal=causal)
     o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)
     return dense(p["wo"], o, policy=policy, bfp=bfp)
 

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.common import LayerSpec, ModelConfig
-from repro_torch.distributed import ctx
+from repro_torch.distributed import ctx, sharding as sh
 from repro_torch.distributed.ctx import constrain
 from repro_torch.models import hybrid, layers as L, moe as moe_mod, ssm
 
@@ -408,15 +408,7 @@ def _sub_prefill(p, h, spec, cfg, cache, *, policy, positions, cross_kv):
     q, k, v = L._project_qkv(p["attn"], u,
                              cross_kv if spec.kind == "cross" else u, acfg,
                              policy, L.NO_BFP, positions)
-    if max(s, k.shape[1]) > acfg.blockwise_threshold:
-        o = L.blockwise_attention(q, k, v, causal=acfg.causal,
-                                  softcap=acfg.softcap, window=acfg.window,
-                                  q_chunk=acfg.q_chunk,
-                                  kv_chunk=acfg.kv_chunk,
-                                  causal_skip=acfg.causal_skip)
-    else:
-        o = L.full_attention(q, k, v, causal=acfg.causal,
-                             softcap=acfg.softcap, window=acfg.window)
+    o = L.attention_core(q, k, v, acfg, causal=acfg.causal)
     y = L.dense(p["attn"]["wo"], o.reshape(b, s, acfg.n_heads * acfg.head_dim),
                 policy=policy)
     if cfg.post_norm:
@@ -427,18 +419,29 @@ def _sub_prefill(p, h, spec, cfg, cache, *, policy, positions, cross_kv):
     elif "pos" in cache:
         size = cache["k"].shape[1]
         keep = min(size, s)
-        held = torch.arange(s - keep, s, device=h.device)
-        slots = held % size
-        cache["k"].index_copy_(1, slots, k[:, -keep:].to(cache["k"].dtype))
-        cache["v"].index_copy_(1, slots, v[:, -keep:].to(cache["v"].dtype))
-        cache["pos"].index_copy_(0, slots, held.to(torch.int32))
+        for name, t in (("k", k), ("v", v)):
+            ctx.write_slots_(cache[name], 1, s - keep,
+                             t[:, -keep:].to(cache[name].dtype), ring=True)
+        ctx.write_slots_(cache["pos"], 0, s - keep, torch.arange(
+            s - keep, s, dtype=torch.int32, device=h.device), ring=True)
     else:
-        cache["k"][:, :s] = k.to(cache["k"].dtype)
-        cache["v"][:, :s] = v.to(cache["v"].dtype)
+        for name, t in (("k", k), ("v", v)):
+            ctx.write_slots_(cache[name], 1, 0, t.to(cache[name].dtype))
     if "len" in cache:
         cache["len"].fill_(s)
     h, _ = _apply_mlp(p, h + y, spec, cfg, policy, L.NO_BFP)
     return h
+
+
+def _placed_cache(cache: dict, named: dict, device) -> dict:
+    """The ``meta`` cache tree ``cache`` made anew as DTensors laid out by
+    ``named`` (``cache_pspec``'s, the layout a decode cell takes), each
+    rank's block allocated on ``device`` and filled as ``init_cache`` fills
+    it: ``pos`` with -1, the rest with 0."""
+    return {k: _placed_cache(v, named[k], device) if isinstance(v, dict)
+            else ctx.full_placed(tuple(v.shape), -1 if k == "pos" else 0,
+                                 v.dtype, named[k], device)
+            for k, v in cache.items()}
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -460,7 +463,12 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
     prefill does (its ``init_cache`` gives that layer a ``pos`` leaf).  An
     ``ssd`` or ``lru`` layer's conv states are in the compute dtype, not
     ``cache_dtype`` (its ``h`` is f32), and ``step`` is S, as the
-    reference's prefill returns them."""
+    reference's prefill returns them.
+
+    Given DTensor tokens (a cell placed on a mesh), the cache is made of
+    DTensors on their mesh, laid out by ``sharding.cache_pspec`` as a
+    decode cell takes it, and every write lands in each rank's own block
+    (``ctx.write_slots_``; the states' ``copy_``)."""
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt of {s} tokens exceeds max_len {max_len}")
@@ -471,9 +479,11 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
                          f"frontend['cross_kv'], the [B, T, D] it attends "
                          f"to; none was given")
     dev = tokens.device
+    mesh = getattr(tokens, "device_mesh", None)       # a DTensor's
     positions = torch.arange(s, device=dev).expand(b, s)
     h = embed_tokens(params, cfg, tokens, positions, policy)
-    cache = init_cache(cfg, b, max_len, cache_dtype, device=dev,
+    cache = init_cache(cfg, b, max_len, cache_dtype,
+                       device=dev if mesh is None else "meta",
                        cross_len=None if cross_kv is None
                        else cross_kv.shape[1])
     # only a ring (fewer slots than max_len) keeps ``pos``, and the conv
@@ -484,6 +494,10 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, *,
         for k in ("conv_x", "conv_b", "conv_c", "conv"):
             if k in c:
                 c[k] = c[k].to(policy.compute_dtype)
+    if mesh is not None:
+        cache = _placed_cache(cache, sh.to_named(
+            sh.tree_pspecs(cache, mesh, sh.cache_pspec), mesh),
+            tokens.to_local().device)
     if "step" in cache:
         cache["step"].fill_(s)
     for p, c, spec in _layers(params, cache, cfg):

@@ -4,7 +4,7 @@ temperature).
 Counterpart of ``repro/train/serve_step.py``.  Both steps run under
 ``torch.inference_mode()``; the decode step updates the cache in place
 (the reference jits it with the cache donated) and returns it.  Given
-DTensor params (a cell placed on a mesh, ``launch/dryrun.py``), the decode
+DTensor params (a cell placed on a mesh, ``launch/dryrun.py``), either
 step runs under ``torch.no_grad()`` instead, since a view of a DTensor
 cannot be made in inference mode, and under DTensor's
 ``implicit_replication``, so that the tensors the model makes itself
@@ -50,8 +50,11 @@ def make_prefill_step(entry, cfg: ModelConfig, *, max_len: int,
     module = entry.module
 
     def prefill_step(params, tokens, frontend=None):
+        if _placed(params):
+            params, tokens, frontend = map(ctx.unit_shards_replicated,
+                                           (params, tokens, frontend))
         kw = {} if frontend is None else {"frontend": frontend}
-        with torch.inference_mode():
+        with _grad_off(params):
             out = module.prefill(params, cfg, tokens, max_len=max_len,
                                  policy=policy, cache_dtype=cache_dtype,
                                  logits_mode=logits_mode, **kw)
