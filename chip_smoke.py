@@ -76,7 +76,11 @@ Phases, each printing its numbers on lines of their own:
      (finite losses, tuned within rtol 1e-5 / atol 1e-6 of baseline at
      every step, the branch moved, tuned2's backbone all fp8 at half the
      bf16 bytes; step medians and each attention kind's time and share,
-     ``cells_<arch>_<variant>_attention``), and the tuned2 train cells of
+     ``cells_<arch>_<variant>_attention``; each variant also steps once
+     from the same draw with its state and batch placed as DTensors, the
+     duplex step forward and backward on them, its new state and metrics
+     bit for bit the first plain step's and each leaf laid out as
+     before, ``dtensor_step``), and the tuned2 train cells of
      mamba2-780m and recurrentgemma-9b (batch cut to 1), which must raise
      torch's fp8 promotion ``RuntimeError`` in ``ssd_block`` and
      ``_gates``, where JAX's refuse to trace; no kernel launched
@@ -96,7 +100,10 @@ Phases, each printing its numbers on lines of their own:
      well, then mamba2-780m x prefill_32k at its own size and granite-3-8b
      (heads sharded) and starcoder2-7b (sequence parallel) x prefill_32k
      at full width and B=32 with the sequence cut to 2048 (blockwise
-     attention runs), DTensors counted on one device (per-device FLOPs,
+     attention runs), and the train_4k cells of granite-3-8b,
+     starcoder2-7b, granite-moe-1b-a400m and recurrentgemma-9b at their
+     own size (B=256, 4096 tokens; the duplex step forward and backward),
+     DTensors counted on one device (per-device FLOPs,
      traffic, temp bytes and collectives, the ops DTensor redistributed on
      its own, ``trace_s``); the traces run in a pool of spawned host
      processes, no kernel launched (``launches_by_path`` ``dryrun_*``);
@@ -1729,51 +1736,23 @@ def decode_cells(mesh, launches: dict) -> dict:
     return out
 
 
-def put_leafwise(tree: dict, named: dict) -> dict:
-    """``sharding.device_put`` of ``tree`` leaf by leaf, each plain leaf
-    dropped from ``tree`` as soon as its DTensor exists: on one rank
-    ``distribute_tensor`` copies a sharded leaf, and a cell's f32 params
-    (36 GB for recurrentgemma-9b) do not fit twice beside its cache."""
-    from repro_torch.distributed import sharding as sh
-    out = {}
-    for k in list(tree):
-        v = tree.pop(k)
-        out[k] = put_leafwise(v, named[k]) if isinstance(v, dict) else \
-            sh.device_put(v, named[k])
-        del v
-    return out
-
-
-def unplace_into(tree: dict, placed: dict) -> None:
-    """Refill ``tree`` (emptied by ``put_leafwise``) with each DTensor's
-    local tensor: on one rank, the whole leaf."""
-    for k, v in placed.items():
-        if isinstance(v, dict):
-            tree[k] = {}
-            unplace_into(tree[k], v)
-        else:
-            tree[k] = v.to_local()
-
-
 def placed_decode_step(label: str, cell, mesh, params, cache, tok) -> dict:
     """One decode step of ``cell`` with its params, cache and tokens placed
     by ``sharding.device_put`` on ``mesh`` with the cell's own shardings
     (DTensors), against the plain step from a copy of the same cache: the
-    tokens must be equal bit for bit.  The params are placed leaf by leaf
-    and put back (``params`` holds the same values after); the cache's
-    largest difference is reported; both steps are timed by CUDA events."""
+    tokens must be equal bit for bit.  On one rank a placed leaf is the
+    plain leaf itself (``device_put`` copies nothing), so the step on
+    DTensors writes a copy of the cache; the cache's largest difference is
+    reported; both steps are timed by CUDA events."""
+    from repro_torch.distributed import sharding as sh
     from repro_torch.utils import tree_flatten, tree_map
 
     in_sh = cell[2]
     (want, want_cache), plain_ms = call_cell(
         cell, mesh, (params, tree_map(torch.clone, cache), {"tokens": tok}))
-    placed = [put_leafwise(params, in_sh[0]),
-              put_leafwise(tree_map(torch.clone, cache), in_sh[1]),
-              put_leafwise({"tokens": tok}, in_sh[2])]
-    try:
-        (got, got_cache), ms = call_cell(cell, mesh, placed)
-    finally:
-        unplace_into(params, placed[0])
+    placed = [sh.device_put(x, s) for x, s in zip(
+        (params, tree_map(torch.clone, cache), {"tokens": tok}), in_sh)]
+    (got, got_cache), ms = call_cell(cell, mesh, placed)
     got = got.full_tensor()
     if not torch.equal(got, want):
         raise AssertionError(f"{label}: the step on DTensors gave other "
@@ -1794,17 +1773,13 @@ def placed_prefill_step(label: str, cell, mesh, params, batch, want,
     (DTensors; the cache comes out laid out by ``cache_pspec``), against
     the plain step's output ``want`` on the same arguments (``plain_ms``
     its time): the next-token logits and every cache leaf must be equal
-    bit for bit.  The params are placed leaf by leaf and put back; the
-    step is timed by CUDA events."""
-    from repro_torch.utils import tree_flatten, tree_map
+    bit for bit.  On one rank a placed leaf is the plain leaf itself
+    (``device_put`` copies nothing); the step is timed by CUDA events."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.utils import tree_flatten
 
-    in_sh = cell[2]
-    placed = [put_leafwise(params, in_sh[0]),
-              put_leafwise(tree_map(lambda x: x, batch), in_sh[1])]
-    try:
-        got, ms = call_cell(cell, mesh, placed)
-    finally:
-        unplace_into(params, placed[0])
+    placed = [sh.device_put(x, s) for x, s in zip((params, batch), cell[2])]
+    got, ms = call_cell(cell, mesh, placed)
     if not torch.equal(got["next_token_logits"].full_tensor(),
                        want["next_token_logits"]):
         raise AssertionError(f"{label}: the step on DTensors gave other "
@@ -1820,6 +1795,51 @@ def placed_prefill_step(label: str, cell, mesh, params, batch, want,
     torch.cuda.empty_cache()
     return {"logits_equal": True, "cache_bit_equal": True, "step_ms": ms,
             "plain_step_ms": plain_ms}
+
+
+def placed_train_step(label: str, cell, mesh, state, batch, want,
+                      plain_ms: float) -> dict:
+    """One train step of ``cell`` with its state and batch placed by
+    ``sharding.device_put`` on ``mesh`` with the cell's own shardings
+    (DTensors: the duplex step forward and backward on them), against the
+    plain step's ``want = (new_state, metrics)`` from the same state
+    (``plain_ms`` its time): every leaf of the new state and every metric
+    must be equal bit for bit (one rank holds the whole vocab, so the
+    loss takes the plain ops), and each new leaf keeps its placements.
+    On one rank a placed leaf is the plain leaf itself (``device_put``
+    copies nothing); the step is timed by CUDA events, and its peak taken
+    alone."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.utils import tree_flatten
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    placed = [sh.device_put(x, s) for x, s in zip((state, batch), cell[2])]
+    (got, metrics), ms = call_cell(cell, mesh, placed)
+    old = dict(tree_flatten(placed[0]))
+    for path, a in tree_flatten(got):
+        if not isinstance(a, DTensor) or \
+                tuple(a.placements) != tuple(old[path].placements):
+            raise AssertionError(f"{label}: new leaf {path} is not laid out "
+                                 f"as its old one")
+    g = tree_flatten({k: v for k, v in got.items() if k != "backbone"})
+    w = tree_flatten({k: v for k, v in want[0].items() if k != "backbone"})
+    if [p for p, _ in g] != [p for p, _ in w]:
+        raise AssertionError(f"{label}: the DTensor state has other leaves")
+    for (path, a), (_, b) in zip(g, w):
+        if not torch.equal(a.full_tensor(), b):
+            raise AssertionError(f"{label}: leaf {path} differs on DTensors")
+    for k, v in want[1].items():
+        if not torch.equal(metrics[k].full_tensor(), v):
+            raise AssertionError(f"{label}: metric {k} differs on DTensors")
+    peak = torch.cuda.max_memory_allocated()
+    del placed, got, metrics
+    torch.cuda.empty_cache()
+    return {"state_bit_equal": True, "metrics_bit_equal": True,
+            "placements_kept": True, "step_ms": ms,
+            "plain_step_ms": plain_ms, "max_memory_allocated_bytes": peak}
 
 
 def close_trees(label: str, got, want, rule) -> dict:
@@ -1924,8 +1944,13 @@ def train_cells(mesh, launches: dict, arch: str, variants: tuple,
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
         cur, losses, ms, branches = state, [], [], []
-        for _ in range(CELL_STEPS):
+        for i in range(CELL_STEPS):
             (cur, metrics), t = call_cell(cell, mesh, (cur, batch_))
+            if i == 0:
+                placed = placed_train_step(f"cells_train {arch} {variant}",
+                                           cell, mesh, state, batch_,
+                                           (cur, metrics), t)
+                torch.cuda.reset_peak_memory_stats()
             losses.append(metrics["loss"].float().reshape(1))
             branches.append([x.float().reshape(-1) for _, x in
                              tree_flatten(cur["branch"])])
@@ -1943,6 +1968,7 @@ def train_cells(mesh, launches: dict, arch: str, variants: tuple,
         if not moved > 0:
             raise AssertionError(f"cells_train {arch} {variant}: the branch "
                                  f"did not move")
+        del cur
         bb = [x for _, x in tree_flatten(state["backbone"])]
         bytes_ = sum(x.numel() * x.element_size() for x in bb)
         dtypes = sorted({str(x.dtype) for x in bb})
@@ -1978,13 +2004,13 @@ def train_cells(mesh, launches: dict, arch: str, variants: tuple,
                "branch_max_abs_change": moved, "backbone_dtypes": dtypes,
                "backbone_bytes": bytes_, "max_abs_gap_to_baseline": gap,
                "max_memory_allocated_bytes": peak, "dot_flops_card": flops,
-               "launches": 0}
+               "launches": 0, "dtensor_step": placed}
         print("cells_train: " + json.dumps(row), flush=True)
         rows[variant] = row
         run = {"cfg": cfg, "policy": cells.POLICY, "state": state,
                "batches": [batch_], "step_times": [t / 1e3 for t in ms]}
         report_attention_layers(run, f"cells_{arch}_{variant}")
-        del cur, metrics, run, args, batch_
+        del metrics, run, args, batch_
         if variant == "tuned":
             seen.clear()
     del state
@@ -2174,6 +2200,13 @@ def dryrun_partitioned_trace(arch: str, name: str, multi_pod: bool,
 PARTITIONED_SEQ_CUT = 2048
 
 
+# train cells traced partitioned at their own size (B=256, 4096 tokens):
+# heads split over ``model``, sequence parallel (36 heads), experts over
+# ``model`` (EP), and the ``lru`` and ``local`` kinds
+PARTITIONED_TRAIN = ("granite-3-8b", "starcoder2-7b", "granite-moe-1b-a400m",
+                     "recurrentgemma-9b")
+
+
 def dryrun_partitioned_cells() -> list:
     """``(arch, shape name, multi_pod, seq)``: the 12 decode cells that the
     reference traces (decode_32k on the ten archs, long_500k on the two
@@ -2181,7 +2214,9 @@ def dryrun_partitioned_cells() -> list:
     2x16x16 mesh as well, at their own sizes (``seq`` None); then
     prefill_32k on the 16x16 mesh: mamba2-780m at its own size, and
     granite-3-8b (heads sharded over ``model``) and starcoder2-7b (36
-    heads: sequence parallel) at ``PARTITIONED_SEQ_CUT`` tokens."""
+    heads: sequence parallel) at ``PARTITIONED_SEQ_CUT`` tokens; then the
+    ``PARTITIONED_TRAIN`` train_4k cells at their own size, the duplex
+    step forward and backward."""
     from repro_torch.models import registry
 
     out = [(arch, shape.name, False, None) for arch, shape, skip in
@@ -2191,7 +2226,8 @@ def dryrun_partitioned_cells() -> list:
     return out + [("mamba2-780m", "prefill_32k", False, None),
                   ("granite-3-8b", "prefill_32k", False, PARTITIONED_SEQ_CUT),
                   ("starcoder2-7b", "prefill_32k", False,
-                   PARTITIONED_SEQ_CUT)]
+                   PARTITIONED_SEQ_CUT)] + \
+        [(arch, "train_4k", False, None) for arch in PARTITIONED_TRAIN]
 
 
 def partitioned_cut_note(name: str, seq: int | None) -> str:
@@ -2386,12 +2422,13 @@ def run_dryrun(cell_runs: dict) -> dict:
     counted = cell_runs["counted"]
     split = dryrun_partitioned_cells()
     with dryrun_pool() as pool:
+        # the partitioned traces first: the train cells' are the longest
+        on_mesh = [pool.submit(dryrun_partitioned_trace, *case)
+                   for case in reversed(split)][::-1]
         on_card = [pool.submit(dryrun_trace, r["arch"], r["shape"],
                                r["batch"], r["variant"]) for r in counted]
         in_table = [pool.submit(dryrun_trace, arch, name, None, "baseline")
                     for arch, name in dryrun_table_cells()]
-        on_mesh = [pool.submit(dryrun_partitioned_trace, *case)
-                   for case in split]
         card = dryrun_card(on_card, counted, launches["dryrun_card"])
         table = dryrun_table(in_table, launches["dryrun_table"])
         parted = dryrun_partitioned(on_mesh, split,

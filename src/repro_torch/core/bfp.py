@@ -16,6 +16,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import ctx as dist_ctx
 from repro_torch.utils import ceil_to
 
 # Paper constants (Section III-E).
@@ -120,16 +121,28 @@ def _qdq(x, group, ebits, mbits):
     return bfp_dequantize(bfp_quantize(x, group, ebits, mbits), dtype=x.dtype)
 
 
+def _qdq_rows(x, group, ebits, mbits):
+    """``_qdq`` of ``x`` with its leading dims flattened into rows."""
+    shape = x.shape
+    x2 = x.reshape(-1, shape[-1]) if x.dim() != 2 else x
+    return _qdq(x2, group, ebits, mbits).reshape(shape)
+
+
 class _QDQ(torch.autograd.Function):
-    """Quantize→dequantize forward, identity backward (the STE)."""
+    """Quantize→dequantize forward, identity backward (the STE).  With
+    ``rows``, the leading dims flatten into rows, and a DTensor is
+    quantized on each rank's block (``distributed.ctx.tiled``)."""
 
     @staticmethod
-    def forward(ctx, x, group, ebits, mbits):
-        return _qdq(x, group, ebits, mbits)
+    def forward(ctx, x, group, ebits, mbits, rows=False):
+        if not rows:
+            return _qdq(x, group, ebits, mbits)
+        return dist_ctx.tiled(
+            lambda t: _qdq_rows(t, group, ebits, mbits), x, group)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None, None, None
+        return g, None, None, None, None
 
 
 def bfp_qdq(x: torch.Tensor,
@@ -142,6 +155,17 @@ def bfp_qdq(x: torch.Tensor,
     sees identity (the ``custom_vjp`` of the JAX package).
     """
     return _QDQ.apply(x, tuple(group), ebits, mbits)
+
+
+def bfp_qdq_rows(x: torch.Tensor,
+                 group: Tuple[int, int] = PAPER_GROUP,
+                 ebits: int = PAPER_EBITS,
+                 mbits: int = PAPER_MBITS) -> torch.Tensor:
+    """``bfp_qdq`` of ``x`` with its leading dims flattened into rows (so
+    groups straddle sequences), in ``x``'s shape.  On a DTensor each rank
+    quantizes its own block where it holds whole groups
+    (``distributed.ctx.tiled``)."""
+    return _QDQ.apply(x, tuple(group), ebits, mbits, True)
 
 
 def bfp_matmul_ref(

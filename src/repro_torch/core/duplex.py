@@ -12,9 +12,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.reversible import ReversibleStack, stack_params
+from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
 from repro_torch.utils import ceil_to
 
@@ -43,7 +43,7 @@ def pool_seq(x: torch.Tensor, r: int) -> torch.Tensor:
     sp = ceil_to(s, r)
     starts = torch.arange(0, sp, r, device=x.device)
     if sp != s:
-        x = F.pad(x, (0, 0, 0, sp - s))
+        x = ctx.pad(x, (0, 0, 0, sp - s))
         # renormalize the ragged tail so padding doesn't dilute the mean
         counts = torch.clamp(torch.clamp(s - starts, max=r), 1, r)
     else:
@@ -60,7 +60,7 @@ def upsample_causal(y: torch.Tensor, r: int, s: int) -> torch.Tensor:
     """
     seg = torch.arange(s, device=y.device) // r
     idx = torch.clamp(seg - 1, 0, y.shape[1] - 1)
-    gathered = y[:, idx]                               # [B,S,D]
+    gathered = ctx.take(y, 1, idx)                     # [B,S,D]
     valid = (seg >= 1)[None, :, None]
     return torch.where(valid, gathered, torch.zeros_like(gathered))
 

@@ -24,18 +24,22 @@ Counterpart of ``repro/distributed/ctx.py``.  ``constrain``:
   constrain; passing it through would hide that the models have no
   multi-rank path yet.
 
-The prefill and decode steps on DTensors (a cell placed on a mesh,
-``launch/dryrun.py``) also go through the helpers below, where DTensor's
-own rule for an op partitions otherwise than the sharding scheme means,
-or fails: ``at_use`` (a weight's ZeRO-3 shards gathered),
+The train, prefill and decode steps on DTensors (a cell placed on a
+mesh, ``launch/dryrun.py``) also go through the helpers below, where
+DTensor's own rule for an op partitions otherwise than the sharding
+scheme means, or fails: ``at_use`` (a weight's ZeRO-3 shards gathered),
 ``reduce_partial``, ``embedding`` (the vocab-parallel lookup),
 ``index_copy_`` (a decode step's cache slot written in each rank's
 block), ``write_slots_`` (a prefill's slots so written), ``full_placed``
 (a prefill's cache allocated by blocks), ``attention_blocks`` (a
 prefill's attention on each rank's block), ``softmax``, ``gather_dim``,
-``split_last``, ``matmul`` and ``unit_shards_replicated``.  On a plain
-tensor each is the op it stands for, so the single-card paths do not
-change.
+``split_last``, ``matmul``, ``unit_shards_replicated``, and for the
+train step's backward and loss ``grad_laid_out`` (a product's gradients
+in their forward layout), ``placed_like``, ``logsumexp_pick`` and
+``argmax`` (the vocab-parallel loss), ``tiled`` (BFP groups on each
+rank's block), ``pad``, ``take`` and ``total`` (the global norm).  On a
+plain tensor each is the op it stands for, so the single-card paths do
+not change.
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.utils import tree_map
+from repro_torch.utils import tree_leaves, tree_map
 
 _MESH: Optional[Any] = None
 _RULES: Optional[dict] = None
@@ -65,6 +69,24 @@ def activation_sharding(mesh, rules: dict):
         _MESH, _RULES = prev
 
 
+def placed(tree) -> bool:
+    """Whether any leaf of ``tree`` is a DTensor (a cell placed on a
+    mesh)."""
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(x, DTensor) for x in tree_leaves(tree))
+
+
+def replicate_made(tree):
+    """DTensor's ``implicit_replication`` where ``tree`` is placed, so that
+    the tensors a model makes itself (positions, masks, rope's
+    frequencies), equal on every rank, join the DTensors as replicated
+    ones; else a context that does nothing."""
+    if not placed(tree):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
 def at_use(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """The weight ``w`` as a product with the activation ``x`` reads it.
 
@@ -76,8 +98,11 @@ def at_use(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     DTensor would rather move the activations to the weight's shards).
     Where ``x`` is not split over the axis (a batch of one), the shard
     stays and the product contracts it, to be summed after (``dense``
-    reduces it), as XLA's partitioner does there too.  Any other tensor as
-    it is."""
+    reduces it), as XLA's partitioner does there too.  Where ``x``'s batch
+    is split over ``model`` as well (the ``fsdp_pure`` layout: the batch
+    over every axis, every large weight ZeRO-3 over every axis), ``w`` is
+    gathered over every axis that splits ``x``, whichever of its dims
+    the shard cuts.  Any other tensor as it is."""
     from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(w, DTensor):
         return w
@@ -85,12 +110,45 @@ def at_use(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     last = x.dim() - 1
     split = [isinstance(x, DTensor) and x.placements[m].is_shard() and
              not x.placements[m].is_shard(last) for m in range(len(names))]
+    every = any(split[m] and names[m] not in ("pod", "data") and
+                x.placements[m].is_shard(0) for m in range(len(names)))
     rows = w.dim() - 2
-    want = [Replicate() if names[m] in ("pod", "data") and split[m] and
-            p.is_shard(rows) else p for m, p in enumerate(w.placements)]
+    want = [Replicate() if split[m] and p.is_shard() and (
+        every or names[m] in ("pod", "data") and p.is_shard(rows))
+        else p for m, p in enumerate(w.placements)]
     if want == list(w.placements):
         return w
     return w.redistribute(w.device_mesh, want)
+
+
+class _GradLaidOut(torch.autograd.Function):
+    """Identity forward; backward lays the incoming gradient out as the
+    forward value was (a DTensor's placements)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(ctx.mesh, ctx.placements)
+        return g
+
+
+def grad_laid_out(x: torch.Tensor) -> torch.Tensor:
+    """``x``; on a DTensor that requires grad, its gradient is laid out as
+    ``x`` is before it flows on, as XLA gives a cotangent its primal's
+    sharding.  A product's backward then runs on the blocks of its
+    forward (a weight's gradient on the weight's shards, a pending sum
+    reduce-scattered there) where the gradient would otherwise arrive
+    replicated or summed and be cut or reduced after.  Any other tensor
+    as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    return _GradLaidOut.apply(x)
 
 
 def reduce_partial(x: torch.Tensor) -> torch.Tensor:
@@ -263,6 +321,92 @@ def full_placed(shape: tuple, value, dtype, named, device) -> torch.Tensor:
                               stride=contiguous_stride(shape))
 
 
+def pad(x: torch.Tensor, widths: tuple, value: float = 0.0
+        ) -> torch.Tensor:
+    """``F.pad(x, widths, value=value)`` (constant padding).  On a DTensor
+    each rank pads its own block where the padded dims are not split, and
+    the result keeps ``x``'s placements; a padded dim that is split is
+    gathered first.  (DTensor's own pad miscounts placements in some torch
+    versions.)"""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return F.pad(x, widths, value=value)
+    x = reduce_partial(x)
+    padded = {x.dim() - 1 - i // 2 for i, w in enumerate(widths) if w}
+    want = [Replicate() if p.is_shard() and p.dim in padded else p
+            for p in x.placements]
+    if want != list(x.placements):
+        x = x.redistribute(x.device_mesh, want)
+    out = F.pad(x.to_local(), widths, value=value)
+    shape = list(x.shape)
+    for i, w in enumerate(widths):
+        shape[x.dim() - 1 - i // 2] += w
+    return DTensor.from_local(out, x.device_mesh, want, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def placed_like(g: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``g`` (a gradient) laid out as ``like`` (its leaf) where both are
+    DTensors: a pending sum over a mesh dim that shards ``like`` is
+    reduce-scattered, one that replicates it all-reduced.  Any other
+    ``g`` as it is."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(g, DTensor) or not isinstance(like, DTensor) or \
+            tuple(g.placements) == tuple(like.placements):
+        return g
+    return g.redistribute(like.device_mesh, like.placements)
+
+
+def total(fn, tensors) -> torch.Tensor:
+    """``sum(fn(t) for t in tensors)``, for an ``fn`` that reduces a tensor
+    to a 0-d sum over its elements (a sum of squares: any block of the
+    elements gives its share).  Over DTensors (all on one mesh): ``fn`` of
+    each rank's
+    block, counted by one rank of each group of ranks that hold the same
+    block (rank 0 of each mesh dim that replicates it), summed on the rank
+    and reduced over the ranks in one go, a replicated 0-d DTensor.
+    (DTensor's own sum of per-tensor results reduces each one whose
+    placements differ from the others'.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    tensors = list(tensors)
+    if not isinstance(tensors[0], DTensor):
+        return sum(fn(t) for t in tensors)
+    mesh = tensors[0].device_mesh
+    acc = 0
+    for t in tensors:
+        part = fn(reduce_partial(t).to_local())
+        if any(not p.is_shard() and mesh.get_local_rank(m)
+               for m, p in enumerate(t.placements)):
+            part = torch.zeros_like(part)
+        acc = acc + part
+    return DTensor.from_local(acc, mesh, [Partial()] * mesh.ndim,
+                              run_check=False).redistribute(
+        mesh, [Replicate()] * mesh.ndim)
+
+
+def take(x: torch.Tensor, dim: int, index: torch.Tensor) -> torch.Tensor:
+    """``x`` indexed by the integer tensor ``index`` along ``dim`` (``x[:,
+    index]`` for ``dim`` 1).  On a DTensor (a 1-d ``index``, a plain
+    tensor, equal on every rank) each rank indexes its own block,
+    ``dim`` gathered first if it is split, and the result keeps ``x``'s
+    placements; the gradient's scatter stays on the rank's block too
+    (DTensor's own index and its backward gather the whole of ``x``)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    at = (slice(None),) * dim + (index,)
+    if not isinstance(x, DTensor):
+        return x[at]
+    if index.dim() != 1:
+        raise ValueError(f"take: a 1-d index on a DTensor, got "
+                         f"{index.dim()} dims")
+    x = gather_dim(reduce_partial(x), dim)
+    out = x.to_local()[at]
+    shape = (*x.shape[:dim], index.shape[0], *x.shape[dim + 1:])
+    return DTensor.from_local(out, x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
 def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     """A DTensor with its shards along ``dim`` gathered (its other
     placements kept); any other tensor as it is."""
@@ -330,12 +474,8 @@ def split_last(x: torch.Tensor, *sizes: int) -> torch.Tensor:
     ``sizes[0]`` cannot be split so (DTensor refuses the uneven view); it
     is gathered along that dim first, as XLA reshards such a reshape."""
     from torch.distributed.tensor import DTensor
-    if isinstance(x, DTensor):
-        ranks = math.prod(x.device_mesh.size(m)
-                          for m, p in enumerate(x.placements)
-                          if p.is_shard(x.dim() - 1))
-        if sizes[0] % ranks:
-            x = gather_dim(x, -1)
+    if isinstance(x, DTensor) and sizes[0] % _ranks_splitting(x, -1):
+        x = gather_dim(x, -1)
     return x.reshape(*x.shape[:-1], *sizes)
 
 
@@ -346,9 +486,7 @@ def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     as XLA's partitioner does, where DTensor's own softmax would gather
     the whole dim."""
     from torch.distributed.tensor import DTensor
-    if isinstance(x, DTensor) and math.prod(
-            x.device_mesh.size(m) for m, p in enumerate(x.placements)
-            if p.is_shard(dim % x.dim())) > 1:
+    if isinstance(x, DTensor) and _ranks_splitting(x, dim) > 1:
         e = torch.exp(x - torch.amax(x, dim=dim, keepdim=True))
         return e / torch.sum(e, dim=dim, keepdim=True)
     return torch.softmax(x, dim=dim)
@@ -377,6 +515,182 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         x = x.redistribute(x.device_mesh, want)
     return torch.matmul(x.reshape(-1, x.shape[-1]), w).view(
         *x.shape[:-1], w.shape[-1])
+
+
+def tiled(fn, x: torch.Tensor, tile: tuple) -> torch.Tensor:
+    """``fn(x)`` for an ``fn`` that works on the ``tile[0] x tile[1]``
+    tiles of ``x``'s rows (every dim but the last, flattened) and last dim
+    independently, padding the ragged ends itself (BFP quantization's 2D
+    groups), and keeps the shape.
+
+    On a DTensor each rank applies ``fn`` to its own block where that
+    block holds whole tiles: its rows a contiguous run (no leading dim but
+    the first is split) of a multiple of ``tile[0]``, and its columns, if
+    split, a multiple of ``tile[1]``.  Otherwise a tile would straddle
+    ranks, and the dims split over the ranks that cut one are gathered
+    first, then cut back to this rank's block (no collective).  The
+    result is laid out as ``x``.  A plain ``x`` goes to ``fn`` as it
+    is.  (DTensor's own pad and group reshape of a split dim either
+    gather it or, in some torch versions, fail.)"""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return fn(x)
+    x = reduce_partial(x)
+    mesh, last = x.device_mesh, x.dim() - 1
+    local = x.to_local()
+    rows = math.prod(local.shape[:-1])
+
+    def cuts(p):
+        if not p.is_shard():
+            return False
+        if p.dim == last:
+            return local.shape[-1] % tile[1] != 0
+        return p.dim != 0 or rows % tile[0] != 0
+    want = [Replicate() if cuts(p) else p for p in x.placements]
+    if want == list(x.placements):
+        out = fn(local)
+    else:
+        whole = x.redistribute(mesh, want)
+        out = DTensor.from_local(fn(whole.to_local()), mesh, want,
+                                 run_check=False, shape=x.shape,
+                                 stride=whole.stride()
+                                 ).redistribute(mesh, x.placements
+                                                ).to_local()
+    return DTensor.from_local(out, mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def _ranks_splitting(x, dim: int) -> int:
+    """The number of ranks among which a DTensor ``x``'s ``dim`` is split."""
+    dim %= x.dim()
+    return math.prod(x.device_mesh.size(m) for m, p in enumerate(x.placements)
+                     if p.is_shard(dim))
+
+
+class _RowSum(torch.autograd.Function):
+    """``reduce(local)`` forward, where ``reduce`` sums each rank's
+    ``local`` over ranks (a collective); identity backward: each rank's
+    addend moves the sum one for one, so its gradient is the sum's,
+    whole on every rank."""
+
+    @staticmethod
+    def forward(ctx, local, reduce):
+        return reduce(local)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _row_reducer(x):
+    """For a DTensor ``x`` split along its last dim: ``(rows, reduce)``,
+    the placements of a per-row result (``x``'s, the last dim's splits
+    replicated) and ``reduce(local, op)``, which reduces each rank's local
+    per-row values by ``op`` over the ranks that split the last dim and
+    returns this rank's block of the result, laid out by ``rows``.  The
+    gradient of a ``sum`` reaches each rank's local values whole
+    (``_RowSum``: DTensor's own backward of a partial value differs
+    between torch versions)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh, last = x.device_mesh, x.dim() - 1
+    rows = [Replicate() if p.is_shard(last) else p for p in x.placements]
+    shape = x.shape[:-1]
+
+    def reduced(local, op):
+        return DTensor.from_local(
+            local, mesh, [Partial(op) if p.is_shard(last) else p
+                          for p in x.placements],
+            run_check=False, shape=shape, stride=contiguous_stride(shape)
+        ).redistribute(mesh, rows).to_local()
+
+    def reduce(local, op="sum"):
+        if op == "sum":
+            return _RowSum.apply(local, lambda t: reduced(t, op))
+        return reduced(local, op)
+    return rows, reduce
+
+
+def _rows_placed(local, x, rows):
+    from torch.distributed.tensor import DTensor
+    shape = x.shape[:-1]
+    return DTensor.from_local(local, x.device_mesh, rows, run_check=False,
+                              shape=shape, stride=contiguous_stride(shape))
+
+
+def logsumexp_pick(logits: torch.Tensor, labels: torch.Tensor) -> tuple:
+    """``(torch.logsumexp(logits, -1), logits[..., labels])``: each row's
+    log-sum-exp and its entry at the row's label, for logits ``[..., V]``
+    and integer labels ``[...]``.
+
+    On a DTensor whose vocab (the last dim) is split, vocab-parallel: each
+    rank's local max, all-reduced by max; each rank's sum of
+    ``exp(x - max)``, all-reduced by sum; each rank's pick of the labels
+    that lie in its vocab block (zero elsewhere), all-reduced by sum.  The
+    results are laid out as ``logits`` less its vocab split, and the
+    gradient reaches each rank's logits through the sums (the max is a
+    constant of it).  A DTensor whose vocab is whole on each rank runs
+    the plain ops on its own rows, with nothing to reduce (so one rank
+    gives the plain values bit for bit).  DTensor's own
+    ``logsumexp`` and ``gather`` on a split vocab leave a masked partial
+    value that the next op fails to reduce, and on a whole vocab may
+    gather the rows.  Any other tensor: the two plain ops."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(logits, DTensor):
+        return (torch.logsumexp(logits, dim=-1),
+                torch.gather(logits, -1, labels[..., None].long())[..., 0])
+    logits = reduce_partial(logits)
+    rows, reduce = _row_reducer(logits)
+    local = logits.to_local()
+    lab = _as_rows(labels, logits.device_mesh, rows).long()
+    if _ranks_splitting(logits, -1) == 1:
+        # the whole vocab on the rank: the plain ops on its rows
+        return (_rows_placed(torch.logsumexp(local, dim=-1), logits, rows),
+                _rows_placed(torch.gather(local, -1, lab[..., None])[..., 0],
+                             logits, rows))
+    m = reduce(torch.amax(local.detach(), dim=-1), "max")
+    lse = m + torch.log(reduce(torch.sum(torch.exp(local - m[..., None]),
+                                         dim=-1)))
+    n = local.shape[-1]
+    lab = lab - block_index(logits, logits.dim() - 1) * n
+    inside = (lab >= 0) & (lab < n)
+    pick = torch.gather(local, -1, lab.clamp(0, n - 1)[..., None])[..., 0]
+    ll = reduce(torch.where(inside, pick, torch.zeros_like(pick)))
+    return _rows_placed(lse, logits, rows), _rows_placed(ll, logits, rows)
+
+
+def argmax(x: torch.Tensor) -> torch.Tensor:
+    """``torch.argmax(x, -1)``, the first index of each row's largest
+    entry.  On a DTensor whose last dim is split: each rank's largest
+    entry and its first index, then the largest of those by an all-reduce
+    of the max and the least index holding it by an all-reduce of the
+    min, laid out as ``x`` less that split: two values a row cross the
+    ranks, where DTensor's own argmax would gather the whole of ``x``.  A
+    DTensor whose last dim is whole on each rank: the plain argmax of its
+    own rows."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return torch.argmax(x, dim=-1)
+    x = reduce_partial(x)
+    rows, reduce = _row_reducer(x)
+    local = x.to_local().detach()
+    if _ranks_splitting(x, -1) == 1:
+        return _rows_placed(torch.argmax(local, dim=-1), x, rows)
+    best, at = torch.max(local, dim=-1)
+    at = at + block_index(x, x.dim() - 1) * local.shape[-1]
+    top = reduce(best, "max")
+    first = reduce(torch.where(best == top, at,
+                               torch.full_like(at, x.shape[-1])), "min")
+    return _rows_placed(first, x, rows)
+
+
+def _as_rows(t, mesh, rows) -> torch.Tensor:
+    """This rank's block of ``t`` laid out by ``rows`` (a plain ``t`` is
+    whole on every rank)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    return t.redistribute(mesh, rows).to_local()
 
 
 def unit_shards_replicated(tree: Any) -> Any:

@@ -307,9 +307,28 @@ def to_named(tree_specs: Any, mesh) -> Any:
 
 
 def device_put(tree: Any, named: Any) -> Any:
-    """``distribute_tensor`` leaf by leaf, each onto its ``NamedSharding``
-    (``to_named``'s tree), as ``jax.device_put(tree, shardings)``."""
-    from torch.distributed.tensor import distribute_tensor
+    """Each leaf as a DTensor on its ``NamedSharding`` (``to_named``'s
+    tree), as ``jax.device_put(tree, shardings)``: every rank holds the
+    whole value, as a host array is, and keeps its own block of it (each
+    split dim cut by the rank's coordinates, major to minor in mesh
+    order).  No collective runs (the process groups' scatter has no
+    float8 type), and a block that is the whole leaf (one rank) is the
+    leaf itself, not a copy (``distribute_tensor`` copies it)."""
+    from torch.distributed.tensor import DTensor
     if isinstance(tree, dict):
         return {k: device_put(v, named[k]) for k, v in tree.items()}
-    return distribute_tensor(tree, named.mesh, named.placements)
+    mesh, block = named.mesh, tree
+    for d in range(tree.dim()):
+        k, i = 1, 0
+        for m, p in enumerate(named.placements):
+            if p.is_shard(d):
+                k, i = k * mesh.size(m), i * mesh.size(m) + \
+                    mesh.get_local_rank(m)
+        if tree.shape[d] % k:
+            raise ValueError(f"{named.placements} split dim {d} of "
+                             f"{tuple(tree.shape)} unevenly")
+        n = tree.shape[d] // k
+        block = block.narrow(d, i * n, n)
+    return DTensor.from_local(block.contiguous(), mesh, named.placements,
+                              run_check=False, shape=tree.shape,
+                              stride=tree.stride())

@@ -28,18 +28,20 @@ arguments under the cell's ``activation_rules`` and an
 * ``partitioned`` — whether the record counts one device (below);
 * ``trace_s`` — seconds to build and trace the cell (there is no compile).
 
-A prefill or decode cell is also traced partitioned (``trace_cell`` on a
+Every cell is also traced partitioned (``trace_cell`` on a
 ``DeviceMesh``; the CLI starts torch's in-process ``fake`` group of 256 or
 512 ranks): its ``meta`` arguments placed as DTensors by the cell's
-shardings, one call counted on one device (a prefill lays its new cache
-out by ``cache_pspec``, as the decode cell takes it).  The record then has
-the reference's per-device keys beside the whole cell's,
-``memory.temp_bytes`` and ``cost.{dot_flops, traffic_bytes,
-traffic_bytes_pessimistic}``, ``collectives`` by kind (all-reduce at its
-operand, all-gather at its result), ``implicit`` (the ops whose operands
-DTensor redistributed on its own, and how often), one device's ``ops``,
-and ``partitioned: true``.  Train records are the whole cell's,
-``partitioned: false``.
+shardings, one call counted on one device.  A prefill lays its new cache
+out by ``cache_pspec``, as the decode cell takes it; a train cell's
+duplex step runs forward and backward on the DTensors, its branch's
+gradients reduce-scattered onto their leaves' shards and its new state
+laid out as the old.  The record then has the reference's per-device
+keys beside the whole cell's, ``memory.temp_bytes`` and
+``cost.{dot_flops, traffic_bytes, traffic_bytes_pessimistic}``,
+``collectives`` by kind (all-reduce and reduce-scatter at their operand,
+all-gather at its result), ``implicit`` (the ops whose operands DTensor
+redistributed on its own, and how often), one device's ``ops``, and
+``partitioned: true``.
 
 One cell per call:
 
@@ -143,9 +145,9 @@ def trace_cell(arch: str, shape, mesh, variant: str = "baseline",
     the ``OpTrace``.
 
     On an ``AbstractMesh`` the call is the whole cell (the ``*_global``
-    keys, ``partitioned: False``).  On a ``DeviceMesh`` (a prefill or
-    decode cell; a train cell raises; a ``fake`` group of the mesh's size
-    will do) the whole cell is traced so
+    keys, ``partitioned: False``).  On a ``DeviceMesh`` (any cell: a
+    train cell's step runs forward and backward on DTensors; a ``fake``
+    group of the mesh's size will do) the whole cell is traced so
     on the abstract layout of the mesh's sizes, and once more partitioned:
     the ``meta`` arguments placed as DTensors by the cell's shardings
     (``sharding.device_put``) and one call counted on the device of this
@@ -158,10 +160,6 @@ def trace_cell(arch: str, shape, mesh, variant: str = "baseline",
     t0 = time.time()
     sizes = sh.mesh_shape(mesh)
     partitioned = not isinstance(mesh, sh.AbstractMesh)
-    if partitioned and shape.mode == "train":
-        raise ValueError("train cells are traced whole, on an "
-                         "AbstractMesh; only prefill and decode cells run "
-                         "on DTensors")
     layout = sh.AbstractMesh(tuple(sizes.values()), tuple(sizes)) \
         if partitioned else mesh
     fn, args, in_sh, _, _, cfg, fsdp_pure = build_cell(arch, shape, layout,
@@ -186,10 +184,11 @@ def trace_cell(arch: str, shape, mesh, variant: str = "baseline",
         "trace": t,
     }
     if partitioned:
-        fn, args, in_sh, _, _, cfg, _ = build_cell(arch, shape, mesh,
-                                                   variant)
+        fn, args, in_sh, _, _, cfg, fsdp_pure = build_cell(arch, shape, mesh,
+                                                           variant)
         placed = [sh.device_put(a, s) for a, s in zip(args, in_sh)]
-        with ctx.activation_sharding(mesh, activation_rules(cfg, mesh)):
+        with ctx.activation_sharding(mesh, activation_rules(
+                cfg, mesh, fsdp_pure=fsdp_pure)):
             out, one = op_analysis.trace(fn, *placed, keep_order=keep_order)
         memory, cost = _record(one, out)
         rec["memory"].update(memory)
@@ -204,12 +203,12 @@ def trace_cell(arch: str, shape, mesh, variant: str = "baseline",
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
              save_trace: bool = False, variant: str = "baseline",
              partitioned: bool = False) -> dict:
-    """The cell's record.  ``partitioned``: a prefill or decode cell is
-    traced on the production mesh over the default process group
-    (``make_production_mesh(device_type="cpu")``; ``main`` starts a
+    """The cell's record.  ``partitioned``: the cell (train, prefill or
+    decode) is traced on the production mesh over the default process
+    group (``make_production_mesh(device_type="cpu")``; ``main`` starts a
     ``fake`` group of the mesh's size), with the per-device keys of
-    ``trace_cell``; a train cell, or any cell without ``partitioned``, is
-    traced whole on the production layout, ``partitioned: False``."""
+    ``trace_cell``; without it, the cell is traced whole on the
+    production layout, ``partitioned: False``."""
     shape = SHAPES[shape_name]
     entry = registry.get(arch)
     mesh_name = "multipod" if multi_pod else "pod"
@@ -222,7 +221,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
         return rec
 
     mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu") \
-        if partitioned and shape.mode != "train" else \
+        if partitioned else \
         production_layout(multi_pod=multi_pod)
     got = trace_cell(arch, shape, mesh, variant, keep_order=save_trace)
     t = got.pop("trace")
@@ -244,6 +243,13 @@ def fake_group(ranks: int) -> None:
 
 
 def main(argv=None) -> int:
+    """One cell's record (the reference's CLI, file name and exit codes):
+    the cell traced whole and per device on the production mesh, over a
+    ``fake`` group of its 256 (``pod``) or 512 (``multipod``) ranks that
+    ``main`` starts where the process has no group and destroys after;
+    the JSON record under ``--out`` and one line of one device's counts
+    beside the whole cell's FLOPs.  Exit 1 on an error, which is
+    recorded."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(registry.ARCHS))
     ap.add_argument("--shape", required=True, choices=sorted(SHAPES))
@@ -260,15 +266,14 @@ def main(argv=None) -> int:
     if args.variant != "baseline":
         name += f"__{args.variant}"
     multi_pod = args.mesh == "multipod"
-    partitioned = SHAPES[args.shape].mode != "train"
-    own_group = partitioned and not dist.is_initialized()
+    own_group = not dist.is_initialized()
     try:
         if own_group:
             fake_group(math.prod(production_layout(
                 multi_pod=multi_pod).sizes))
         rec = run_cell(args.arch, args.shape, multi_pod, out_dir,
                        save_trace=args.save_trace, variant=args.variant,
-                       partitioned=partitioned)
+                       partitioned=True)
     except Exception as e:  # recorded, not swallowed — sweep reports it
         rec = {"arch": args.arch, "shape": args.shape, "mesh": args.mesh,
                "status": "error", "error": f"{type(e).__name__}: {e}",
@@ -282,20 +287,13 @@ def main(argv=None) -> int:
     print(f"[dryrun] {name}: {status} {extra}")
     if status == "ok":
         m, c = rec["memory"], rec["cost"]
-        if rec["partitioned"]:
-            print(f"  args={m['argument_bytes']/2**30:.2f}GiB "
-                  f"temp={m['temp_bytes']/2**30:.2f}GiB "
-                  f"dot_flops={c['dot_flops']:.3e} per device "
-                  f"({c['dot_flops_global']:.3e} global) "
-                  f"coll={rec['collectives'].get('total', 0)/2**30:.2f}GiB "
-                  f"implicit={sum(rec['implicit'].values())} "
-                  f"trace={rec['trace_s']:.1f}s")
-        else:
-            print(f"  args={m['argument_bytes']/2**30:.2f}GiB/device "
-                  f"temp={m['temp_bytes_global']/2**30:.2f}GiB global "
-                  f"dot_flops={c['dot_flops_global']:.3e} global "
-                  f"coll={rec['collectives'].get('total', 0)/2**30:.2f}GiB "
-                  f"trace={rec['trace_s']:.1f}s")
+        print(f"  args={m['argument_bytes']/2**30:.2f}GiB "
+              f"temp={m['temp_bytes']/2**30:.2f}GiB "
+              f"dot_flops={c['dot_flops']:.3e} per device "
+              f"({c['dot_flops_global']:.3e} global) "
+              f"coll={rec['collectives'].get('total', 0)/2**30:.2f}GiB "
+              f"implicit={sum(rec['implicit'].values())} "
+              f"trace={rec['trace_s']:.1f}s")
     return 0 if status in ("ok", "skipped") else 1
 
 

@@ -44,10 +44,7 @@ class BFPPolicy:
         if not self.enabled:
             return x
         # leading dims flatten to rows, so groups straddle sequences
-        shape = x.shape
-        x2 = x.reshape(-1, shape[-1]) if x.dim() != 2 else x
-        out = bfp_mod.bfp_qdq(x2, self.group, self.ebits, self.mbits)
-        return out.reshape(shape)
+        return bfp_mod.bfp_qdq_rows(x, self.group, self.ebits, self.mbits)
 
 
 NO_BFP = BFPPolicy(enabled=False)
@@ -76,10 +73,12 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, bias: bool = False,
 def dense(p: dict, x: torch.Tensor, *, policy: Policy = Policy(),
           bfp: BFPPolicy = NO_BFP) -> torch.Tensor:
     cd = policy.compute_dtype
-    x = bfp.q(x).to(cd)
+    # on DTensors the gradients of the activation and of the result are
+    # laid out as they are, and the product's partial sums are reduced at
+    # once
+    x = bfp.q(ctx.grad_laid_out(x)).to(cd)
     w = ctx.at_use(bfp.q(p["w"]).to(cd), x)
-    # a product's partial sums are reduced at once (on DTensors)
-    y = ctx.reduce_partial(ctx.matmul(x, w))
+    y = ctx.grad_laid_out(ctx.reduce_partial(ctx.matmul(x, w)))
     if "b" in p:
         y = y + p["b"].to(cd)
     return y

@@ -97,7 +97,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     (y, new_state), the new state the last K-1 inputs."""
     k = w.shape[0]
     if state is None:
-        xp = F.pad(x, (0, 0, k - 1, 0))
+        xp = ctx.pad(x, (0, 0, k - 1, 0))
     else:
         xp = torch.cat([state.to(x.dtype), x], dim=1)
     y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(k)) + b

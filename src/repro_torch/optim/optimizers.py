@@ -12,6 +12,7 @@ from typing import Union
 
 import torch
 
+from repro_torch.distributed import ctx
 from repro_torch.utils import tree_leaves, tree_map
 
 
@@ -36,8 +37,9 @@ OptConfig = Union[SGDConfig, AdamWConfig]
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(l.float()))
-                          for l in tree_leaves(tree)))
+    # over DTensors, one reduction of the ranks' summed squares
+    return torch.sqrt(ctx.total(lambda l: torch.sum(torch.square(l.float())),
+                                tree_leaves(tree)))
 
 
 def _clip_by_global_norm(grads, max_norm):

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import ctx
+
 
 def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                      mask: torch.Tensor | None = None,
@@ -14,8 +16,8 @@ def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     Returns (loss, metrics).  ``mask`` [B,S] ∈ {0,1} excludes padding tokens.
     """
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    # vocab-parallel where the logits are a DTensor split along the vocab
+    lse, ll = ctx.logsumexp_pick(logits, labels)
     nll = lse - ll
     if z_loss:
         nll = nll + z_loss * torch.square(lse)
@@ -25,7 +27,7 @@ def lm_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.float()
         denom = torch.clamp(torch.sum(mask), min=1.0)
         loss = torch.sum(nll * mask) / denom
-    acc = (torch.argmax(logits, -1) == labels).float()
+    acc = (ctx.argmax(logits) == labels).float()
     acc = torch.sum(acc * mask) / denom if mask is not None else \
         torch.mean(acc)
     return loss, {"loss": loss, "accuracy": acc}

@@ -23,24 +23,16 @@ import torch
 from repro_torch.configs.common import ModelConfig
 from repro_torch.distributed import ctx
 from repro_torch.models import layers as L
-from repro_torch.utils import tree_leaves
-
-
-def _placed(params) -> bool:
-    """Whether the params are DTensors (a cell placed on a mesh)."""
-    from torch.distributed.tensor import DTensor
-    return any(isinstance(x, DTensor) for x in tree_leaves(params))
 
 
 def _grad_off(params):
     """``torch.inference_mode()`` on plain params; on DTensor params,
     ``torch.no_grad()`` with ``implicit_replication``."""
-    if not _placed(params):
+    if not ctx.placed(params):
         return torch.inference_mode()
-    from torch.distributed.tensor.experimental import implicit_replication
     stack = contextlib.ExitStack()
     stack.enter_context(torch.no_grad())
-    stack.enter_context(implicit_replication())
+    stack.enter_context(ctx.replicate_made(params))
     return stack
 
 
@@ -50,7 +42,7 @@ def make_prefill_step(entry, cfg: ModelConfig, *, max_len: int,
     module = entry.module
 
     def prefill_step(params, tokens, frontend=None):
-        if _placed(params):
+        if ctx.placed(params):
             params, tokens, frontend = map(ctx.unit_shards_replicated,
                                            (params, tokens, frontend))
         kw = {} if frontend is None else {"frontend": frontend}
@@ -74,7 +66,7 @@ def make_decode_step(entry, cfg: ModelConfig, *,
     module = entry.module
 
     def decode_step(params, cache, tokens, generator=None):
-        if _placed(params):
+        if ctx.placed(params):
             params, cache, tokens = map(ctx.unit_shards_replicated,
                                         (params, cache, tokens))
         with _grad_off(params):

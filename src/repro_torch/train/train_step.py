@@ -27,6 +27,8 @@ import torch
 
 from repro_torch.configs.common import ModelConfig
 from repro_torch.core import duplex as dx
+from repro_torch.distributed import ctx
+from repro_torch.distributed.ctx import constrain
 from repro_torch.models import layers as L
 from repro_torch.optim import OptConfig, SGDConfig, opt_init, opt_update
 from repro_torch.train.losses import lm_cross_entropy
@@ -75,7 +77,8 @@ def init_state(gen: torch.Generator, entry, cfg: ModelConfig,
 def _lr(tcfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     if tcfg.lr_schedule is not None:
         return tcfg.lr_schedule(step)
-    return torch.full((), tcfg.lr, dtype=torch.float32, device=step.device)
+    # laid out as the step (a replicated DTensor on a mesh)
+    return torch.full_like(step, tcfg.lr, dtype=torch.float32)
 
 
 def make_loss_fn(entry, cfg: ModelConfig, tcfg: TrainConfig,
@@ -111,7 +114,9 @@ def make_loss_fn(entry, cfg: ModelConfig, tcfg: TrainConfig,
                                  policy=policy, **frontend_kw(batch))
         corr = dx.duplex_apply(branch, tcfg.duplex, out["emb"], out["taps"],
                                policy=policy, taps_pooled=True)
-        hidden = out["hidden"].detach() + corr
+        # laid out as the residual stream (the correction's columns may be
+        # split), so that the unembedding splits the vocab, not d
+        hidden = constrain(out["hidden"].detach() + corr, "resid")
         logits = module.lm_logits(backbone, cfg, hidden, policy)
         return lm_cross_entropy(logits, batch["labels"], batch.get("mask"),
                                 z_loss=tcfg.z_loss)
@@ -135,6 +140,9 @@ def make_grad_fn(entry, cfg: ModelConfig, tcfg: TrainConfig,
         # a leaf the loss does not read (whisper's encoder embedding) gets
         # zeros, as under jax.grad
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        # on DTensors, each gradient laid out as its leaf (a pending sum
+        # reduce-scattered onto the leaf's shards)
+        grads = [ctx.placed_like(g, p) for g, p in zip(grads, leaves)]
         metrics = {k: v.detach() for k, v in metrics.items()}
         return metrics, tree_unflatten(list(zip(paths, grads)))
 
@@ -151,11 +159,23 @@ def make_train_step(entry, cfg: ModelConfig, tcfg: TrainConfig,
     tensors on the state's device.  With ``microbatch`` k every tensor,
     the frontend's included, is split along its batch axis.  The step
     returns a new state dict; the given state's tensors are not modified.
+
+    On DTensor state and batch (a cell placed on a mesh,
+    ``launch/dryrun.py``) the step runs forward and backward on them under
+    DTensor's ``implicit_replication`` (``ctx.replicate_made``), a shard of
+    a dim of one over a one-rank axis relabelled replicated first, and the
+    new state is laid out as the old.
     """
     grad_fn = make_grad_fn(entry, cfg, tcfg, policy)
     trainable = "branch" if tcfg.mode == "duplex" else "backbone"
 
     def train_step(state, batch):
+        if ctx.placed(state):
+            state, batch = map(ctx.unit_shards_replicated, (state, batch))
+        with ctx.replicate_made(state):
+            return _step(state, batch)
+
+    def _step(state, batch):
         frozen = state["backbone"] if tcfg.mode == "duplex" else None
         if tcfg.microbatch > 1:
             k = tcfg.microbatch

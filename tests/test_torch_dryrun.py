@@ -754,8 +754,11 @@ def test_long_context_skip_records_match_jax(arch, multi_pod, tmp_path):
 def test_main_writes_the_record_and_exits_0(smoke, monkeypatch, tmp_path,
                                             capsys):
     """``main`` on granite-3-8b SMOKE with a small train shape: the
-    reference's file name and summary line, exit 0, the record's keys, the
-    FLOPs of the same cell traced directly, and the op trace in order."""
+    reference's file name and summary line, exit 0, the record's keys
+    (the whole cell's and one device's: ``main`` traces the cell on a
+    ``fake`` group of the pod's 256 ranks), the whole cell's FLOPs equal
+    to the same cell traced directly, and one device's op trace in
+    order."""
     shape = ShapeSpec("train_smoke", 16, B, "train")
     monkeypatch.setitem(SHAPES, "train_smoke", shape)
     rc = dryrun.main(["--arch", "granite-3-8b", "--shape", "train_smoke",
@@ -769,22 +772,28 @@ def test_main_writes_the_record_and_exits_0(smoke, monkeypatch, tmp_path,
         "arch": "granite-3-8b", "shape": "train_smoke", "mesh": "pod",
         "mode": "train", "variant": "baseline", "status": "ok",
         "n_devices": 256}
+    assert rec["partitioned"] is True
     assert set(rec["memory"]) == {"argument_bytes", "output_bytes",
-                                  "temp_bytes_global"}
-    assert set(rec["cost"]) == {"dot_flops_global", "traffic_bytes_global",
-                                "traffic_bytes_pessimistic_global"}
+                                  "temp_bytes_global", "temp_bytes"}
+    assert set(rec["cost"]) == {
+        "dot_flops_global", "traffic_bytes_global",
+        "traffic_bytes_pessimistic_global", "dot_flops", "traffic_bytes",
+        "traffic_bytes_pessimistic"}
+    assert rec["collectives"]["counts"]["reduce-scatter"] > 0
     assert rec["trace_s"] >= 0 and rec["ops"]["kernel"] == 0
     direct = dryrun.trace_cell("granite-3-8b", shape,
                                tmesh.production_layout())
     assert rec["cost"]["dot_flops_global"] == \
         direct["cost"]["dot_flops_global"]
-    assert rec["ops"]["products"] == sum(
-        n for k, n in direct["trace"].counts.items() if k[3])
+    assert 0 < rec["cost"]["dot_flops"] < rec["cost"]["dot_flops_global"]
     lines = (tmp_path / "granite-3-8b__train_smoke__pod.trace.txt"
              ).read_text().splitlines()
-    assert len(lines) == sum(direct["trace"].counts.values())
+    assert len(lines) == sum(n for k, n in rec["ops"].items()
+                             if k not in ("products", "kernel"))
+    assert sum("flops=" in ln for ln in lines) == rec["ops"]["products"]
     out = capsys.readouterr().out
     assert "[dryrun] granite-3-8b__train_smoke__pod: ok" in out
+    assert "per device" in out
 
 
 REFUSED = {"mamba2-780m": "ssd_block", "recurrentgemma-9b": "_gates"}

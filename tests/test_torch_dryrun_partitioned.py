@@ -633,10 +633,20 @@ def test_smoke_prefill_cell_per_device_against_jax(arch, seq, over,
                 PREFILL_GAPS[key], key in PREFILL_EVEN)
 
 
-def test_train_cell_on_a_device_mesh_raises(fake_mesh):
-    with pytest.raises(ValueError, match="only prefill and decode cells"):
-        dryrun.trace_cell("granite-3-8b", ShapeSpec("t", 16, 2, "train"),
-                          fake_mesh)
+def test_train_record_on_a_device_mesh_is_partitioned(fake_mesh):
+    """A train cell on a ``DeviceMesh`` is traced per device as the
+    prefill and decode cells are (``tests/test_torch_dryrun_train.py``
+    holds the ten against JAX): ``partitioned: true``, the per-device keys
+    beside the whole cell's, and the branch's gradients reduce-scattered."""
+    rec = dryrun.trace_cell("granite-3-8b", ShapeSpec("t", 16, 2, "train"),
+                            fake_mesh)
+    assert rec["partitioned"] is True and rec["n_devices"] == 4
+    assert {"temp_bytes", "temp_bytes_global"} <= set(rec["memory"])
+    assert {"dot_flops", "traffic_bytes", "traffic_bytes_pessimistic",
+            "dot_flops_global"} <= set(rec["cost"])
+    assert rec["cost"]["dot_flops"] * 4 == rec["cost"]["dot_flops_global"]
+    assert rec["collectives"]["counts"]["reduce-scatter"] > 0
+    assert rec["implicit"] and rec["ops"]["kernel"] == 0
 
 
 def test_abstract_record_says_it_is_not_partitioned(fake_mesh):
