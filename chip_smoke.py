@@ -105,10 +105,16 @@ Phases, each printing its numbers on lines of their own:
      own size (B=256, 4096 tokens; the duplex step forward and backward),
      DTensors counted on one device (per-device FLOPs,
      traffic, temp bytes and collectives, the ops DTensor redistributed on
-     its own, ``trace_s``); the traces run in a pool of spawned host
-     processes, no kernel launched (``launches_by_path`` ``dryrun_*``);
-     each path frees its state before the next, so that each peak stands
-     alone;
+     its own, ``trace_s``), then ``roofline``, ``bench/roofline.py``'s
+     row of each of those records traced at its cell's own size (19: the
+     two prefill cells cut to 2048 tokens are named and left out), its
+     compute, memory and collective terms at the H100's peaks and one
+     inter-host link, all finite, ``useful_ratio`` and
+     ``roofline_fraction`` above 0; the bounds of ``dryrun_table`` and
+     ``dryrun_card`` come from the same module, collective term 0; the
+     traces run in a pool of spawned host processes, no kernel launched
+     (``launches_by_path`` ``dryrun_*``); each path frees its state
+     before the next, so that each peak stands alone;
   6. ``f1_check`` (run before the BFP path): the kernel wrappers refuse
      autograd on the card as on the CPU -- flash on bf16 CUDA tensors that
      require grad and ``ops.matmul`` raise under grad mode, and both launch
@@ -318,10 +324,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 SIMT pipes
-# (the kernel's f32 arithmetic), HBM3.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
+from repro_torch.bench import roofline  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores and HBM3 as
+# the roofline module states them, f32 SIMT pipes (the kernel's f32
+# arithmetic).
+PEAK_FLOPS = {torch.bfloat16: roofline.PEAK_FLOPS, torch.float32: 67e12}
+PEAK_BYTES = roofline.HBM_BW
 MAIN_STEPS = 3
 
 
@@ -2124,12 +2133,6 @@ def run_cells() -> dict:
 # the dry run (launch/dryrun.py, launch/op_analysis.py)
 # ---------------------------------------------------------------------------
 
-def dryrun_bound_ms(flops: float, traffic: float) -> float:
-    """The least time of ``flops`` and ``traffic`` bytes on one H100: bf16
-    tensor-core peak and HBM3 rate, whichever is longer."""
-    return max(flops / PEAK_FLOPS[torch.bfloat16], traffic / PEAK_BYTES) * 1e3
-
-
 def dryrun_trace(arch: str, name: str, batch, variant: str) -> dict:
     """In a pool process: the dry run of a cell on the 16x16 layout, with
     ``name``'s batch cut to ``batch`` (``None``: ``run_cell``'s record of
@@ -2281,6 +2284,40 @@ def dryrun_partitioned(futures: list, cases: list, launches: dict) -> list:
     return rows
 
 
+def dryrun_roofline(futures: list, cases: list, counts: dict) -> dict:
+    """Host: one ``roofline`` line, ``bench.roofline.roofline_row`` of each
+    record of ``dryrun_partitioned`` traced at its cell's own size, with
+    ``param_counts`` of its arch (``counts``).  A record cut to fewer
+    tokens is left out and named: ``model_flops`` counts the cell's own
+    tokens, the record the cut's.  A term that is not finite, or a
+    ``useful_ratio`` or ``roofline_fraction`` not above 0, fails the
+    run."""
+    from repro_torch.configs.common import SHAPES
+
+    rows, left_out = [], []
+    for (arch, name, multi_pod, seq), fut in zip(cases, futures):
+        if seq is not None:
+            left_out.append({
+                "arch": arch, "shape": name,
+                "mesh": "multipod" if multi_pod else "pod",
+                "reason": f"traced at {seq} of {SHAPES[name].seq_len} "
+                          f"tokens; model_flops counts "
+                          f"{SHAPES[name].seq_len}"})
+            continue
+        row = roofline.roofline_row(fut.result(), counts[arch])
+        if not all(math.isfinite(row[k]) for k in
+                   ("compute_s", "memory_s", "collective_s")) or \
+                not row["useful_ratio"] > 0 or \
+                not row["roofline_fraction"] > 0:
+            raise AssertionError(f"roofline {arch} {name}: {row}")
+        rows.append(row)
+    line = {"rows": rows, "left_out": left_out,
+            "peak_flops": roofline.PEAK_FLOPS, "hbm_bw": roofline.HBM_BW,
+            "link_bw": roofline.LINK_BW, "card": card_line()}
+    print("roofline: " + json.dumps(line), flush=True)
+    return line
+
+
 def dryrun_pool():
     """Spawned host processes for the traces (the parent holds a CUDA
     context, so no fork), one core left to the parent."""
@@ -2333,8 +2370,8 @@ def dryrun_table(futures: list, launches: dict) -> list:
                     rec["memory"]["argument_bytes"],
                 "output_bytes_per_device": rec["memory"]["output_bytes"],
                 "temp_bytes_global": rec["memory"]["temp_bytes_global"],
-                "bound_ms_per_device": dryrun_bound_ms(flops / n,
-                                                       traffic / n),
+                "bound_ms_per_device": max(roofline.roofline_terms(
+                    flops / n, traffic / n).values()) * 1e3,
                 "products": rec["ops"]["products"],
                 "kernel": rec["ops"]["kernel"]})
         else:
@@ -2389,7 +2426,8 @@ def dryrun_card(futures: list, counted: list, launches: dict) -> list:
                                      f"{meta_flops} FLOPs, the card's call "
                                      f"{ran['dot_flops_card']}")
             traffic = dry["cost"]["traffic_bytes_global"]
-            bound = dryrun_bound_ms(meta_flops, traffic)
+            terms = roofline.roofline_terms(meta_flops, traffic)
+            bound = max(terms.values()) * 1e3
             ms = ran["measured_ms"]
             row = {"arch": arch, "shape": name, "variant": variant,
                    "cut": cut_note(name, cell_shape(name, ran["batch"])),
@@ -2400,9 +2438,8 @@ def dryrun_card(futures: list, counted: list, launches: dict) -> list:
                    "traffic_bytes_global": traffic,
                    "temp_bytes_global": dry["memory"]["temp_bytes_global"],
                    "bound_ms_one_card": bound,
-                   "bound_by": "operations" if meta_flops /
-                   PEAK_FLOPS[torch.bfloat16] > traffic / PEAK_BYTES
-                   else "bytes",
+                   "bound_by": "operations"
+                   if terms["compute"] > terms["memory"] else "bytes",
                    "measured_median_ms": ms,
                    "measured_over_bound": ms / bound, "launches": 0}
         print("dryrun_card: " + json.dumps(row), flush=True)
@@ -2429,10 +2466,14 @@ def run_dryrun(cell_runs: dict) -> dict:
                                r["batch"], r["variant"]) for r in counted]
         in_table = [pool.submit(dryrun_trace, arch, name, None, "baseline")
                     for arch, name in dryrun_table_cells()]
+        # while the pool traces: the parameter counts of the roofline rows
+        counts = {arch: roofline.param_counts(arch) for arch in
+                  dict.fromkeys(a for a, _, _, seq in split if seq is None)}
         card = dryrun_card(on_card, counted, launches["dryrun_card"])
         table = dryrun_table(in_table, launches["dryrun_table"])
         parted = dryrun_partitioned(on_mesh, split,
                                     launches["dryrun_partitioned"])
+        roof = dryrun_roofline(on_mesh, split, counts)
     cell_runs["launches_by_path"].update(launches)
     summary = {
         "seconds": time.perf_counter() - t0,
@@ -2447,6 +2488,8 @@ def run_dryrun(cell_runs: dict) -> dict:
                 r["measured_over_bound"] for r in card if r["status"] == "ok"},
         "partitioned_cells": len(parted),
         "partitioned_trace_s": sum(r["trace_s"] for r in parted),
+        "roofline_rows": len(roof["rows"]),
+        "roofline_left_out": len(roof["left_out"]),
         "launches_by_path": launches, "card": card_line()}
     print("dryrun: " + json.dumps(summary), flush=True)
     return summary

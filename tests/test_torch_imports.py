@@ -37,7 +37,8 @@ def test_every_module_imports_with_jax_and_repro_masked():
               "train.serve_step", "launch.serve", "examples.quickstart",
               "models.hybrid", "configs.recurrentgemma_9b",
               "optim.compress", "distributed.sharding", "distributed.ctx",
-              "launch.mesh", "launch.dryrun", "launch.op_analysis"):
+              "launch.mesh", "launch.dryrun", "launch.op_analysis",
+              "bench.roofline"):
         assert f"repro_torch.{m}" in mods
     masked = ("jax", "repro", "msgpack")
     code = (
