@@ -285,6 +285,20 @@ Phases, each printing its numbers on lines of their own:
      must resume from step 2 and match the straight run's steps 2-3 and
      final branch (rtol 1e-5, atol 1e-6); save and restore times in s and
      GB/s;
+      ``launch_mesh``: the launchers' ``--distributed --mesh host`` on the
+     one card, torchrun's variables set for a one-rank group, the NCCL
+     group started and destroyed by the launcher itself:
+     ``repro_torch.launch.train.main`` on granite-3-8b FULL duplex (flash
+     on, B=2 x S=4096, 3 steps) on the mesh against the main path's plain
+     run of the same arguments (phase 5), the final branch, momentum and
+     step and every step's loss bit for bit, the same flash launches (40
+     a step, the kernel on the rank's block); at full width cut to 4
+     layers, ``train`` on the mesh saving at step 2 and a plain ``train``
+     resuming it to step 4, bit for bit the straight plain run;
+     ``repro_torch.launch.serve.main`` (B=4, prompt 2048, 32 tokens) on
+     the mesh against ``serve_path``'s plain run, the tokens equal and the
+     prefill logits bit for bit; each run's median step times and the
+     phase's seconds;
   14. ``arms``: ``repro_torch.bench.table2_accuracy`` on the card with the
      reference's step counts: each arm's validation loss and accuracy, the
      ordering row, the wall time;
@@ -312,6 +326,7 @@ import contextlib
 import dataclasses as dc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1073,6 +1088,7 @@ def run_main_path(arch: str = "granite-3-8b", label: str = "main"):
     run = {"entry": entry, "cfg": cfg, "tcfg": tcfg, "policy": policy,
            "state": report.state, "batches": batches, "step_times": times,
            "steps": [m["step"] for m in report.metrics_history],
+           "losses": [m["loss"] for m in report.metrics_history],
            "n_layers": cfg.n_layers}
     return {"label": label, "launches": launches, "peak_bytes": peak,
             "step_times": times}, run
@@ -4090,6 +4106,7 @@ def serve_path(arch: str, label: str) -> dict:
     if before != after:
         raise AssertionError(f"{label}: params changed {before} -> {after}")
     print(f"{label} " + json.dumps(row), flush=True)
+    out_logits = out["prefill_logits"]
     decode = ss.make_decode_step(
         entry, cfg, policy=L.Policy(compute_dtype=torch.bfloat16))
     tok = tokens[:, -1:]
@@ -4098,7 +4115,8 @@ def serve_path(arch: str, label: str) -> dict:
         label.replace("_path", "_profile"))
     del out, decode
     torch.cuda.empty_cache()
-    return {**row, "launches": counts["flash_attention"]}
+    return {**row, "launches": counts["flash_attention"],
+            "tokens": tokens, "prefill_logits": out_logits}
 
 
 def run_resume_path() -> dict:
@@ -4192,6 +4210,160 @@ def run_resume_path() -> dict:
     del straight, resumed
     torch.cuda.empty_cache()
     return {"save_s": save_s, "restore_s": restore_s, "bytes": nbytes}
+
+
+@contextlib.contextmanager
+def torchrun_env():
+    """torchrun's variables for a group of one rank on this card, a free
+    port each time, put back as they were on exit."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def trained_bits(out: dict) -> dict:
+    """A train run's (or a path's run's) final branch, momentum and step,
+    whole, by path."""
+    from repro_torch.utils import tree_flatten
+    return dict(tree_flatten({k: out["state"][k]
+                              for k in ("branch", "opt", "step")}))
+
+
+def same_run(label: str, got: dict, want: dict, got_losses: list,
+             want_losses: list) -> None:
+    """``got`` and ``want`` (``trained_bits``) and the losses bit for bit."""
+    moved = [p for p in want if p not in got or
+             not same_bits(got[p], want[p])]
+    if moved or got.keys() != want.keys():
+        raise AssertionError(f"{label}: the state differs at {moved[:5]}")
+    if got_losses != want_losses:
+        raise AssertionError(f"{label}: losses {got_losses} vs "
+                             f"{want_losses}")
+
+
+def run_launch_mesh(main_plain: dict, serve_plain: dict) -> dict:
+    """The launchers across ranks on the one card: ``--distributed --mesh
+    host`` against the plain launchers (see the module docstring, phase
+    13).  The plain runs are the main path's (``train.main`` with the same
+    arguments; ``main_plain``: its final branch, momentum, step, losses
+    step times and flash launches) and ``serve_path``'s granite-3-8b run
+    (``serve.main`` with the same arguments: its tokens, prefill logits and
+    times).  Returns the flash launches of each launcher path."""
+    from repro_torch.configs.granite_3_8b import FULL
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.cells import duplex_tcfg
+    from repro_torch.launch.mesh import launcher_mesh
+    t_phase = time.perf_counter()
+    arch = "granite-3-8b"
+    entry, cfg, _, policy = train.build(arch, "full")
+    n_attn = flash_layers(cfg)
+    argv = ["--arch", arch, "--preset", "full", "--mode", "duplex",
+            "--steps", str(MAIN_STEPS), "--seq", "4096", "--batch", "2",
+            "--log-every", "1", "--device", "cuda",
+            "--distributed", "--mesh", "host"]
+    torch.cuda.empty_cache()
+    zero_counts()
+    with torchrun_env():
+        out = train.main(argv)
+    counts = read_counts()
+    launches = {"launch_train_plain": main_plain["launches"],
+                "launch_train_mesh": counts.pop("flash_attention")}
+    if any(counts.values()):
+        raise AssertionError(f"launch_mesh: the mesh train run launched "
+                             f"{counts}")
+    mesh_run = {"losses": [m["loss"] for m in out["history"]],
+                "step_s": [m["step_time_s"] for m in out["history"]]}
+    same_run("launch_mesh train", trained_bits(out), main_plain["bits"],
+             mesh_run["losses"], main_plain["losses"])
+    del out
+    if launches["launch_train_mesh"] != launches["launch_train_plain"] or \
+            launches["launch_train_plain"] != n_attn * MAIN_STEPS:
+        raise AssertionError(f"launch_mesh: flash launches {launches}, "
+                             f"expected {n_attn * MAIN_STEPS} each")
+    row = {"arch": arch, "batch": 2, "seq": 4096, "steps": MAIN_STEPS,
+           "losses": main_plain["losses"], "train_bit_identical": True,
+           "train_plain_step_s": main_plain["step_s"],
+           "train_mesh_step_s": mesh_run["step_s"],
+           "train_plain_step_s_median": statistics.median(
+               main_plain["step_s"]),
+           "train_mesh_step_s_median": statistics.median(mesh_run["step_s"])}
+
+    # a checkpoint saved on the mesh, resumed plain: full width, 4 layers
+    cut = dc.replace(FULL, n_layers=4, use_flash=True).validate()
+    tcfg = duplex_tcfg(cut)
+    kw = dict(seq=4096, batch=2, device="cuda", ckpt_every=2, log_every=1)
+    zero_counts()
+    straight = train.train(entry, cut, tcfg, policy, steps=4, **kw)
+    with tempfile.TemporaryDirectory(prefix="_smoke_ckpt_",
+                                     dir=ROOT) as tmp, torchrun_env():
+        with launcher_mesh("host", True, torch.device("cuda")) as (device,
+                                                                   mesh):
+            saved = train.train(entry, cut, tcfg, policy, steps=2,
+                                mesh=mesh, ckpt_dir=tmp,
+                                **{**kw, "device": device})
+        resumed = train.train(entry, cut, tcfg, policy, steps=4,
+                              ckpt_dir=tmp, **kw)
+    counts = read_counts()
+    if resumed["report"].resumed_from != 2:
+        raise AssertionError(f"launch_mesh: the plain run resumed from "
+                             f"{resumed['report'].resumed_from}")
+    same_run("launch_mesh checkpoint", trained_bits(resumed),
+             trained_bits(straight),
+             [m["loss"] for m in resumed["history"]],
+             [m["loss"] for m in straight["history"]][2:])
+    if counts["flash_attention"] != 4 * 8 or \
+            sum(counts.values()) != counts["flash_attention"]:
+        raise AssertionError(f"launch_mesh checkpoint launched {counts}; "
+                             f"expected 32 flash launches (8 steps)")
+    launches["launch_ckpt"] = counts["flash_attention"]
+    row.update(ckpt_layers=4, ckpt_resumed_from=2,
+               ckpt_losses_mesh=[m["loss"] for m in saved["history"]],
+               ckpt_bit_identical=True)
+    del straight, saved, resumed
+
+    sargv = ["--arch", arch, "--preset", "full", "--batch", "4",
+             "--prompt-len", "2048", "--gen", str(SERVE_GEN), "--device",
+             "cuda", "--distributed", "--mesh", "host"]
+    torch.cuda.empty_cache()
+    zero_counts()
+    with torchrun_env():
+        out = serve.main(sargv)
+    counts = read_counts()
+    launches["launch_serve_mesh"] = counts["flash_attention"]
+    if any(counts.values()):
+        raise AssertionError(f"launch_mesh: the mesh serve run launched "
+                             f"{counts}")
+    if not torch.equal(out["tokens"], serve_plain["tokens"]):
+        raise AssertionError("launch_mesh serve: the mesh's tokens differ")
+    if not same_bits(out["prefill_logits"], serve_plain["prefill_logits"]):
+        raise AssertionError("launch_mesh serve: the prefill logits differ")
+    row.update(serve_plain_prefill_s=serve_plain["prefill_s"],
+               serve_mesh_prefill_s=out["prefill_s"],
+               serve_plain_decode_step_ms_median=serve_plain[
+                   "step_ms_median"],
+               serve_mesh_decode_step_ms_median=statistics.median(
+                   out["decode_step_ms"][1:]))
+    del out
+    row.update(serve_batch=4, serve_prompt=2048, serve_gen=SERVE_GEN,
+               serve_tokens_equal=True, serve_logits_bit_identical=True,
+               launches=launches, seconds=time.perf_counter() - t_phase,
+               card=card_line())
+    print("launch_mesh " + json.dumps(row), flush=True)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def run_arms() -> dict:
@@ -4362,6 +4534,10 @@ def main() -> int:
     main_path, run = run_main_path()
     compress = run_compress(run)
     sharding = run_sharding(run)
+    # the plain run that launch_mesh holds the launcher's mesh run to
+    main_plain = {"bits": {p: t.clone() for p, t in trained_bits(run).items()},
+                  "losses": run["losses"], "step_s": run["step_times"],
+                  "launches": main_path["launches"]}
     del run          # each path frees its state: its peak stands alone
     sharding_table()
     cell_runs = run_cells()
@@ -4418,6 +4594,7 @@ def main() -> int:
     rgemma_serve = serve_path("recurrentgemma-9b",
                               "recurrentgemma_serve_path")
     run_resume_path()
+    launch_mesh = run_launch_mesh(main_plain, serve)
     run_arms()
     fidelity = run_ablations()
 
@@ -4447,6 +4624,9 @@ def main() -> int:
                              "vision_serve_path": vision_serve["launches"],
                              "recurrentgemma_serve_path":
                                  rgemma_serve["launches"],
+                             **{k: launch_mesh[k] for k in (
+                                 "launch_train_plain", "launch_train_mesh",
+                                 "launch_ckpt", "launch_serve_mesh")},
                              **cell_launches("flash_attention", cell_runs)},
         **{name: {k: row[k] for k in (
             "q", "kv", "softcap", "max_abs_err", "kernel_ms", "plain_ms",

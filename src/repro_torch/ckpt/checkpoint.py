@@ -14,14 +14,26 @@ each side reads the other's files:
 * **async**: ``save(..., blocking=False)`` copies every tensor to host
   memory before it returns, then writes on a daemon thread, so the loop
   may step on; one save is in flight at a time;
-* **keep-k**: old steps are removed after a successful publish.
+* **keep-k**: old steps are removed after a successful publish;
+* **across ranks**: a state holding DTensors is saved by every rank of
+  the default process group: each DTensor leaf is gathered on every rank
+  (``full_tensor()``), rank 0 alone writes and publishes, and every rank
+  waits on a barrier after a blocking save and after ``wait()`` for an
+  async one, so no rank reads ``latest_step()`` before the publish.  The
+  files are those of a save on one device.  A plain state is written by
+  whoever saves it, as on one device;
+* **elastic restore**: ``restore(shardings=...)`` keeps each rank's block
+  of every leaf on the restoring mesh (``sharding.device_put``), which
+  may differ from the saving one: a checkpoint saved on four ranks
+  restores on one, and one saved on one restores on four.
 
 bf16 leaves are written as their raw bytes with the dtype string ``'<V2'``,
 which is what the reference writes for a bfloat16 array, and read back as
 ``torch.bfloat16``.  Blobs are written uncompressed (``compressed`` False),
 as the reference does without ``zstandard``; a compressed blob raises
-``ImportError`` on restore.  ``restore(device=...)`` places the state on the
-named device, the port's counterpart of the reference's ``shardings``.
+``ImportError`` on restore.  ``restore(device=...)`` reads the state onto
+the named device, and with ``shardings`` (a ``sharding.to_named`` tree)
+places it on their mesh, as the reference's ``restore(step, shardings)``.
 The manifest is encoded by ``msgpack_lite``: this module imports neither
 ``msgpack`` nor JAX.
 """
@@ -37,9 +49,11 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import msgpack_lite
-from repro_torch.utils import tree_flatten, tree_map
+from repro_torch.distributed import ctx
+from repro_torch.utils import tree_flatten, tree_map, whole
 
 _MANIFEST = "manifest.msgpack"
 _BF16 = "<V2"      # numpy's dtype string for a bfloat16 array
@@ -93,26 +107,48 @@ class Checkpointer:
         self.dir.mkdir(parents=True, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        # an async save of DTensors not yet waited for on every rank
+        self._collective = False
 
     # ------------------------------------------------------------------
     def save(self, step: int, state: Any, blocking: bool = True) -> None:
-        """Snapshot ``state`` (device → host) and persist it."""
+        """Snapshot ``state`` (device → host) and persist it.  A state
+        holding DTensors is saved by every rank of the default group: each
+        DTensor leaf is gathered, rank 0 writes, and a blocking save
+        returns on every rank after the publish."""
         self.wait()                      # one in-flight save at a time
-        # a copy even of a CPU tensor, so that no later in-place update of
-        # the live state reaches the snapshot
-        host = tree_map(lambda t: t.detach().to("cpu", copy=True), state)
+        collective = ctx.placed(state)
+        writer = not collective or dist.get_rank() == 0
+
+        def snapshot(t):
+            # a copy even of a CPU tensor, so that no later in-place update
+            # of the live state reaches the snapshot; leaf by leaf, so the
+            # device holds one gathered leaf at a time
+            value = whole(t.detach())
+            return value.to("cpu", copy=True) if writer else None
+        host = tree_map(snapshot, state)
         if blocking:
-            self._write(step, host)
+            if writer:
+                self._write(step, host)
+            if collective:
+                dist.barrier()
         else:
-            self._thread = threading.Thread(
-                target=self._write_async, args=(step, host), daemon=True)
-            self._thread.start()
+            self._collective = collective
+            if writer:
+                self._thread = threading.Thread(
+                    target=self._write_async, args=(step, host),
+                    daemon=True)
+                self._thread.start()
 
     def wait(self) -> None:
-        """Join the save in flight; re-raise what it raised."""
+        """Join the save in flight, and after a save of DTensors wait for
+        every rank; re-raise what the save raised."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._collective:
+            self._collective = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -172,9 +208,13 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None, *, device) -> Any:
+    def restore(self, step: Optional[int] = None, *, device,
+                shardings: Any = None) -> Any:
         """Load a checkpoint (the latest by default) as tensors on
-        ``device``; there is no default device."""
+        ``device``; there is no default device.  With ``shardings`` (a
+        ``sharding.to_named`` tree of the state's structure) every rank
+        reads the files and keeps its own block of each leaf on their mesh
+        (``sharding.device_put``), whatever mesh saved them."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -191,4 +231,8 @@ class Checkpointer:
                     f"checkpoint step {step} is zstd-compressed but "
                     "the 'zstandard' package is not installed")
             values[path] = _to_tensor(blob, e["dtype"], e["shape"], device)
-        return _rebuild(manifest["skeleton"], values)
+        state = _rebuild(manifest["skeleton"], values)
+        if shardings is None:
+            return state
+        from repro_torch.distributed import sharding
+        return sharding.device_put(state, shardings)

@@ -32,8 +32,9 @@ scheme means, or fails: ``at_use`` (a weight's ZeRO-3 shards gathered),
 ``index_copy_`` (a decode step's cache slot written in each rank's
 block), ``write_slots_`` (a prefill's slots so written), ``full_placed``
 (a prefill's cache allocated by blocks), ``attention_blocks`` (a
-prefill's attention on each rank's block), ``softmax``, ``gather_dim``,
-``split_last``, ``matmul``, ``unit_shards_replicated``, and for the
+prefill's attention, or the flash kernel, on each rank's block),
+``softmax``, ``gather_dim``, ``split_last``, ``matmul``,
+``unit_shards_replicated``, and for the
 train step's backward and loss ``grad_laid_out`` (a product's gradients
 in their forward layout), ``placed_like``, ``logsumexp_pick`` and
 ``argmax`` (the vocab-parallel loss), ``tiled`` (BFP groups on each
@@ -423,7 +424,8 @@ def gather_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
 def attention_blocks(core, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, **kw) -> torch.Tensor:
     """``core(q, k, v, **kw)``, an attention core over q [B, Sq, H, hd] and
-    k, v [B, Skv, KV, hd] (``L.full_attention``, ``L.blockwise_attention``).
+    k, v [B, Skv, KV, hd] (``L.full_attention``, ``L.blockwise_attention``,
+    or the flash kernel, which then launches once per rank on its block).
 
     On DTensors each rank runs ``core`` on plain tensors, its own block:
     the batch rows and query heads that q's placements give it, q's rows

@@ -16,6 +16,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import refuse_dtensor
 from repro_torch.utils import ceil_to
 
 F32_EXP_BIAS = 127
@@ -147,8 +148,10 @@ def gemm_tn(aq: torch.Tensor, bq: torch.Tensor, m: int, n: int,
     or B tile is all zero is skipped (which changes no value).
 
     CPU tensors take ``gemm_tn_plain``; CUDA tensors launch the kernel
-    (counted in ``gemm_tn.launches``) or raise.
+    (counted in ``gemm_tn.launches``) or raise; a DTensor raises
+    ``TypeError``.
     """
+    refuse_dtensor("gemm_tn", aq, bq)
     if aq.dim() != 2 or bq.dim() != 2 or \
             (aq.dtype, bq.dtype) != (torch.bfloat16, torch.bfloat16) or \
             bq.shape[1] != aq.shape[1] or bq.device != aq.device or \

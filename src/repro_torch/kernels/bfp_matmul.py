@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import refuse_autograd, refuse_dtensor
 from repro_torch.kernels.bfp_common import (DTYPE_CODE, GEMM_TILE_K,
                                             GEMM_TILE_M, GEMM_TILE_N,
                                             bfp_library, check_error,
@@ -72,6 +72,7 @@ def quantize_operand(x: torch.Tensor, tile_rows: int, *, group: int = 32,
     CPU tensors take ``quantize_operand_plain``; CUDA tensors launch the
     operand pass (counted in ``quantize_operand.launches``) or raise.
     """
+    refuse_dtensor("quantize_operand", x)
     if x.device.type == "cpu":
         return quantize_operand_plain(x, tile_rows, group=group, mbits=mbits,
                                       ebits=ebits, gate=gate)
@@ -125,8 +126,10 @@ def bfp_matmul(a: torch.Tensor, b: torch.Tensor, *, group: int = 32,
     ``a``: (M, K), ``b``: (K, N).  CPU tensors take the plain version; CUDA
     tensors launch the operand passes and the GEMM (one count in
     ``bfp_matmul.launches`` per product) or raise.  Forward only: an input
-    that requires grad under grad mode raises ``RuntimeError``.
+    that requires grad under grad mode raises ``RuntimeError``; a DTensor
+    operand raises ``TypeError``.
     """
+    refuse_dtensor("bfp_matmul", a, b)
     refuse_autograd("bfp_matmul", a, b)
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"expected 2D operands, got {tuple(a.shape)} @ "

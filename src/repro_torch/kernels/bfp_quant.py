@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import refuse_autograd, refuse_dtensor
 from repro_torch.kernels.bfp_common import (DTYPE_CODE, GEMM_TILE_K,
                                             GEMM_TILE_M, GEMM_TILE_N,
                                             bfp_library, check_error,
@@ -59,8 +59,10 @@ def bfp_quantize(x: torch.Tensor, *, group: int = 32, mbits: int = 5,
     Counterpart of the JAX ``bfp_quantize_pallas``.  CPU tensors take the
     plain version; CUDA tensors launch the kernel (counted in
     ``bfp_quantize.launches``) or raise.  Forward only: an input that
-    requires grad under grad mode raises ``RuntimeError``.
+    requires grad under grad mode raises ``RuntimeError``; a DTensor raises
+    ``TypeError``.
     """
+    refuse_dtensor("bfp_quantize", x)
     refuse_autograd("bfp_quantize", x)
     if x.dim() != 2:
         raise ValueError(f"expected 2D input, got {tuple(x.shape)}")
@@ -116,6 +118,7 @@ def dequantize_operand(mant: torch.Tensor, exp: torch.Tensor, tile_rows: int,
     CPU tensors take ``dequantize_operand_plain``; CUDA tensors launch the
     operand pass (counted in ``dequantize_operand.launches``) or raise.
     """
+    refuse_dtensor("dequantize_operand", mant, exp)
     if mant.device.type == "cpu":
         return dequantize_operand_plain(mant, exp, tile_rows, group=group,
                                         mbits=mbits)
@@ -165,8 +168,10 @@ def bfp_matmul_packed(a_mant, a_exp, b_mant, b_exp, *, group: int = 32,
     CPU tensors take the plain version; CUDA tensors launch the operand
     passes and the GEMM (one count in ``bfp_matmul_packed.launches`` per
     product) or raise.  Forward only, like every kernel wrapper (integer
-    operands cannot require grad, so only float inputs are checked).
+    operands cannot require grad, so only float inputs are checked).  A
+    DTensor operand raises ``TypeError``.
     """
+    refuse_dtensor("bfp_matmul_packed", a_mant, a_exp, b_mant, b_exp)
     refuse_autograd("bfp_matmul_packed", a_mant, a_exp, b_mant, b_exp)
     (m, k), (k2, n) = a_mant.shape, b_mant.shape
     if k != k2:

@@ -45,7 +45,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import refuse_autograd
+from repro_torch.kernels import refuse_autograd, refuse_dtensor
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
@@ -138,8 +138,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (counted in ``flash_attention.launches``) or raise.  Forward only: an
-    input that requires grad under grad mode raises ``RuntimeError``.
+    input that requires grad under grad mode raises ``RuntimeError``.  A
+    DTensor raises ``TypeError``: on a mesh, ``models/layers.py::
+    attention_layer`` runs this function on each rank's local block.
     """
+    refuse_dtensor("flash_attention", q, k, v)
     refuse_autograd("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     _, nkv, skv, _ = k.shape

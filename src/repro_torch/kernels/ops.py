@@ -12,6 +12,8 @@ kernel wrapper of the port (CPU → plain version, CUDA → kernel or raise).
 reference: under grad mode an input that requires grad raises
 ``RuntimeError`` in the kernel wrapper they call.  ``bfp_dense`` is its own
 ``autograd.Function``, whose forward and backward run with grad mode off.
+Every wrapper refuses a DTensor operand (``TypeError``): no model calls
+them on a mesh, and they have no route that runs on each rank's block.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.kernels import refuse_dtensor
 from repro_torch.kernels.bfp_matmul import bfp_matmul
 from repro_torch.kernels.bfp_quant import bfp_matmul_packed, bfp_quantize
 
@@ -83,4 +86,5 @@ def bfp_dense(x: torch.Tensor, w: torch.Tensor,
 
     x: (..., K), w: (K, N) → (..., N) in x.dtype.
     """
+    refuse_dtensor("bfp_dense", x, w)
     return _BFPDense.apply(x, w, cfg)

@@ -1,5 +1,5 @@
-"""Serving launcher for the port on one card: batched prefill, then a
-greedy decode loop.
+"""Serving launcher for the port, on one card or on a mesh of ranks:
+batched prefill, then a greedy decode loop.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
         --preset full --batch 4 --prompt-len 2048 --gen 32
@@ -13,12 +13,17 @@ greedy decode loop.
         --preset smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-9b --preset smoke --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch granite-3-8b --preset smoke --device cpu --distributed
 
 Counterpart of ``repro/launch/serve.py``.  Runs on ``cuda`` unless
-``--device cpu`` is given; a CUDA request without a card raises.  The
-launcher runs one card without a mesh: the sharding rules, the activation
-context and the meshes are in ``repro_torch.distributed`` and
-``launch/mesh.py``, and a run across ranks is still to come.
+``--device cpu`` is given; a CUDA request without a card raises.
+``--mesh`` and ``--distributed`` are the train launcher's
+(``launch/train.py``): with ``--distributed`` every rank draws the whole
+params, prompts and frontend, keeps its block (params by ``param_pspec``,
+prompts and frontend by ``batch_pspec``), and runs prefill and decode under
+the arch's activation rules; the tokens and the prefill logits come back
+gathered.
 ``--preset full`` runs bf16 compute, bf16 params and a bf16 cache;
 ``smoke`` runs f32.  Params are random, drawn on the device from seed 0,
 and prompts from seed 1.  An arch
@@ -39,15 +44,21 @@ of its own (a model cut in depth).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import statistics
 import time
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.launch.train import stub_frontend
+from repro_torch.distributed import ctx, sharding as sh
+from repro_torch.launch.cells import activation_rules
+from repro_torch.launch.mesh import launcher_mesh
+from repro_torch.launch.train import add_mesh_args, checked_device, \
+    place_batch, stub_frontend
 from repro_torch.models import layers as L, registry
 from repro_torch.train import serve_step as ss
-from repro_torch.utils import tree_checksum
+from repro_torch.utils import tree_checksum, whole
 
 
 def _mark(device: torch.device):
@@ -81,28 +92,32 @@ def main(argv=None) -> dict:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card raises")
+    add_mesh_args(ap)
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA device requested but torch.cuda."
-                           "is_available() is False; pass --device cpu to "
-                           "run on the CPU")
+    device = checked_device(args.device)
     entry = registry.get(args.arch)
-    return serve(entry, entry.config(args.preset), batch=args.batch,
-                 prompt_len=args.prompt_len, gen=args.gen,
-                 dtype=(torch.bfloat16 if args.preset == "full"
-                        else torch.float32), device=device)
+    with launcher_mesh(args.mesh, args.distributed, device) as (device,
+                                                                mesh):
+        return serve(entry, entry.config(args.preset), batch=args.batch,
+                     prompt_len=args.prompt_len, gen=args.gen,
+                     dtype=(torch.bfloat16 if args.preset == "full"
+                            else torch.float32), device=device, mesh=mesh)
 
 
 def serve(entry, cfg, *, batch: int, prompt_len: int, gen: int,
-          dtype: torch.dtype, device) -> dict:
+          dtype: torch.dtype, device, mesh=None) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
     decode ``gen`` tokens greedily, with ``dtype`` compute, params and
-    cache on ``device``; return ``{"tokens": [B, gen] int32, "cache",
-    "params", "frontend" (None without one), "prefill_logits": [B, V],
-    "prefill_s", "decode_s", "decode_step_ms": one per decode step,
-    "tok_per_s", "backbone_checksum": (before, after)}``."""
+    cache on ``device``, or on ``mesh`` (a ``DeviceMesh`` of the default
+    group, whose ranks all call this) with params, prompts and frontend
+    placed as DTensors and both steps under the arch's activation rules;
+    return ``{"tokens": [B, gen] int32, "cache", "params", "frontend"
+    (None without one), "prefill_logits": [B, V], "prefill_s",
+    "decode_s", "decode_step_ms": one per decode step, "tok_per_s",
+    "backbone_checksum": (before, after)}``.  On a mesh the tokens, the
+    prefill logits and the frontend are whole, and the cache and params
+    DTensors."""
     device = torch.device(device)
     policy = L.Policy(compute_dtype=dtype)
     max_len = prompt_len + gen + 8
@@ -115,6 +130,32 @@ def serve(entry, cfg, *, batch: int, prompt_len: int, gen: int,
         0, cfg.vocab, (batch, prompt_len),
         generator=torch.Generator(device=device).manual_seed(1),
         device=device)
+    rules = contextlib.nullcontext()
+    if mesh is not None:
+        params = sh.device_put(params, sh.to_named(
+            sh.tree_pspecs(params, mesh, sh.param_pspec), mesh))
+        rules = ctx.activation_sharding(mesh, activation_rules(cfg, mesh))
+    with rules:
+        out = _serve_steps(entry, cfg, params, place_batch(prompts, mesh),
+                           place_batch(frontend, mesh), max_len=max_len,
+                           gen=gen, policy=policy, device=device)
+    log = mesh is None or dist.get_rank() == 0
+    if log:
+        print(f"prefill: {out['prefill_s']:.2f}s")
+        step_ms = out["decode_step_ms"]
+        print(f"decode: {gen - 1} steps, {out['tok_per_s']:.1f} tok/s" + (
+            f", step median {statistics.median(step_ms):.2f} ms" if step_ms
+            else ""))
+        print("first sequence:", out["tokens"][0].tolist())
+    return {**out, "params": params, "frontend": frontend,
+            "backbone_checksum": (before, tree_checksum(params))}
+
+
+def _serve_steps(entry, cfg, params, prompts, frontend, *, max_len: int,
+                 gen: int, policy: L.Policy, device) -> dict:
+    """Prefill, then ``gen - 1`` greedy decode steps, timed."""
+    batch = prompts.shape[0]
+    dtype = policy.compute_dtype
     prefill = ss.make_prefill_step(entry, cfg, max_len=max_len,
                                    policy=policy, cache_dtype=dtype,
                                    logits_mode="last")
@@ -123,11 +164,12 @@ def serve(entry, cfg, *, batch: int, prompt_len: int, gen: int,
     _sync(device)
     t0 = time.perf_counter()
     out = prefill(params, prompts, frontend)
-    cache, logits = out["cache"], out["next_token_logits"]
+    # a vocab-sharded DTensor's logits are gathered for the argmax
+    cache, logits = out["cache"], ctx.gather_dim(out["next_token_logits"],
+                                                 -1)
     tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
     _sync(device)
     prefill_s = time.perf_counter() - t0
-    print(f"prefill: {prefill_s:.2f}s")
 
     t0 = time.perf_counter()
     toks, marks = [tok], [_mark(device)]
@@ -138,17 +180,10 @@ def serve(entry, cfg, *, batch: int, prompt_len: int, gen: int,
     _sync(device)
     decode_s = time.perf_counter() - t0
     step_ms = [_elapsed_ms(a, b) for a, b in zip(marks, marks[1:])]
-    tok_per_s = (gen - 1) * batch / decode_s
-    print(f"decode: {gen - 1} steps, {tok_per_s:.1f} tok/s" + (
-        f", step median {statistics.median(step_ms):.2f} ms" if step_ms
-        else ""))
-    generated = torch.cat(toks, dim=1)
-    print("first sequence:", generated[0].tolist())
-    return {"tokens": generated, "cache": cache, "params": params,
-            "frontend": frontend, "prefill_logits": logits,
-            "prefill_s": prefill_s, "decode_s": decode_s,
-            "decode_step_ms": step_ms, "tok_per_s": tok_per_s,
-            "backbone_checksum": (before, tree_checksum(params))}
+    return {"tokens": whole(torch.cat(toks, dim=1)), "cache": cache,
+            "prefill_logits": whole(logits), "prefill_s": prefill_s,
+            "decode_s": decode_s, "decode_step_ms": step_ms,
+            "tok_per_s": (gen - 1) * batch / decode_s}
 
 
 if __name__ == "__main__":

@@ -387,10 +387,16 @@ def attention_layer(p, x, cfg: AttnConfig, *, policy=Policy(), bfp=NO_BFP,
         from repro_torch.kernels.flash_attention import flash_attention
         qc = min(cfg.q_chunk, s)
         kc = min(cfg.kv_chunk, kv_x.shape[1])
-        o = flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=causal, softcap=cfg.softcap, q_chunk=qc,
-            kv_chunk=kc).transpose(1, 2)
+
+        def flash(q, k, v, **kw):
+            return flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                q_chunk=qc, kv_chunk=kc, **kw).transpose(1, 2)
+
+        # on DTensors the kernel runs once per rank on its plain block; it
+        # takes no query offset, so a sequence-split q is gathered first
+        o = ctx.attention_blocks(flash, ctx.gather_dim(q, 1), k, v,
+                                 causal=causal, softcap=cfg.softcap)
     else:
         o = attention_core(q, k, v, cfg, causal=causal)
     o = o.reshape(b, s, cfg.n_heads * cfg.head_dim)

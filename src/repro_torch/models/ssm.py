@@ -203,8 +203,12 @@ def _ssd_scan(x, dt, A, B, C, chunk: int, h0=None):
         xl, local(dt, {0: 0, 2: 2}), local(A, {2: 0}),
         local(B, {0: 0})[:, :, cut], local(C, {0: 0})[:, :, cut], chunk,
         h0=None if h0 is None else local(h0, {0: 0, 2: 1}))
-    y = DTensor.from_local(y, mesh, kept, run_check=False, shape=x.shape,
-                           stride=x.stride())
+    # laid out contiguously, as the DTensor's strides say (a sequence of
+    # one chunk leaves ``y`` a transposed view, whose layout contiguous
+    # strides would not describe)
+    y = DTensor.from_local(y.contiguous(), mesh, kept, run_check=False,
+                           shape=x.shape,
+                           stride=ctx.contiguous_stride(x.shape))
     h_pl = [Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2)
             else Replicate() for p in kept]
     shape = (x.shape[0], heads, x.shape[3], B.shape[3])

@@ -6,10 +6,13 @@ contract:
 * every ``ckpt_every`` steps the full state is saved asynchronously (the
   host copy is taken before the next step), and a final save blocks;
 * on (re)start the loop restores the latest published checkpoint onto
-  ``device`` and the data pipeline resumes at the same batch index, so a
-  killed job continues exactly (up to the save cadence);
+  ``device`` (and with ``shardings`` onto their mesh, whatever mesh saved
+  it) and the data pipeline resumes at the same batch index, so a killed
+  job continues exactly (up to the save cadence);
 * a per-step wall-clock deadline flags stragglers.
-The report also carries the final state, since the loop owns it.
+The report also carries the final state, since the loop owns it.  On a
+mesh every rank runs the loop; the step counter and the metrics, replicated
+DTensors there, are gathered explicitly before the host reads them.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Callable, Optional
 
 from repro_torch.ckpt.checkpoint import CheckpointConfig, Checkpointer
 from repro_torch.data.pipeline import DataConfig, Prefetcher, make_source
+from repro_torch.utils import whole
 
 
 @dataclasses.dataclass
@@ -43,11 +47,12 @@ class LoopReport:
 
 def run(loop_cfg: LoopConfig, data_cfg: DataConfig, train_step: Callable,
         init_state_fn: Callable, log_fn: Callable = print, *,
-        device=None) -> LoopReport:
+        device=None, shardings=None) -> LoopReport:
     """Run (or resume) training; returns the report.  ``train_step(state,
     batch) → (state, metrics)`` takes numpy batches; ``init_state_fn()``
     builds a fresh state when no checkpoint exists; a checkpoint is
-    restored onto ``device``, which ``loop_cfg.ckpt`` requires.  A step's
+    restored onto ``device``, which ``loop_cfg.ckpt`` requires, and placed
+    by ``shardings`` (a ``sharding.to_named`` tree) where given.  A step's
     time ends when its loss reaches the host."""
     ckpt = None
     if loop_cfg.ckpt is not None:
@@ -57,11 +62,11 @@ def run(loop_cfg: LoopConfig, data_cfg: DataConfig, train_step: Callable,
         ckpt = Checkpointer(loop_cfg.ckpt)
     resumed_from = None
     if ckpt and ckpt.latest_step() is not None:
-        state = ckpt.restore(device=device)
-        resumed_from = int(state["step"])
+        state = ckpt.restore(device=device, shardings=shardings)
+        resumed_from = int(whole(state["step"]))
     else:
         state = init_state_fn()
-    start_step = int(state["step"])
+    start_step = int(whole(state["step"]))
 
     source = make_source(data_cfg)
     prefetch = Prefetcher(source, start_index=start_step)
@@ -73,7 +78,7 @@ def run(loop_cfg: LoopConfig, data_cfg: DataConfig, train_step: Callable,
             batch = prefetch.next()
             t0 = time.time()
             state, metrics = train_step(state, batch)
-            loss = float(metrics["loss"])        # waits for the device
+            loss = float(whole(metrics["loss"]))  # waits for the device
             dt = time.time() - t0
 
             if loop_cfg.step_deadline_s and dt > loop_cfg.step_deadline_s:
@@ -88,7 +93,7 @@ def run(loop_cfg: LoopConfig, data_cfg: DataConfig, train_step: Callable,
 
             if step % loop_cfg.log_every == 0 or \
                     step == loop_cfg.total_steps - 1:
-                m = {k: float(v) for k, v in metrics.items()}
+                m = {k: float(whole(v)) for k, v in metrics.items()}
                 m["loss"] = loss
                 m["step"] = step
                 m["step_time_s"] = dt

@@ -62,6 +62,14 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def whole(t: Any) -> Any:
+    """A DTensor's whole value as a plain tensor (``full_tensor()``, a
+    collective: every rank of its mesh calls it); anything else as it
+    is."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
 def count_params(tree: Any) -> int:
     return sum(int(math.prod(x.shape)) for x in tree_leaves(tree)
                if hasattr(x, "shape"))
@@ -76,10 +84,12 @@ def cast_tree(tree: Any, dtype: torch.dtype) -> Any:
 
 def tree_checksum(tree: Any) -> int:
     """Exact checksum of a tree's tensors: the sum of their raw bits read as
-    integers.  Chunked, so no leaf is copied whole into a wider dtype."""
+    integers.  Chunked, so no leaf is copied whole into a wider dtype; a
+    DTensor leaf is gathered whole (``whole``, every rank calls it), one
+    leaf at a time."""
     total = 0
     for leaf in tree_leaves(tree):
-        flat = leaf.detach().reshape(-1)
+        flat = whole(leaf).detach().reshape(-1)
         bits = flat.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
                           8: torch.int64}[flat.element_size()])
         total += sum(int(c.to(torch.int64).sum()) for c in bits.split(1 << 24))

@@ -1,9 +1,13 @@
 """The port's checkpointer against repro.ckpt: the reference's own cases
 (round trip, keep-k, async, corrupt blob, unpublished .tmp, restore onto a
 named device), bf16, async saves that race the next step, files crossing
-over both ways, the manifest's msgpack bytes, and loop resume."""
+over both ways, the manifest's msgpack bytes, loop resume, and saves of
+DTensor states across two gloo ranks (the barrier, the gathered blobs)."""
 import math
+import os
 import random
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -400,3 +404,104 @@ def test_example_trains_and_resumes(tmp_path, capsys):
     assert again.state["opt"]["step"].dtype == torch.int32
     assert int(again.state["opt"]["step"]) == 6
     assert "resumed from step 4" in capsys.readouterr().out
+
+
+# ------------------------------------------------------------ across ranks
+
+TWO_RANKS = r"""
+import sys, time
+from datetime import timedelta
+from pathlib import Path
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import Replicate, Shard
+from repro_torch.ckpt.checkpoint import CheckpointConfig, Checkpointer
+from repro_torch.distributed import sharding as sh
+d, rank = Path(sys.argv[1]), int(sys.argv[2])
+dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=rank,
+                        world_size=2, timeout=timedelta(seconds=60))
+try:
+    mesh = init_device_mesh("cpu", (2,), mesh_dim_names=("data",))
+    gen = torch.Generator().manual_seed(0)
+    state = {"step": torch.tensor(5, dtype=torch.int32),
+             "w": torch.randn((6, 4), generator=gen),
+             "h": torch.randn((4, 6), generator=gen).to(torch.bfloat16)}
+    named = {"step": sh.NamedSharding(mesh, (Replicate(),)),
+             "w": sh.NamedSharding(mesh, (Shard(0),)),
+             "h": sh.NamedSharding(mesh, (Shard(1),))}
+    placed = sh.device_put(state, named)
+    # rank 0's writes are slowed, so that a rank that did not wait for the
+    # publish would find nothing
+    write = Checkpointer._write
+    def slow_write(self, step, host):
+        time.sleep(1.0)
+        write(self, step, host)
+    Checkpointer._write = slow_write
+    seen = []
+    ck = Checkpointer(CheckpointConfig(str(d / "mesh")))
+    ck.save(1, placed, blocking=True)
+    seen.append(ck.latest_step())
+    ck.save(2, placed, blocking=False)
+    ck.wait()
+    seen.append(ck.latest_step())
+    Checkpointer._write = write
+    if rank == 0:
+        Checkpointer(CheckpointConfig(str(d / "plain"))).save(2, state)
+    dist.barrier()
+    back = Checkpointer(CheckpointConfig(str(d / "mesh"))).restore(
+        device="cpu", shardings=named)
+    same = all(torch.equal(back[k].to_local(), placed[k].to_local()) and
+               tuple(back[k].placements) == tuple(placed[k].placements)
+               for k in state)
+    print("SEEN", seen, "RESTORED", same)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """A state of one replicated and two split leaves (f32, bf16) saved as
+    DTensors by two gloo ranks, each a process, blocking at step 1 and
+    async at step 2, with rank 0's writes slowed by a second; the same
+    state saved plain at step 2.  Returns each rank's output and the
+    directory."""
+    d = tmp_path_factory.mktemp("two")
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).parents[1] / "src"),
+           "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen([sys.executable, "-c", TWO_RANKS, str(d),
+                               str(r)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=120)
+            assert p.returncode == 0, f"rank {r}: {err[-3000:]}"
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=10)
+    return outs, d
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_no_rank_sees_an_unpublished_step(rank, two_ranks):
+    """After a blocking save, and after ``wait()`` for an async one, every
+    rank finds the step published, though only rank 0 writes it, slowly;
+    each rank restores its own block, placed as saved."""
+    outs, _ = two_ranks
+    assert "SEEN [1, 2] RESTORED True" in outs[rank]
+
+
+def test_blobs_of_a_gathered_dtensor_are_the_plain_saves(two_ranks):
+    _, d = two_ranks
+    mesh, plain = d / "mesh" / f"step_{2:012d}", d / "plain" / f"step_{2:012d}"
+    names = sorted(f.name for f in plain.iterdir())
+    assert names == sorted(f.name for f in mesh.iterdir())
+    assert len(names) == 4                    # three blobs and the manifest
+    for name in names:
+        assert (mesh / name).read_bytes() == (plain / name).read_bytes(), \
+            name
